@@ -1,0 +1,465 @@
+"""
+Scene engine: per-(target, observer, time) geometry in float64 PyTorch.
+
+Port of ``planetmapper_tpu.core.scene``. It replaces the CSPICE calls made
+throughout ``Body`` in the reference (``subpnt`` body.py:538, ``subslr``
+body.py:559, ``sincpt`` body.py:1010, ``illumf`` body.py:1925, ``spkcpt``
+body.py:2833, ``et2lst`` body.py:2369, and the per-point ``pxfrm2``
+light-time retargeting at body.py:917-1006) with batched tensor functions
+over arrays of points.
+
+Scene work is scalar-sized, so it runs on CPU tensors
+(:data:`.._device.SCENE_DEVICE`); the per-pixel backplane pipeline is the
+part that runs on the GPU (:mod:`..pipeline`).
+
+Internally everything works in:
+
+- "obsvec": J2000 rectangular coordinates centred on the observer
+- "targvec": body-fixed rectangular coordinates centred on the target
+
+with east-positive longitudes in radians (API layers apply planetographic
+sign conventions). ``limbpt``/``termpt`` (wireframes) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .._device import f64
+from . import geometry as geom
+from .ephemeris import (
+    CLIGHT,
+    SSB,
+    Ephemeris,
+    _jvp_time,
+    parse_abcorr,
+    stelab,
+)
+from .frames import BodyFrameModel
+
+
+def _matvec(m, v):
+    return torch.einsum('...ij,...j->...i', m, v)
+
+
+def _sub_tensors(sub: dict) -> dict:
+    return {k: f64(v) for k, v in sub.items()}
+
+
+class SceneEngine:
+    """
+    Batched geometry engine for one (target, observer, frames, abcorr,
+    illumination source) configuration. ``et`` is always an argument, so
+    one engine serves every observation epoch of that configuration.
+    """
+
+    def __init__(
+        self,
+        ephemeris: Ephemeris,
+        *,
+        target_id: int,
+        observer_id: int,
+        illumination_source_id: int,
+        radii: tuple[float, float, float],
+        frame_model: BodyFrameModel,
+        abcorr: str = 'CN',
+        et_ref: float = 0.0,
+    ) -> None:
+        self.ephemeris = ephemeris
+        self.target_id = target_id
+        self.observer_id = observer_id
+        self.illumination_source_id = illumination_source_id
+        self.radii = tuple(float(r) for r in radii)
+        self.r_eq = self.radii[0]
+        self.r_polar = self.radii[2]
+        self.flattening = (self.r_eq - self.r_polar) / self.r_eq
+        self.frame_model = frame_model
+        self.abcorr = str(abcorr).strip().upper()
+        self.corr = parse_abcorr(self.abcorr)
+        # Epoch retargeting sign: reception corrections evaluate the
+        # target at et - lt, transmission ('X*') at et + lt, geometric
+        # ('NONE') at et itself (light times are still computed and
+        # returned). Stellar aberration rotates by +v/c for reception
+        # (stelab) and -v/c for transmission (stlabx).
+        self._tau_scale = 0.0 if self.corr.geometric else (
+            1.0 if self.corr.reception else -1.0
+        )
+        self._stelab_vsign = 1.0 if self.corr.reception else -1.0
+        self.et_ref = float(et_ref)
+
+        # Chain-frozen SSB state functions (float64 torch in et)
+        self._pos_t = ephemeris.position_fn(target_id, SSB, et_ref)
+        self._pos_o = ephemeris.position_fn(observer_id, SSB, et_ref)
+        if ephemeris.has_data_for(illumination_source_id, et_ref):
+            self._pos_s = ephemeris.position_fn(
+                illumination_source_id, SSB, et_ref
+            )
+        else:
+            self._pos_s = None
+
+    # ------------------------------------------------------------------
+    # Core building blocks
+    # ------------------------------------------------------------------
+    def _apparent_target_center(self, et):
+        """Apparent position of target centre from observer + light time."""
+        obs = self._pos_o(et)
+        obs_pos, obs_vel = obs[..., :3], obs[..., 3:]
+        lt = torch.zeros_like(et)
+        n_iter = 3 if self.corr.converged else 1
+        if self.corr.geometric:
+            n_iter = 0
+        targ = None
+        for _ in range(n_iter + 1):
+            targ = self._pos_t(et - self._tau_scale * lt)
+            r = targ[..., :3] - obs_pos
+            lt = geom.norm(r) / CLIGHT
+        pos = targ[..., :3] - obs_pos
+        if self.corr.stellar:
+            pos = stelab(pos, self._stelab_vsign * obs_vel / CLIGHT)
+        return pos, lt, obs_pos, obs_vel
+
+    def _ray_to_geometric(self, d, obs_vel):
+        """
+        Convert an apparent ray direction to the geometric direction by
+        removing stellar aberration (no-op unless '+S' is active).
+        """
+        if not self.corr.stellar:
+            return d
+        return stelab(d, -self._stelab_vsign * obs_vel / CLIGHT)
+
+    def _sincpt_core(self, et, radii, obsvec_norm, lt0):
+        """
+        Surface intercept of rays from the observer (``sincpt`` equivalent):
+        per-ray converged-Newtonian light time, target position and frame
+        orientation re-evaluated at each ray's emission epoch.
+
+        Returns ``(targvec, trgepc, found)``; targvec is NaN where the ray
+        misses the ellipsoid.
+        """
+        obs = self._pos_o(et)
+        obs_pos, obs_vel = obs[..., :3], obs[..., 3:]
+        d = self._ray_to_geometric(obsvec_norm, obs_vel)
+
+        lt = torch.broadcast_to(lt0, d.shape[:-1])
+        n_iter = 1 if self.corr.geometric else (4 if self.corr.converged else 1)
+        spoint = None
+        found = None
+        for _ in range(n_iter):
+            tau = et - self._tau_scale * lt
+            targ_pos = self._pos_t(tau)[..., :3] - obs_pos
+            o_bf = -self.frame_model.rotate_j2000_to_bodyfixed(tau, targ_pos)
+            d_bf = self.frame_model.rotate_j2000_to_bodyfixed(
+                tau, torch.broadcast_to(d, targ_pos.shape)
+            )
+            s, found = geom.ray_ellipsoid_intercept(o_bf, d_bf, radii)
+            spoint = o_bf + s[..., None] * d_bf
+            dist = torch.where(found, s, lt0 * CLIGHT)
+            lt = dist / CLIGHT
+        trgepc = et - self._tau_scale * lt
+        spoint = torch.where(found[..., None], spoint, math.nan)
+        return spoint, trgepc, found
+
+    def _illumf_core(self, et, radii, targvec):
+        """
+        Illumination angles + visibility/lit flags for body-fixed surface
+        points (``illumf`` equivalent). Per-point light time epochs for the
+        observer ray and for the sun direction.
+        """
+        obs = self._pos_o(et)
+        obs_pos = obs[..., :3]
+        # 'LT' needs TWO passes here: the first computes the point light
+        # time at tau = et (the loop seeds lt = 0), the second evaluates
+        # the geometry at the corrected epoch - one correction, matching
+        # CSPICE illumf 'LT'.
+        n_iter = 4 if self.corr.converged else 2
+        if self.corr.geometric:
+            n_iter = 1
+
+        # Light time observer -> surface point
+        lt = torch.zeros(targvec.shape[:-1], dtype=torch.float64)
+        srfvec_j2000 = None
+        tau = None
+        for _ in range(n_iter):
+            tau = et - self._tau_scale * lt
+            targ_pos = self._pos_t(tau)[..., :3] - obs_pos
+            point_j2000 = targ_pos + self.frame_model.rotate_bodyfixed_to_j2000(
+                tau, targvec
+            )
+            srfvec_j2000 = point_j2000
+            lt = geom.norm(point_j2000) / CLIGHT
+
+        srfvec_bf = self.frame_model.rotate_j2000_to_bodyfixed(
+            tau, srfvec_j2000
+        )
+
+        # Apparent sun direction from the surface point at epoch tau
+        if self._pos_s is not None:
+            point_ssb = self._pos_t(tau)[
+                ..., :3
+            ] + self.frame_model.rotate_bodyfixed_to_j2000(tau, targvec)
+            lt_s = torch.zeros(targvec.shape[:-1], dtype=torch.float64)
+            sun_dir_j2000 = None
+            for _ in range(n_iter):
+                sun_pos = self._pos_s(tau - self._tau_scale * lt_s)[..., :3]
+                sun_dir_j2000 = sun_pos - point_ssb
+                lt_s = geom.norm(sun_dir_j2000) / CLIGHT
+            sun_dir_bf = self.frame_model.rotate_j2000_to_bodyfixed(
+                tau, sun_dir_j2000
+            )
+        else:
+            sun_dir_bf = torch.full_like(targvec, math.nan)
+
+        normal = geom.surface_normal(targvec, radii)
+        phase = geom.vector_separation(sun_dir_bf, -srfvec_bf)
+        incidence = geom.vector_separation(normal, sun_dir_bf)
+        emission = geom.vector_separation(normal, -srfvec_bf)
+        visibl = torch.sum(normal * (-srfvec_bf), dim=-1) > 0.0
+        lit = torch.sum(normal * sun_dir_bf, dim=-1) > 0.0
+        return phase, incidence, emission, visibl, lit
+
+    def _spkcpt_core(self, et, targvec):
+        """
+        State of constant body-fixed points relative to the observer
+        (``spkcpt`` with refloc='OBSERVER'): per-point light-time corrected
+        position and velocity (including the frame-rotation contribution and
+        the d(lt)/d(et) factor), plus light time.
+        """
+        obs = self._pos_o(et)
+        obs_pos, obs_vel = obs[..., :3], obs[..., 3:]
+        n_iter = 4 if self.corr.converged else 1
+        if self.corr.geometric:
+            n_iter = 1
+
+        def point_state_ssb(tau):
+            """Inertial (SSB) state of the body-fixed points at time tau."""
+            targ = self._pos_t(tau)
+            off, doff = _jvp_time(
+                lambda t: self.frame_model.rotate_bodyfixed_to_j2000(
+                    t, targvec
+                ),
+                tau,
+            )
+            return targ[..., :3] + off, targ[..., 3:] + doff
+
+        lt = torch.zeros(targvec.shape[:-1], dtype=torch.float64)
+        for _ in range(n_iter):
+            tau = et - self._tau_scale * lt
+            p_pos, p_vel = point_state_ssb(tau)
+            rel = p_pos - obs_pos
+            lt = geom.norm(rel) / CLIGHT
+        tau = et - self._tau_scale * lt
+        p_pos, p_vel = point_state_ssb(tau)
+        rel = p_pos - obs_pos
+        dist = geom.norm(rel)
+        rhat = rel / dist[..., None]
+        if self.corr.geometric:
+            vel = p_vel - obs_vel
+        else:
+            rv_t = torch.sum(rhat * p_vel, dim=-1)
+            rv_o = torch.sum(rhat * obs_vel, dim=-1)
+            dltdt = (rv_t - rv_o) / (CLIGHT + rv_t)
+            vel = p_vel * (1.0 - dltdt)[..., None] - obs_vel
+        if self.corr.stellar:
+            # NOTE the returned velocity omits the (tiny, ~|a_obs| lt/c)
+            # derivative of the stellar correction itself
+            rel = stelab(rel, self._stelab_vsign * obs_vel / CLIGHT)
+        return torch.cat([rel, vel], dim=-1), dist / CLIGHT
+
+    # ------------------------------------------------------------------
+    # Reference "model A" transforms: anchored at the sub-observer point
+    # (exact mirrors of body.py:917-1006)
+    # ------------------------------------------------------------------
+    def _targvec2obsvec_core(self, targvec, sub):
+        off = targvec - sub['subpoint_targvec']
+        dist_offset = (
+            geom.norm(sub['subpoint_rayvec'] + off) - sub['subpoint_distance']
+        )
+        tau = sub['subpoint_et'] - dist_offset / CLIGHT
+        rot = self.frame_model.rotate_bodyfixed_to_j2000(tau, off)
+        return sub['subpoint_obsvec'] + rot
+
+    def _obsvec2targvec_core(self, obsvec, sub):
+        off = obsvec - sub['subpoint_obsvec']
+        dist_offset = (
+            geom.norm(-sub['subpoint_rayvec'] + off) - sub['subpoint_distance']
+        )
+        tau = sub['subpoint_et'] - dist_offset / CLIGHT
+        rot = self.frame_model.rotate_j2000_to_bodyfixed(tau, off)
+        return sub['subpoint_targvec'] + rot
+
+    # ------------------------------------------------------------------
+    # Scene constants (Body.__init__ equivalent)
+    # ------------------------------------------------------------------
+    def scene_constants(self, et: float, radii=None) -> dict:
+        """
+        All per-scene constants as float64 numpy arrays: apparent target
+        centre, sub-observer and sub-solar points, ring plane.
+        """
+        if radii is None:
+            radii = self.radii
+        out = self._scene_constants_impl(f64(et), f64(np.asarray(radii)))
+        return {k: v.numpy() for k, v in out.items()}
+
+    def _scene_constants_impl(self, et, radii):
+        target_obsvec, target_lt, obs_pos, obs_vel = (
+            self._apparent_target_center(et)
+        )
+
+        # Sub-observer point (method INTERCEPT/ELLIPSOID): the ray is
+        # re-aimed at the target centre's position at each refined epoch
+        # (CSPICE subpnt's convention).
+        n_iter = 1 if self.corr.geometric else (4 if self.corr.converged else 1)
+        lt = target_lt
+        sub_targvec = None
+        o_bf = None
+        for _ in range(n_iter):
+            tau = et - self._tau_scale * lt
+            targ_pos = self._pos_t(tau)[..., :3] - obs_pos
+            if self.corr.stellar:
+                # subpnt works entirely in apparent geometry: the target is
+                # placed at its stellar-aberration-corrected position and
+                # the ray aims at that apparent centre.
+                targ_pos = stelab(
+                    targ_pos, self._stelab_vsign * obs_vel / CLIGHT
+                )
+            d = targ_pos / geom.norm(targ_pos)[..., None]
+            rot = self.frame_model.j2000_to_bodyfixed_matrix(tau)
+            o_bf = -_matvec(rot, targ_pos)
+            d_bf = _matvec(rot, d)
+            s, _found = geom.ray_ellipsoid_intercept(o_bf, d_bf, radii)
+            sub_targvec = o_bf + s[..., None] * d_bf
+            lt = s / CLIGHT
+        sub_et = et - self._tau_scale * lt
+        subpoint_rayvec = sub_targvec - o_bf  # observer -> subpoint, bf frame
+        subpoint_distance = geom.norm(subpoint_rayvec)
+        m_sub = self.frame_model.bodyfixed_to_j2000_matrix(sub_et)
+        subpoint_obsvec = _matvec(m_sub, subpoint_rayvec)
+
+        out = dict(
+            target_obsvec=target_obsvec,
+            target_lt=target_lt,
+            obs_pos_ssb=obs_pos,
+            obs_vel_ssb=obs_vel,
+            subpoint_targvec=sub_targvec,
+            subpoint_et=sub_et,
+            subpoint_rayvec=subpoint_rayvec,
+            subpoint_distance=subpoint_distance,
+            subpoint_obsvec=subpoint_obsvec,
+        )
+
+        # Sub-solar point: the point where the ray from the sun to the
+        # target centre intercepts the surface (SPICE subslr).
+        if (
+            self._pos_s is not None
+            and self.illumination_source_id != self.target_id
+        ):
+            out.update(self._subslr_impl(et, radii, out))
+        else:
+            out['subsol_targvec'] = torch.full((3,), math.nan, dtype=torch.float64)
+            out['subsol_et'] = torch.full((), math.nan, dtype=torch.float64)
+
+        # Derived scene values (east-positive radians here; the Body layer
+        # applies the W/E sign)
+        re = radii[0]
+        f = (radii[0] - radii[2]) / radii[0]
+        lon_sp, lat_sp, _ = geom.rect_to_geodetic(sub_targvec, re, f)
+        out['subpoint_lon_e_rad'] = lon_sp
+        out['subpoint_lat_rad'] = lat_sp
+        _r, ra_sp, dec_sp = geom.rect_to_radec(subpoint_obsvec)
+        out['subpoint_ra_rad'] = ra_sp
+        out['subpoint_dec_rad'] = dec_sp
+        lon_ss, lat_ss, _ = geom.rect_to_geodetic(out['subsol_targvec'], re, f)
+        out['subsol_lon_e_rad'] = lon_ss
+        out['subsol_lat_rad'] = lat_ss
+        # Equatorial (ring) plane in obsvec space (reference body.py:582-588)
+        np_obsvec = self._targvec2obsvec_core(
+            f64([0.0, 0.0, 1.0]) * radii[2], out
+        )
+        normal, constant = geom.plane_from_normal_point(
+            np_obsvec - target_obsvec, target_obsvec
+        )
+        out['ring_plane_normal'] = normal
+        out['ring_plane_constant'] = constant
+        return out
+
+    def _subslr_impl(self, et, radii, consts):
+        """
+        Sub-solar point, method INTERCEPT/ELLIPSOID (``subslr``): intercept
+        on the target of the ray from the sun towards the target's centre,
+        with the target epoch matching ``subpnt``'s (et - lt to subpoint).
+        """
+        n_iter = 4 if self.corr.converged else 1
+        obs_pos = consts['obs_pos_ssb']
+
+        # Epoch iteration: trgepc = et - (light time observer -> sub-solar
+        # point), exactly as CSPICE subslr converges it.
+        tau = consts['subpoint_et']
+        spoint = None
+        for _ in range(n_iter):
+            targ_pos_ssb = self._pos_t(tau)[..., :3]
+            # Apparent sun as seen from the target centre at tau
+            lt_s = torch.zeros((), dtype=torch.float64)
+            sun_vec = None
+            for _ in range(n_iter):
+                sun_pos = self._pos_s(tau - lt_s)[..., :3]
+                sun_vec = sun_pos - targ_pos_ssb
+                lt_s = geom.norm(sun_vec) / CLIGHT
+            rot = self.frame_model.j2000_to_bodyfixed_matrix(tau)
+            sun_bf = _matvec(rot, sun_vec)
+            d_bf = -sun_bf / geom.norm(sun_bf)[..., None]
+            s, found = geom.ray_ellipsoid_intercept(sun_bf, d_bf, radii)
+            spoint = torch.where(found, sun_bf + s[..., None] * d_bf, math.nan)
+            # Distance observer -> sub-solar point sets the next epoch
+            m_bf2j = self.frame_model.bodyfixed_to_j2000_matrix(tau)
+            spoint_ssb = targ_pos_ssb + _matvec(m_bf2j, spoint)
+            dist = geom.norm(spoint_ssb - obs_pos)
+            tau = et - dist / CLIGHT
+        return dict(subsol_targvec=spoint, subsol_et=tau)
+
+    # ------------------------------------------------------------------
+    # Public batched functions (numpy or tensor in, CPU tensors out)
+    # ------------------------------------------------------------------
+    def sincpt(self, et, radii, obsvec_norm, lt0):
+        return self._sincpt_core(
+            f64(et), f64(np.asarray(radii)), f64(obsvec_norm), f64(lt0)
+        )
+
+    def illumf(self, et, radii, targvec):
+        return self._illumf_core(
+            f64(et), f64(np.asarray(radii)), f64(targvec)
+        )
+
+    def spkcpt(self, et, targvec):
+        return self._spkcpt_core(f64(et), f64(targvec))
+
+    def targvec2obsvec(self, targvec, sub):
+        return self._targvec2obsvec_core(f64(targvec), _sub_tensors(sub))
+
+    def obsvec2targvec(self, obsvec, sub):
+        return self._obsvec2targvec_core(f64(obsvec), _sub_tensors(sub))
+
+    # -- local solar time --------------------------------------------------
+    def solar_longitude(self, et):
+        """
+        Planetocentric east longitude of the apparent sun (the sub-solar
+        meridian used for local solar time, ``et2lst`` equivalent).
+        """
+        et = f64(et) if not isinstance(et, torch.Tensor) else et
+        # Apparent sun from target centre with LT+S (CSPICE et2lst uses the
+        # apparent solar position)
+        targ_pos_ssb = self._pos_t(et)[..., :3]
+        lt_s = torch.zeros_like(et)
+        sun_vec = None
+        for _ in range(4):
+            sun_pos = self._pos_s(et - lt_s)[..., :3]
+            sun_vec = sun_pos - targ_pos_ssb
+            lt_s = geom.norm(sun_vec) / CLIGHT
+        # stellar aberration for an observer at the target centre
+        targ_vel_ssb = self._pos_t(et)[..., 3:]
+        sun_vec = stelab(sun_vec, targ_vel_ssb / CLIGHT)
+        rot = self.frame_model.j2000_to_bodyfixed_matrix(et)
+        sun_bf = _matvec(rot, sun_vec)
+        return torch.atan2(sun_bf[..., 1], sun_bf[..., 0])

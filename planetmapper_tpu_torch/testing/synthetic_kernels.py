@@ -1,0 +1,256 @@
+"""
+Synthetic SPICE kernels for tests and smoke runs, written with numpy alone.
+
+:func:`write_synthetic_kernels` writes three files into a directory:
+
+- ``synthetic.tls``: a leap-second kernel with the standard ``DELTET``
+  constants and the ``DELTA_AT`` table through 2017-JAN-1;
+- ``synthetic.tpc``: a text PCK with the IAU radii, pole and prime meridian
+  of Jupiter (including the Jovian nutation-precession terms), the Earth
+  and the Sun;
+- ``synthetic.bsp``: a little-endian binary DAF/SPK with one type 13
+  (Hermite) segment each for the Sun (10), the Earth (399) and Jupiter (599)
+  relative to the solar-system barycentre, in J2000, from 2004-12-01 to
+  2005-02-01 at a one-hour step.
+
+The orbits are analytic circles about the Sun (Earth at 1 AU in the
+ecliptic, Jupiter at 5.2026 AU inclined 1.303 deg); the Sun carries
+Jupiter's reflex motion about the barycentre. The phases are chosen so
+that on 2005-01-01 Jupiter is about 5.3 AU from the Earth at a phase
+angle near 11 deg, so every illumination backplane carries real values.
+``seed`` jitters both orbital phases by up to +-0.5 deg.
+
+The constants are public IAU/NAIF values; nothing is downloaded. These
+kernels are not real ephemerides: they exist so that the geometry code
+runs on a known scene without network access.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+
+import numpy as np
+
+from ..core.timebase import calendar_to_j2000_seconds
+
+AU_KM = 1.495978707e8
+GM_SUN = 1.32712440041e11  # km^3 / s^2
+JUPITER_SUN_MASS_RATIO = 1.0 / 1047.3486
+OBLIQUITY_DEG = 23.4392911  # J2000 mean obliquity of the ecliptic
+
+#: Hermite window (knot count) written into the type 13 segments
+HERMITE_WINDOW = 4
+STEP_S = 3600.0
+
+_LEAP_SECONDS = (
+    (10, '1972-JAN-1'), (11, '1972-JUL-1'), (12, '1973-JAN-1'),
+    (13, '1974-JAN-1'), (14, '1975-JAN-1'), (15, '1976-JAN-1'),
+    (16, '1977-JAN-1'), (17, '1978-JAN-1'), (18, '1979-JAN-1'),
+    (19, '1980-JAN-1'), (20, '1981-JUL-1'), (21, '1982-JUL-1'),
+    (22, '1983-JUL-1'), (23, '1985-JUL-1'), (24, '1988-JAN-1'),
+    (25, '1990-JAN-1'), (26, '1991-JAN-1'), (27, '1992-JUL-1'),
+    (28, '1993-JUL-1'), (29, '1994-JUL-1'), (30, '1996-JAN-1'),
+    (31, '1997-JUL-1'), (32, '1999-JAN-1'), (33, '2006-JAN-1'),
+    (34, '2009-JAN-1'), (35, '2012-JUL-1'), (36, '2015-JUL-1'),
+    (37, '2017-JAN-1'),
+)
+
+_LSK_TEXT = """KPL/LSK
+
+Synthetic leap-second kernel: standard DELTET constants.
+
+\\begindata
+
+DELTET/DELTA_T_A = 32.184
+DELTET/K = 1.657D-3
+DELTET/EB = 1.671D-2
+DELTET/M = ( 6.239996D0 1.99096871D-7 )
+DELTET/DELTA_AT = ( {table} )
+
+\\begintext
+"""
+
+_PCK_TEXT = """KPL/PCK
+
+Synthetic planetary constants: IAU radii and rotation models.
+
+\\begindata
+
+BODY10_RADII = ( 696000.0 696000.0 696000.0 )
+BODY10_POLE_RA = ( 286.13 0.0 0.0 )
+BODY10_POLE_DEC = ( 63.87 0.0 0.0 )
+BODY10_PM = ( 84.176 14.18440 0.0 )
+
+BODY399_RADII = ( 6378.1366 6378.1366 6356.7519 )
+BODY399_POLE_RA = ( 0.0 -0.641 0.0 )
+BODY399_POLE_DEC = ( 90.0 -0.557 0.0 )
+BODY399_PM = ( 190.147 360.9856235 0.0 )
+
+BODY5_NUT_PREC_ANGLES = (
+    73.32 91472.9 24.62 45137.2 283.90 4850.7 355.80 1191.3
+    119.90 262.1 229.80 64.3 352.25 2382.6 113.35 6070.0
+    146.64 182945.8 49.24 90274.4 99.360714 4850.4046
+    175.895369 1191.9605 300.323162 262.5475 114.012305 6070.2476
+    49.511251 64.3000 )
+
+BODY599_RADII = ( 71492.0 71492.0 66854.0 )
+BODY599_POLE_RA = ( 268.056595 -0.006499 0.0 )
+BODY599_POLE_DEC = ( 64.495303 0.002413 0.0 )
+BODY599_PM = ( 284.95 870.5360000 0.0 )
+BODY599_NUT_PREC_RA = ( 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0
+    0.000117 0.000938 0.001432 0.000030 0.002150 )
+BODY599_NUT_PREC_DEC = ( 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0
+    0.000050 0.000404 0.000617 -0.000013 0.000926 )
+
+\\begintext
+"""
+
+# Ftp validation string of the DAF file record (NAIF DAF Required Reading)
+_FTPSTR = b'FTPSTR:\r:\n:\r\n:\r\x00:\x81:\x10\xce:ENDFTP'
+
+
+def coverage() -> tuple[float, float]:
+    """(start, end) of the SPK segments, seconds past J2000."""
+    return (
+        calendar_to_j2000_seconds(2004, 12, 1),
+        calendar_to_j2000_seconds(2005, 2, 1),
+    )
+
+
+def _rot_x(angle: float) -> np.ndarray:
+    c, s = math.cos(angle), math.sin(angle)
+    return np.array([[1.0, 0.0, 0.0], [0.0, c, -s], [0.0, s, c]])
+
+
+def _rot_z(angle: float) -> np.ndarray:
+    c, s = math.cos(angle), math.sin(angle)
+    return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+
+
+def _circular_states(t, *, a_km, u0_deg, node_deg, incl_deg, t_ref):
+    """
+    Heliocentric J2000 states (n, 6) of a circular orbit with argument of
+    latitude ``u0_deg`` at ``t_ref``; position and velocity are exact
+    derivatives of each other.
+    """
+    n = math.sqrt(GM_SUN / a_km**3)
+    u = math.radians(u0_deg) + n * (t - t_ref)
+    plane_pos = a_km * np.stack([np.cos(u), np.sin(u), np.zeros_like(u)], -1)
+    plane_vel = a_km * n * np.stack(
+        [-np.sin(u), np.cos(u), np.zeros_like(u)], -1
+    )
+    to_ecliptic = _rot_z(math.radians(node_deg)) @ _rot_x(math.radians(incl_deg))
+    to_j2000 = _rot_x(math.radians(OBLIQUITY_DEG)) @ to_ecliptic
+    return np.concatenate(
+        [plane_pos @ to_j2000.T, plane_vel @ to_j2000.T], axis=-1
+    )
+
+
+def synthetic_states(t: np.ndarray, seed: int = 0) -> dict[int, np.ndarray]:
+    """
+    Barycentric J2000 states ``{naif_id: (n, 6)}`` of the Sun, the Earth
+    and Jupiter at times ``t`` (seconds past J2000): the analytic model the
+    SPK file samples.
+    """
+    t = np.asarray(t, dtype=np.float64)
+    jitter = np.random.default_rng(seed).uniform(-0.5, 0.5, size=2)
+    t_ref = calendar_to_j2000_seconds(2005, 1, 1)
+    earth = _circular_states(
+        t, a_km=AU_KM, u0_deg=100.5 + jitter[0], node_deg=0.0,
+        incl_deg=0.0, t_ref=t_ref,
+    )
+    # Jupiter: ecliptic longitude ~190 deg on 2005-01-01
+    node = 100.464
+    jupiter = _circular_states(
+        t, a_km=5.2026 * AU_KM, u0_deg=190.0 - node + jitter[1],
+        node_deg=node, incl_deg=1.303, t_ref=t_ref,
+    )
+    mu = JUPITER_SUN_MASS_RATIO
+    sun = -mu / (1.0 + mu) * jupiter
+    return {10: sun, 399: sun + earth, 599: sun + jupiter}
+
+
+def _type13_words(epochs: np.ndarray, states: np.ndarray) -> np.ndarray:
+    """Type 13 payload: states, epochs, epoch directory, window, count."""
+    n = epochs.size
+    directory = epochs[99::100][: (n - 1) // 100]
+    return np.concatenate([
+        states.reshape(-1), epochs, directory,
+        [float(HERMITE_WINDOW), float(n)],
+    ])
+
+
+def _daf_bytes(segments: list[tuple]) -> bytes:
+    """
+    Little-endian DAF/SPK bytes: file record, one summary record, one name
+    record, then the segment words. ``segments`` holds
+    ``(target, center, frame, data_type, start, end, name, words)``.
+    """
+    nd, ni = 2, 6
+    ss = nd + (ni + 1) // 2
+    if len(segments) > (128 - 3) // ss:
+        raise ValueError('too many segments for one summary record')
+    addr = 3 * 128 + 1  # first word of record 4
+    summary = np.zeros(128, dtype='<f8')
+    summary[2] = len(segments)
+    names = bytearray(b' ' * 1024)
+    payload = []
+    for k, (target, center, frame, dtype, start, end, name, words) in enumerate(
+        segments
+    ):
+        words = np.asarray(words, dtype='<f8')
+        a0, a1 = addr, addr + words.size - 1
+        addr = a1 + 1
+        ints = np.array([target, center, frame, dtype, a0, a1], dtype='<i4')
+        summary[3 + k * ss: 3 + (k + 1) * ss] = np.concatenate(
+            [[start, end], ints.view('<f8')]
+        )
+        label = name.encode('ascii')[: 8 * ss].ljust(8 * ss)
+        names[k * 8 * ss: (k + 1) * 8 * ss] = label
+        payload.append(words)
+    free = addr
+
+    record = bytearray(1024)
+    record[0:8] = b'DAF/SPK '
+    record[8:16] = np.array([nd, ni], dtype='<i4').tobytes()
+    record[16:76] = b'synthetic test kernel'.ljust(60)
+    record[76:88] = np.array([2, 2, free], dtype='<i4').tobytes()
+    record[88:96] = b'LTL-IEEE'
+    record[699:699 + len(_FTPSTR)] = _FTPSTR
+
+    data = np.concatenate(payload)
+    pad = (-data.size) % 128
+    data = np.concatenate([data, np.zeros(pad)]).astype('<f8')
+    return bytes(record) + summary.tobytes() + bytes(names) + data.tobytes()
+
+
+def write_synthetic_kernels(dirpath: str | os.PathLike, seed: int = 0) -> list[str]:
+    """
+    Write the synthetic LSK, PCK and SPK into ``dirpath`` (created if
+    missing) and return their paths.
+    """
+    dirpath = os.fspath(dirpath)
+    os.makedirs(dirpath, exist_ok=True)
+
+    table = '\n    '.join(f'{v}, @{d}' for v, d in _LEAP_SECONDS)
+    lsk = os.path.join(dirpath, 'synthetic.tls')
+    with open(lsk, 'w', encoding='ascii') as f:
+        f.write(_LSK_TEXT.format(table=table))
+
+    pck = os.path.join(dirpath, 'synthetic.tpc')
+    with open(pck, 'w', encoding='ascii') as f:
+        f.write(_PCK_TEXT)
+
+    start, end = coverage()
+    epochs = start + STEP_S * np.arange(int(round((end - start) / STEP_S)) + 1)
+    states = synthetic_states(epochs, seed)
+    segments = [
+        (body, 0, 1, 13, float(epochs[0]), float(epochs[-1]),
+         f'SYNTHETIC {body}', _type13_words(epochs, states[body]))
+        for body in (10, 399, 599)
+    ]
+    spk = os.path.join(dirpath, 'synthetic.bsp')
+    with open(spk, 'wb') as f:
+        f.write(_daf_bytes(segments))
+    return [lsk, pck, spk]

@@ -1,0 +1,456 @@
+"""
+The PyTorch port's backplane pipeline against the JAX package, on the
+synthetic SPICE kernels (Jupiter from the Earth on 2005-01-01):
+
+- the scene anchors of both packages agree (rot1/rot2 from autodiff);
+- on identical numpy anchors the port's plain float64 graph matches the
+  JAX package's ``precision='double'`` graph, for a biaxial and a triaxial
+  shape, with and without ``optimize_speed``;
+- it matches the JAX package's TPU kernel run in interpret mode at the
+  kernel tolerance table;
+- the whole slice (``BodyXY.generate_backplanes_fused``) matches the JAX
+  package's, against both of its graphs;
+- on CPU tensors the CUDA kernel's wrapper runs the plain version and
+  launches nothing.
+
+The kernel itself against its plain version on the card is
+``tests/test_torch_cuda.py``.
+"""
+
+from __future__ import annotations
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import planetmapper_tpu as jpm
+import planetmapper_tpu_torch as tpm
+from planetmapper_tpu import pipeline as j_pipeline
+from planetmapper_tpu.kernels import pool as j_pool
+from planetmapper_tpu_torch import pipeline as t_pipeline
+from planetmapper_tpu_torch._device import f64
+from planetmapper_tpu_torch.kernels import pool as t_pool
+from planetmapper_tpu_torch.ops import backplanes_kernel
+from planetmapper_tpu_torch.testing import compare
+from planetmapper_tpu_torch.testing.synthetic_kernels import (
+    AU_KM,
+    write_synthetic_kernels,
+)
+
+NX, NY = 64, 48
+UTC = '2005-01-01T00:00:00'
+
+#: Float64-against-float64 bounds (port graph vs JAX graph): angles in
+#: degrees, distances in km. The two programs round differently (XLA
+#: contracts multiply-adds into FMAs, PyTorch's CPU kernels do not), which
+#: leaves ~1e-7 km of disagreement in the 1e9 km vectors of the intercept.
+F64_TOLERANCE = {
+    'PIXEL-X': 0.0, 'PIXEL-Y': 0.0, 'KM-X': 1e-6, 'KM-Y': 1e-6,
+    'ANGULAR-X': 1e-9, 'ANGULAR-Y': 1e-9, 'LOCAL-SOLAR-TIME': 1e-9,
+    'DISTANCE': 1e-6, 'RADIAL-VELOCITY': 1e-9, 'DOPPLER': 1e-12,
+    'LIMB-DISTANCE': 1e-6, 'RING-RADIUS': 1e-6, 'RING-DISTANCE': 1e-6,
+}
+F64_ANGLE_TOLERANCE = 1e-9
+#: Where the geometry amplifies that rounding (see _ill_conditioned) the
+#: bound is this many times larger - still 1e3 below the kernel table.
+ILL_CONDITIONED_FACTOR = 100.0
+#: An exact >= test (the intercept discriminant at the limb) may flip on
+#: rounding for a pixel whose ray grazes the surface.
+F64_MAX_MASK_FLIPS = 2
+
+
+def f64_tolerance(name: str) -> float:
+    return F64_TOLERANCE.get(name, F64_ANGLE_TOLERANCE)
+
+
+def _ill_conditioned(
+    ref: dict, disc, *, own_anchors: bool = False
+) -> dict[str, np.ndarray]:
+    """
+    Pixels where a plane's value is ill-conditioned in its inputs:
+
+    - on-disc planes where the ray grazes the surface (emission > 75 deg:
+      intercept errors grow as 1/cos(emission));
+    - longitudes (and LOCAL-SOLAR-TIME) within 15 deg of a pole (errors
+      grow as 1/cos(latitude));
+    - AZIMUTH near the sub-solar and sub-observer points (undefined there);
+    - limb coordinates of rays passing near the target centre (errors
+      grow as the disc radius over the ray's distance from the centre:
+      inside half the disc radius) and of limb points within 30 deg of a
+      pole;
+    - with ``own_anchors`` (each package computed its own anchors), the
+      ring planes: the ring-plane anchor is a 1e9 -> 1e5 km difference
+      that the two packages round apart at ~1e-12 relative.
+    """
+    emission = ref['EMISSION']
+    incidence = ref['INCIDENCE']
+    grazing = ~(emission < 75.0)
+    polar = ~(np.abs(ref['LAT-GRAPHIC']) < 75.0)
+    ny, nx = emission.shape
+    yy, xx = np.mgrid[0:ny, 0:nx]
+    near_centre = np.hypot(xx - disc[0], yy - disc[1]) < disc[2] / 2
+    limb_polar = ~(np.abs(ref['LIMB-LAT-GRAPHIC']) < 60.0)
+    caps = (
+        grazing | ~(incidence > 5.0) | ~(incidence < 175.0)
+        | ~(emission > 5.0)
+    )
+    out = {name: grazing for name in backplanes_kernel.DISC_PLANES}
+    for name in ('LON-GRAPHIC', 'LON-CENTRIC', 'LOCAL-SOLAR-TIME'):
+        out[name] = grazing | polar
+    out['AZIMUTH'] = caps
+    for name in ('LIMB-DISTANCE', 'LIMB-LON-GRAPHIC', 'LIMB-LAT-GRAPHIC'):
+        out[name] = near_centre | limb_polar
+    if own_anchors:
+        everywhere = np.ones_like(grazing)
+        for name in ('RING-RADIUS', 'RING-LON-GRAPHIC', 'RING-DISTANCE'):
+            out[name] = everywhere
+    return out
+
+
+def assert_f64_parity(
+    got: dict, ref: dict, disc, *, own_anchors: bool = False
+) -> None:
+    """The port's float64 output against the JAX float64 output."""
+    ill = _ill_conditioned(ref, disc, own_anchors=own_anchors)
+    everywhere = compare.compare_backplanes(
+        got, ref,
+        tolerance=lambda n: f64_tolerance(n) * ILL_CONDITIONED_FACTOR,
+        max_mask_flips=F64_MAX_MASK_FLIPS,
+    )
+    conditioned = compare.compare_backplanes(
+        got, ref, tolerance=f64_tolerance, exclude=ill,
+        max_mask_flips=F64_MAX_MASK_FLIPS,
+    )
+    assert not compare.failures(everywhere), compare.failures(everywhere)
+    assert not compare.failures(conditioned), compare.failures(conditioned)
+    assert all(
+        r['lst_bin_flips'] == 0 for r in conditioned.values()
+    ), 'LOCAL-SOLAR-TIME bins differ'
+
+
+def _restore_kernel_path(pkg, previous):
+    path, source = previous
+    pkg.clear_kernels()
+    pkg.set_kernel_path(path if source == 'set_kernel_path()' else None)
+
+
+@pytest.fixture(scope='module')
+def bodies(tmp_path_factory):
+    """(JAX BodyXY, port BodyXY) of the same scene and seeded disc."""
+    path = tmp_path_factory.mktemp('synthetic_kernels')
+    write_synthetic_kernels(path, seed=0)
+    previous = {
+        pkg: pkg.get_kernel_path(return_source=True) for pkg in (jpm, tpm)
+    }
+    for pkg, pool_mod in ((jpm, j_pool), (tpm, t_pool)):
+        pkg.clear_kernels()
+        pkg.set_kernel_path(path)
+        pool_mod.load_spice_kernels()
+    j_body = jpm.BodyXY('Jupiter', observer='EARTH', utc=UTC, nx=NX, ny=NY)
+    t_body = tpm.BodyXY(
+        'Jupiter', observer='EARTH', utc=UTC, nx=NX, ny=NY, device='cpu'
+    )
+    rng = np.random.default_rng(0)
+    disc = (
+        (NX - 1) / 2 + rng.uniform(-2.0, 2.0),
+        (NY - 1) / 2 + rng.uniform(-2.0, 2.0),
+        19.0 + rng.uniform(-1.0, 1.0),
+        rng.uniform(0.0, 360.0),
+    )
+    for body in (j_body, t_body):
+        body.set_disc_params(*disc)
+    yield j_body, t_body
+    for pkg in (jpm, tpm):
+        _restore_kernel_path(pkg, previous[pkg])
+
+
+def _inputs(body):
+    return (
+        np.asarray(body._get_xy2angular_matrix()),
+        np.asarray(body.get_disc_params(), dtype=np.float64),
+        np.asarray(body.radii, dtype=np.float64),
+    )
+
+
+def _run_jax(impl, nx, ny, xy2angular, disc, radii, anchors):
+    out = jax.jit(lambda *a: impl(nx, ny, *a))(xy2angular, disc, radii, anchors)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def _run_port(impl, nx, ny, xy2angular, disc, radii, anchors, row0=0.0):
+    out = impl(
+        nx, ny, f64(xy2angular), f64(disc), f64(radii),
+        t_pipeline.anchors_from_numpy(anchors, 'cpu'), row0=row0,
+    )
+    return {k: v.numpy() for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# Scene and anchors
+# ---------------------------------------------------------------------------
+
+def test_jax_bodyxy_builds_on_synthetic_kernels(bodies):
+    j_body, _ = bodies
+    assert 4.0 < j_body.target_distance / AU_KM < 6.0
+    anchors = j_body._get_pipeline_anchors()
+    to_sun = anchors['sun_pos0'] - anchors['targ_pos0']
+    to_obs = anchors['obs_pos'] - anchors['targ_pos0']
+    phase = np.degrees(np.arccos(
+        to_sun @ to_obs / np.linalg.norm(to_sun) / np.linalg.norm(to_obs)
+    ))
+    assert 2.0 < phase < 15.0
+    assert np.isfinite(j_body.subsol_lon) and np.isfinite(j_body.subpoint_lon)
+
+
+def test_scene_anchors_match_jax(bodies):
+    j_body, t_body = bodies
+    j_anchors = j_pipeline.compute_scene_anchors(j_body)
+    t_anchors = t_pipeline.compute_scene_anchors(t_body)
+    assert set(t_anchors) == set(j_anchors) == set(t_pipeline.ANCHOR_SHAPES)
+    for key, j_value in j_anchors.items():
+        j_value = np.asarray(j_value, dtype=np.float64)
+        scale = np.abs(j_value).max()
+        if key in ('rot1', 'rot2'):
+            tol = 1e-10 * scale
+        elif key in ('rot0', 'obsvec2angular'):
+            tol = 1e-12
+        elif key in ('angular2km', 'ring_plane_normal',
+                     'ring_plane_constant'):
+            # built from 1e9 -> 1e5 km differences of obsvecs: ~1e-12
+            # relative in both packages
+            tol = 1e-10 * scale
+        elif key == 'solar_lon_e':
+            tol = 1e-10  # rad
+        elif key in ('et', 'tau0', 'sun_epoch0', 'target_lt'):
+            tol = 1e-9  # s
+        else:
+            tol = 1e-6  # km, km/s
+        np.testing.assert_allclose(
+            t_anchors[key], j_value, rtol=0, atol=tol, err_msg=key
+        )
+
+
+def test_body_transforms_match_jax(bodies):
+    """The Body transforms the anchors use, on seeded points."""
+    j_body, t_body = bodies
+    rng = np.random.default_rng(4)
+    lon = rng.uniform(0.0, 360.0, 16)
+    lat = rng.uniform(-80.0, 80.0, 16)
+    for not_visible_nan in (False, True):
+        j_radec = j_body.lonlat2radec(lon, lat, not_visible_nan=not_visible_nan)
+        t_radec = t_body.lonlat2radec(lon, lat, not_visible_nan=not_visible_nan)
+        for j_v, t_v in zip(j_radec, t_radec):
+            # 1e-10 deg of sky = 1.4e-3 km at 5 AU
+            np.testing.assert_allclose(t_v, j_v, rtol=0, atol=1e-10)
+    assert np.isnan(t_radec[0]).any() and np.isfinite(t_radec[0]).any()
+    ra, dec = j_radec
+    keep = np.isfinite(ra)
+    np.testing.assert_allclose(
+        t_body.radec2angular(ra[keep], dec[keep]),
+        j_body.radec2angular(ra[keep], dec[keep]), rtol=0, atol=1e-9,
+    )
+    assert t_body.north_pole_angle() == pytest.approx(
+        j_body.north_pole_angle(), abs=1e-10
+    )
+    np.testing.assert_allclose(
+        t_body._get_xy2angular_matrix(), j_body._get_xy2angular_matrix(),
+        rtol=1e-13, atol=0,
+    )
+
+
+def test_anchors_from_numpy_shapes_and_device(bodies):
+    j_body, _ = bodies
+    anchors = t_pipeline.anchors_from_numpy(j_body._get_pipeline_anchors(), 'cpu')
+    for key, value in anchors.items():
+        assert value.dtype == torch.float64 and value.device.type == 'cpu'
+        assert tuple(value.shape) == t_pipeline.ANCHOR_SHAPES[key], key
+    bad = dict(j_body._get_pipeline_anchors(), rot0=np.eye(2))
+    with pytest.raises(ValueError, match='rot0'):
+        t_pipeline.anchors_from_numpy(bad, 'cpu')
+
+
+# ---------------------------------------------------------------------------
+# The plain float64 graph against the JAX float64 graph
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('optimize_speed', [True, False])
+@pytest.mark.parametrize('shape', ['biaxial', 'triaxial'])
+def test_plain_graph_matches_jax_double_graph(bodies, shape, optimize_speed):
+    j_body, _ = bodies
+    xy2angular, disc, radii = _inputs(j_body)
+    robust = shape == 'triaxial'
+    if robust:
+        radii = np.array([71492.0, 70000.0, 66854.0])
+    anchors = j_body._get_pipeline_anchors()
+    kw = dict(
+        positive_west=True, prograde=True, have_sun=True,
+        optimize_speed=optimize_speed, robust_geodetic=robust,
+    )
+    ref = _run_jax(
+        j_pipeline.fused_backplanes_fn(precision='double', **kw),
+        NX, NY, xy2angular, disc, radii, anchors,
+    )
+    got = _run_port(
+        t_pipeline.fused_backplanes_fn(**kw),
+        NX, NY, xy2angular, disc, radii, anchors,
+    )
+    assert set(got) == set(backplanes_kernel.PLANE_ORDER) == set(ref)
+    assert np.isfinite(got['EMISSION']).sum() > 100
+    assert np.isfinite(got['RING-RADIUS']).sum() > 100
+    assert_f64_parity(got, ref, disc)
+
+
+def test_plain_graph_row0_bands_equal_full_frame(bodies):
+    j_body, _ = bodies
+    xy2angular, disc, radii = _inputs(j_body)
+    anchors = j_body._get_pipeline_anchors()
+    impl = t_pipeline.fused_backplanes_fn(
+        positive_west=True, prograde=True, have_sun=True,
+    )
+    full = _run_port(impl, NX, NY, xy2angular, disc, radii, anchors)
+    top = _run_port(impl, NX, 20, xy2angular, disc, radii, anchors)
+    bottom = _run_port(
+        impl, NX, NY - 20, xy2angular, disc, radii, anchors, row0=20.0
+    )
+    for name, plane in full.items():
+        np.testing.assert_array_equal(
+            np.concatenate([top[name], bottom[name]]), plane, err_msg=name
+        )
+
+
+# ---------------------------------------------------------------------------
+# The plain graph against the JAX TPU kernel (interpret mode)
+# ---------------------------------------------------------------------------
+
+def test_plain_graph_matches_jax_kernel_interpret(bodies):
+    from planetmapper_tpu.ops.pallas_pipeline import build_pallas_pipeline
+
+    j_body, _ = bodies
+    nx, ny = 128, 64  # one kernel tile
+    rng = np.random.default_rng(1)
+    saved = j_body.get_disc_params()
+    j_body.set_disc_params(
+        nx / 2 + rng.uniform(-1, 1), ny / 2 + rng.uniform(-1, 1),
+        ny * 0.45, 12.3,
+    )
+    try:
+        xy2angular, disc, radii = _inputs(j_body)
+    finally:
+        j_body.set_disc_params(*saved)
+    anchors = j_body._get_pipeline_anchors()
+    kernel = build_pallas_pipeline(
+        positive_west=True, prograde=True, have_sun=True,
+        optimize_speed=True, lst_quant=True, interpret=True,
+    )
+    ref = _run_jax(kernel, nx, ny, xy2angular, disc, radii, anchors)
+    got = _run_port(
+        t_pipeline.fused_backplanes_fn(
+            positive_west=True, prograde=True, have_sun=True,
+        ),
+        nx, ny, xy2angular, disc, radii, anchors,
+    )
+    # The TPU kernel computes its state, illumination and angular chains
+    # in float32 (up to ~4 float32 roundings deep) and stores float32: the
+    # port's float64 values are stored the same way and the table's
+    # bounds grow by four float32 ulps. Longitudes of grazing (emission
+    # > 80 deg) or polar (|lat| > 80 deg) pixels are left out: under
+    # XLA:CPU the interpret-mode kernel's double-single chains lose their
+    # low words (planetmapper_tpu/pipeline.py pick_ds), and that ~1e-3 km
+    # position noise grows past 1e-4 deg of longitude there.
+    rough = ~(np.abs(got['LAT-GRAPHIC']) < 80.0) | ~(got['EMISSION'] < 80.0)
+    reports = compare.compare_backplanes(
+        ref, got, float32_ulps=4,
+        exclude={'LON-GRAPHIC': rough, 'LON-CENTRIC': rough},
+    )
+    assert not compare.failures(reports), compare.failures(reports)
+    on_disc = np.isfinite(got['LAT-GRAPHIC'])
+    assert (rough & on_disc).sum() < 0.1 * on_disc.sum()
+    assert np.isfinite(ref['EMISSION']).sum() > 1000
+
+
+# ---------------------------------------------------------------------------
+# The whole slice: BodyXY.generate_backplanes_fused
+# ---------------------------------------------------------------------------
+
+def test_generate_backplanes_fused_matches_jax_double(bodies):
+    j_body, t_body = bodies
+    j_body._pipeline_precision = 'double'
+    try:
+        ref = j_body.generate_backplanes_fused()
+    finally:
+        del j_body._pipeline_precision
+    got = t_body.generate_backplanes_fused()
+    assert set(got) == set(ref)
+    assert all(v.shape == (NY, NX) for v in got.values())
+    assert_f64_parity(got, ref, t_body.get_disc_params(), own_anchors=True)
+
+
+def test_generate_backplanes_fused_matches_jax_mixed(bodies):
+    j_body, t_body = bodies
+    ref = j_body.generate_backplanes_fused()
+    got = t_body.generate_backplanes_fused()
+    # the JAX mixed graph computes and stores float32 (RADIAL-VELOCITY
+    # widened to float64): two float32 ulps over the table, as above
+    reports = compare.compare_backplanes(ref, got, float32_ulps=2)
+    assert not compare.failures(reports), compare.failures(reports)
+
+
+# ---------------------------------------------------------------------------
+# Selection and the kernel wrapper on the CPU
+# ---------------------------------------------------------------------------
+
+def test_kernel_wrapper_runs_plain_version_on_cpu(bodies):
+    j_body, t_body = bodies
+    xy2angular, disc, radii = _inputs(t_body)
+    anchors = t_body._get_pipeline_anchors()
+    backplanes_kernel.reset_launch_count()
+    planes = ('LON-GRAPHIC', 'RING-RADIUS', 'RA')
+    wrapper = backplanes_kernel.build_backplanes_kernel(
+        positive_west=True, prograde=True, have_sun=True,
+        optimize_speed=True, lst_quant=True, planes=planes,
+    )
+    got = _run_port(wrapper, NX, NY, xy2angular, disc, radii, anchors)
+    plain = _run_port(
+        t_pipeline.fused_backplanes_fn(
+            positive_west=True, prograde=True, have_sun=True,
+        ),
+        NX, NY, xy2angular, disc, radii, anchors,
+    )
+    assert tuple(got) == ('LON-GRAPHIC', 'RA', 'RING-RADIUS')  # PLANE_ORDER
+    for name in planes:
+        np.testing.assert_array_equal(got[name], plain[name], err_msg=name)
+    assert backplanes_kernel.launch_count() == 0
+
+
+def test_selection_takes_plain_graph_on_cpu(bodies):
+    _, t_body = bodies
+    backplanes_kernel.reset_launch_count()
+    impl, use_kernel = t_pipeline.select_pipeline_impl(t_body, NX, NY)
+    assert not use_kernel
+    full = t_pipeline.compute_backplanes(t_body)
+    subset = t_pipeline.compute_backplanes(
+        t_body, names=['EMISSION', 'LON-GRAPHIC']
+    )
+    assert list(subset) == ['LON-GRAPHIC', 'EMISSION']
+    for name, plane in subset.items():
+        np.testing.assert_array_equal(plane, full[name])
+    t_pipeline.wait_for_steady_state(t_body)  # no-op off the card
+    _, checksum = t_pipeline.compute_backplanes(t_body, with_checksum=True)
+    assert torch.isfinite(checksum)
+    assert backplanes_kernel.launch_count() == 0
+    with pytest.raises(ValueError, match='unknown planes'):
+        t_pipeline.compute_backplanes(t_body, names=['NO-SUCH-PLANE'])
+
+
+def test_forced_kernel_refuses_pathological_shape():
+    class Fake:
+        radii = np.asarray([1000.0, 400.0, 300.0])
+        device = torch.device('cpu')
+
+    assert t_pipeline._kernel_geodetic_iters(Fake()) is None
+    with pytest.raises(ValueError, match='evolute'):
+        t_pipeline.select_pipeline_impl(Fake(), 128, 64, use_kernel=True)
+    assert t_pipeline._kernel_geodetic_iters(
+        type('B', (), {'radii': np.array([1050.0, 840.0, 537.0])})()
+    ) == 4
