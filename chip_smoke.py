@@ -3,13 +3,21 @@ Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the backplane kernel (``planetmapper_tpu_torch/csrc/backplanes.cu``)
-with nvcc, drives the port's main path - ``pipeline.compute_backplanes`` on
-a 2048x2048 BodyXY of Jupiter seen from the Earth on 2005-01-01 (synthetic
-SPICE kernels written at run time) - and holds the kernel against its plain
-float64 PyTorch version on the card: at the full frame, and at a ragged,
-a row-offset, an un-gated and a plane-subset case. Then it times the
-kernel and the plain version at 2048x2048.
+Builds the port's three kernels (``planetmapper_tpu_torch/csrc/*.cu``) with
+nvcc, one process each, all at once. Then, on Jupiter seen from the Earth
+on 2005-01-01 (synthetic SPICE kernels written at run time):
+
+- backplanes: drives ``pipeline.compute_backplanes`` on a 2048x2048 BodyXY
+  and holds the backplane kernel against its plain float64 PyTorch version
+  on the card: at the full frame, and at a ragged, a row-offset, an
+  un-gated and a plane-subset case; times both at 2048x2048.
+- map: drives ``BodyXY.map_img`` onto the 720x1440 0.25-degree map of the
+  JAX package's map benchmark (bench.py:160-293), from a 150x150 frame in
+  every mode and from a 1024x1024 frame in 'linear' and 'cubic', frames
+  and cubes, with and without a NaN block; holds every output of the two
+  map kernels against their plain versions on the same inputs, and small
+  maps against the host scipy reference; times the kernels, their plain
+  versions, ``grid_sample`` as a yardstick and blocked ``map_img`` calls.
 
 Prints the card's name and power limit, one JSON line describing each
 kernel, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -18,7 +26,9 @@ non-zero, without that line, when a phase fails or no CUDA device exists.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -31,6 +41,10 @@ import planetmapper_tpu_torch as pt
 from planetmapper_tpu_torch import pipeline
 from planetmapper_tpu_torch._device import f64
 from planetmapper_tpu_torch.ops import backplanes_kernel as bk
+from planetmapper_tpu_torch.ops import cuda_build, interp, interp_device
+from planetmapper_tpu_torch.ops import map_smooth_kernel as msk
+from planetmapper_tpu_torch.ops import map_spline_kernel as msp
+from planetmapper_tpu_torch.ops import pchip_device
 from planetmapper_tpu_torch.testing import compare
 from planetmapper_tpu_torch.testing.synthetic_kernels import (
     AU_KM,
@@ -58,6 +72,32 @@ ANGLE_PLANES = (  # degrees
     'LIMB-LAT-GRAPHIC', 'RING-LON-GRAPHIC',
 )
 FLAGS = dict(positive_west=True, prograde=True, have_sun=True)
+
+#: H100 SXM peaks (NVIDIA's data sheet): HBM bandwidth and FP64 outside the
+#: tensor cores, which the kernels' scalar double arithmetic runs on.
+HBM_BYTES_PER_S = 3.35e12
+FP64_FLOP_PER_S = 34e12
+#: FP64 operations of the backplane kernel per on-disc pixel (PR 2's count
+#: of its ray, light-time, intercept and angle chain); off-disc pixels are
+#: counted as none, so the bound stays a lower bound.
+BACKPLANE_FLOP_PER_DISC_PIXEL = 3000
+
+#: The map benchmark of the JAX package: a 720x1440 rectangular map at
+#: 0.25 deg (bench.py:168) from a 150x150 frame (bench.py:163-167; the
+#: regime of TPU kernel 2) and a 1024x1024 frame (bench.py:245-249;
+#: kernel 3), as frames and as cubes (bench.py:252, :278).
+MAP_KW = dict(degree_interval=0.25)
+MAP_SHAPE = (720, 1440)
+MAP_BODIES = {150: (75.0, 75.0, 60.0, 12.3), 1024: (512.0, 512.0, 409.6, 12.3)}
+MAP_CUBE_FRAMES = {150: 16, 1024: 8}
+#: NaN blocks: tests/test_pallas_core.py:712 for 150x150, one on the
+#: 1024x1024 disc
+NAN_BLOCK = {150: (slice(40, 44), slice(50, 53)),
+             1024: (slice(400, 404), slice(500, 503))}
+#: Kernel against plain version: the JAX package's own TPU bars relative
+#: to max(scale, 1) (tests/test_pallas_core.py:727-732, :775-780, :812-817)
+MAP_BARS = {('spline', 150): 3e-5, ('spline', 1024): 5e-5,
+            ('smooth', 150): 1e-4}
 
 
 class SmokeFailure(Exception):
@@ -119,12 +159,24 @@ def check_against_plain(label, got, ref, disc, row0=0.0) -> dict:
 
 
 def build_phase() -> None:
+    libraries = [bk.LIBRARY, msp.LIBRARY, msk.LIBRARY]
     t0 = time.perf_counter()
-    bk.load_library()
-    log(f'[build] nvcc + load {time.perf_counter() - t0:.1f} s')
-    for line in bk.ptxas_log().splitlines():
-        if any(w in line for w in ('registers', 'spill', 'Compiling')):
-            log(f'[build] ptxas: {line.strip()}')
+    cuda_build.build_all(libraries)
+    log(f'[build] {len(libraries)} nvcc builds in parallel + load '
+        f'{time.perf_counter() - t0:.1f} s')
+    for library in libraries:
+        entry, spills = '', ''
+        for line in library.ptxas_log().splitlines():
+            if 'Compiling entry function' in line:
+                # the template arguments <kx, ky> in the mangled name
+                degrees = re.search(r'ILi(\d)ELi(\d)E', line)
+                entry = f'<kx={degrees[1]}, ky={degrees[2]}> ' if degrees \
+                    else ''
+            elif 'spill' in line:
+                spills = line.split(',', 1)[-1].strip()
+            elif 'registers' in line:
+                log(f'[build] {library.name} {entry}ptxas: '
+                    f'{line.split(":", 1)[-1].strip()}; {spills}')
 
 
 def main_path_phase(device, size=SIZE, disc=DISC):
@@ -173,7 +225,8 @@ def main_path_phase(device, size=SIZE, disc=DISC):
         f'main {size}x{size}', main_out, to_numpy(plain(size, size, *args)),
         disc,
     )
-    return body, args, launches, peak, reports
+    n_disc = int(np.isfinite(main_out['EMISSION']).sum())
+    return body, args, launches, peak, reports, n_disc
 
 
 def cases_phase(device) -> None:
@@ -222,8 +275,15 @@ def cases_phase(device) -> None:
 
 
 def cuda_time_ms(fn, reps: int) -> float:
+    """
+    Device time per call of ``fn`` over ``reps`` calls (CUDA events). A
+    device-side sleep first lets the host queue the calls ahead of the
+    card, so that short kernels are timed back to back and not at the rate
+    the host launches them.
+    """
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -265,6 +325,357 @@ def timing_phase(body, args, card: str) -> tuple[float, float]:
     return float(np.mean(times['kernel'])), float(np.mean(times['plain']))
 
 
+# ---------------------------------------------------------------------------
+# map_img on the 720x1440 map
+# ---------------------------------------------------------------------------
+
+class KernelCalls:
+    """
+    Records every call of the two map kernel wrappers made by ``map_img``
+    (their inputs and outputs), so that each output can be held against
+    the plain version on the same inputs. Wraps the names the device
+    modules call; the wrappers themselves, and their launch counts, are
+    untouched.
+    """
+
+    def __init__(self):
+        self.calls = []
+
+    @contextlib.contextmanager
+    def recording(self, label):
+        originals = (interp_device.map_spline, pchip_device.map_smooth)
+
+        def wrap(kind, fn):
+            def recorded(*args, **kwargs):
+                out = fn(*args, **kwargs)
+                self.calls.append((label, kind, args, kwargs, out))
+                return out
+            return recorded
+
+        interp_device.map_spline = wrap('spline', originals[0])
+        pchip_device.map_smooth = wrap('smooth', originals[1])
+        try:
+            yield
+        finally:
+            interp_device.map_spline, pchip_device.map_smooth = originals
+
+
+def map_images(size: int, seed: int):
+    rng = np.random.default_rng(seed)
+    frame = rng.normal(size=(size, size))
+    with_nan = frame.copy()
+    with_nan[NAN_BLOCK[size]] = np.nan
+    cube = rng.normal(size=(MAP_CUBE_FRAMES[size], size, size))
+    cube[1][NAN_BLOCK[size]] = np.nan
+    return frame, with_nan, cube
+
+
+def map_runs():
+    """(size, label, interpolation, image key) of the map main path."""
+    runs = []
+    for mode in ('nearest', 'linear', 'cubic', (3, 1), 'smooth'):
+        for key in ('frame', 'with_nan'):
+            runs.append((150, mode, key))
+    for mode in ('linear', 'cubic', 'smooth'):
+        runs.append((150, mode, 'cube'))
+    for mode in ('linear', 'cubic'):
+        runs.append((1024, mode, 'with_nan'))
+        runs.append((1024, mode, 'cube'))
+    return [(size, f'{size}^2 {mode} {key}', mode, key)
+            for size, mode, key in runs]
+
+
+def spline_bound(args, kw):
+    """Least time of one map_spline call: (ms, 'bytes' or 'operations')."""
+    x, y, valid, ty, tx, coeffs, nan_grid = args
+    kx, ky = kw['kx'], kw['ky']
+    n_frames = coeffs.shape[0]
+    ny, nx = nan_grid.shape[-2:]
+    live = valid.bool()
+    live_frames = live[None].expand(n_frames, -1)
+    if kw['propagate_nan']:
+        live = live & ~msp.outside_grid(x, y, ny, nx)
+        live_frames = live[None] & ~msp.neighbour_nan(x, y, nan_grid)
+    n_bytes = (17 * x.numel() + 4 * n_frames * x.numel()
+               + 8 * coeffs.numel() + nan_grid.numel() + n_frames
+               + 8 * (ty.numel() + tx.numel()))
+
+    def basis_flop(k):  # clamp + de Boor-Cox, counted from map_spline.cu
+        return 2 + 7 * k * (k + 1) // 2 - k
+
+    flop = (int(live.sum()) * (basis_flop(kx) + basis_flop(ky))
+            + int(live_frames.sum()) * 2 * (ky + 1) * (kx + 2))
+    return bound(n_bytes, flop)
+
+
+def smooth_bound(args, kw):
+    """Least time of one map_smooth call: (ms, 'bytes' or 'operations')."""
+    x, y, valid, grid, nan_img = args
+    n_frames, n_ys, n_xs = grid.shape
+    yb = (y - kw['iy0']) / kw['y_step']
+    xb = (x - kw['ix0']) / kw['x_step']
+    live = valid.bool() & (yb >= 0) & (yb <= n_ys - 1) & (xb >= 0) & (
+        xb <= n_xs - 1)
+    live_frames = live[None].expand(n_frames, -1)
+    if kw['propagate_nan']:
+        ny, nx = nan_img.shape[-2:]
+        live = live & ~msp.outside_grid(x, y, ny, nx)
+        live_frames = live[None] & ~msp.neighbour_nan(x, y, nan_img)
+    n_bytes = (17 * x.numel() + 4 * n_frames * x.numel()
+               + 8 * grid.numel() + nan_img.numel() + n_frames)
+    flop = int(live.sum()) * 6 + int(live_frames.sum()) * 11
+    return bound(n_bytes, flop)
+
+
+def bound(n_bytes: float, flop: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_flop = flop / FP64_FLOP_PER_S * 1e3
+    return max(t_bytes, t_flop), ('bytes' if t_bytes >= t_flop
+                                  else 'operations')
+
+
+def compare_with_plain(label, kind, size, args, kwargs, out) -> float:
+    plain_fn = msp.map_spline_plain if kind == 'spline' else \
+        msk.map_smooth_plain
+    ref = plain_fn(*args, **kwargs).cpu().numpy()
+    got = out.cpu().numpy()
+    if got.shape != ref.shape or got.dtype != np.float32:
+        raise SmokeFailure(f'{label}: {kind} kernel returned {got.shape} '
+                           f'{got.dtype}, plain {ref.shape}')
+    flips = int((np.isnan(got) != np.isnan(ref)).sum())
+    both = ~np.isnan(ref)
+    err = float(np.max(np.abs(got[both] - ref[both]))) if both.any() else 0.0
+    scale = float(np.max(np.abs(ref[both]))) if both.any() else 0.0
+    ulps = 0.0
+    if both.any():
+        ulps = float(np.max(
+            np.abs(got[both].astype(np.float64) - ref[both])
+            / np.spacing(np.maximum(np.abs(ref[both]), np.float32(1e-6)))
+        ))
+    bar = MAP_BARS[(kind, size)]
+    log(f'[map] {label}: {kind} kernel vs plain: mask flips {flips}, '
+        f'max_abs_err {err:.3e} (bar {bar * max(scale, 1.0):.3e}), '
+        f'max {ulps:.1f} float32 ulps, {int(both.sum())} finite values')
+    if flips or err > bar * max(scale, 1.0):
+        raise SmokeFailure(f'{label}: {kind} kernel differs from plain')
+    return err
+
+
+def small_map_check(device) -> None:
+    """map_img on the card against the host scipy reference, small map."""
+    body = pt.BodyXY('Jupiter', observer='EARTH', utc=UTC, sz=150,
+                     device=device)
+    body.set_disc_params(*MAP_BODIES[150])
+    _, img, _ = map_images(150, 1)
+    kw = dict(degree_interval=5)
+    x_map, y_map = body.get_x_map(**kw), body.get_y_map(**kw)
+    for mode in ('linear', 'cubic', 'smooth'):
+        got = body.map_img(img, interpolation=mode, as_numpy=True, **kw)
+        ref = np.full(x_map.shape, np.nan)
+        if mode == 'smooth':
+            interp.smooth_interpolation(
+                img, x_map, y_map, ref, propagate_nan=True, oversample_by=5,
+                max_oversampled_img_size=10_000,
+            )
+        else:
+            interp.spline_interpolation(
+                img, x_map, y_map, ref, interpolation=3 if mode == 'cubic'
+                else 1, warn_nan=False, propagate_nan=True,
+                spline_smoothing=0,
+            )
+        both = ~np.isnan(ref)
+        err = float(np.max(np.abs(got[both] - ref[both])))
+        if not np.array_equal(np.isnan(got), np.isnan(ref)) or err > 2e-5 * \
+                max(float(np.max(np.abs(ref[both]))), 1.0):
+            raise SmokeFailure(f'small {mode} map differs from the host '
+                               f'scipy reference by {err}')
+        log(f'[map] 36x72 {mode} map_img vs host scipy reference: same NaN '
+            f'mask, max_abs_err {err:.3e}')
+
+
+def map_phase(device):
+    """map_img main path: run, count launches, check against plain."""
+    bodies, images = {}, {}
+    for size, disc in MAP_BODIES.items():
+        t0 = time.perf_counter()
+        body = pt.BodyXY('Jupiter', observer='EARTH', utc=UTC, sz=size,
+                         device=device)
+        body.set_disc_params(*disc)
+        samples = body._get_map_samples(**MAP_KW)
+        log(f'[map] {size}^2 body x/y maps {samples.shape} '
+            f'({float(samples.valid.float().mean()):.4f} valid) '
+            f'{time.perf_counter() - t0:.2f} s (CPU float64, then copied '
+            f'to the card)')
+        if samples.shape != MAP_SHAPE:
+            raise SmokeFailure(f'map shape {samples.shape}')
+        bodies[size] = body
+        frame, with_nan, cube = map_images(size, size)
+        images[size] = dict(frame=frame, with_nan=with_nan, cube=cube)
+
+    runs = map_runs()
+    calls = KernelCalls()
+    outputs = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    msp.reset_launch_count()
+    msk.reset_launch_count()
+    t0 = time.perf_counter()
+    for size, label, mode, key in runs:
+        with calls.recording(label):
+            outputs[label] = bodies[size].map_img(
+                images[size][key], interpolation=mode, **MAP_KW
+            )
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {'map_spline': msp.launch_count(),
+                'map_smooth': msk.launch_count()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f'[map] {len(runs)} map_img calls {elapsed:.2f} s (first calls), '
+        f'kernel launches {launches}, peak device memory '
+        f'{peak / 2**20:.1f} MiB')
+    expected = {
+        'map_spline': sum(m not in ('nearest', 'smooth') for *_, m, _ in runs),
+        'map_smooth': sum(m == 'smooth' for *_, m, _ in runs),
+    }
+    if launches != expected:
+        raise SmokeFailure(f'map_img launched {launches}, expected {expected}')
+
+    for size, label, mode, key in runs:
+        out = outputs[label]
+        want = ((MAP_CUBE_FRAMES[size],) if key == 'cube' else ()) + MAP_SHAPE
+        if tuple(out.shape) != want or out.device.type != device.type:
+            raise SmokeFailure(f'{label}: map of shape {tuple(out.shape)} on '
+                               f'{out.device}')
+        first = (out[0] if key == 'cube' else out).cpu().numpy()
+        frac = float(np.isfinite(first).mean())
+        # half of the 0.25-deg map is on the visible hemisphere
+        if not 0.4 < frac < 0.6:
+            raise SmokeFailure(f'{label}: finite fraction {frac:.4f}')
+    errors = {'spline': 0.0, 'smooth': 0.0}
+    for label, kind, args, kwargs, out in calls.calls:
+        size = int(label.split('^')[0])
+        err = compare_with_plain(label, kind, size, args, kwargs, out)
+        errors[kind] = max(errors[kind], err)
+    small_map_check(device)
+    return bodies, images, calls, launches, errors, peak
+
+
+def time_pair(name, kernel, plain, library, reps=(200, 10, 200)):
+    """Kernel, plain version and library yardstick, in turns after warm-up."""
+    runs = {'kernel': (kernel, reps[0]), 'plain': (plain, reps[1])}
+    if library is not None:
+        runs['library'] = (library, reps[2])
+    for fn, _ in runs.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {k: [] for k in runs}
+    order = list(runs)
+    for turn in (order, order[::-1]):
+        for k in turn:
+            fn, n = runs[k]
+            times[k].append(cuda_time_ms(fn, n))
+    log(f'[map-time] {name}: ms per call (two turns each) '
+        + json.dumps(times))
+    return {k: float(np.mean(v)) for k, v in times.items()}
+
+
+def normalised_grid(u, v, n_u, n_v):
+    """grid_sample coordinates (align_corners=True) of grid positions."""
+    g = torch.stack([2.0 * u / (n_u - 1) - 1.0, 2.0 * v / (n_v - 1) - 1.0],
+                    dim=-1)
+    return g.reshape(1, *MAP_SHAPE, 2)
+
+
+def map_timing_phase(bodies, images, calls, card):
+    """Kernels, plain versions, yardsticks; cubes per frame; blocked calls."""
+    by_label = {(label, kind): (args, kwargs)
+                for label, kind, args, kwargs, _ in calls.calls}
+    results = {}
+    grid_sample = torch.nn.functional.grid_sample
+    for label in ('150^2 linear frame', '150^2 cubic frame',
+                  '1024^2 cubic with_nan'):
+        args, kw = by_label[(label, 'spline')]
+        x, y, valid, ty, tx, coeffs, nan_grid = args
+        nan_u8 = nan_grid.to(torch.uint8).contiguous()
+        prepared = (x, y, valid.to(torch.uint8), ty, tx, coeffs, nan_u8,
+                    nan_u8.reshape(nan_u8.shape[0], -1).any(1).to(
+                        torch.uint8),
+                    torch.empty((coeffs.shape[0], x.numel()),
+                                dtype=torch.float32, device=x.device))
+        library = None
+        if kw['kx'] == kw['ky'] == 1:
+            # s=0, k=1: the coefficients are the image; no NaN rules
+            ny, nx = coeffs.shape[1:]
+            grid = normalised_grid(x, y, nx, ny)
+            image = coeffs[:1, None]
+            library = (lambda: grid_sample(image, grid, mode='bilinear',
+                                           padding_mode='border',
+                                           align_corners=True))
+        t = time_pair(
+            f'{card} | map_spline {label} 720x1440',
+            lambda: msp.launch(*prepared, **kw),
+            lambda: msp.map_spline_plain(*args, **kw), library,
+        )
+        t['bound'], t['bound_by'] = spline_bound(args, kw)
+        results[label] = t
+    args, kw = by_label[('150^2 smooth frame', 'smooth')]
+    x, y, valid, grid_os, nan_img = args
+    nan_u8 = nan_img.to(torch.uint8).contiguous()
+    prepared = (x, y, valid.to(torch.uint8), grid_os, nan_u8,
+                nan_u8.reshape(1, -1).any(1).to(torch.uint8),
+                torch.empty((1, x.numel()), dtype=torch.float32,
+                            device=x.device))
+    n_ys, n_xs = grid_os.shape[1:]
+    coords = normalised_grid((x - kw['ix0']) / kw['x_step'],
+                             (y - kw['iy0']) / kw['y_step'], n_xs, n_ys)
+    image = grid_os[:, None]
+    t = time_pair(
+        f'{card} | map_smooth 150^2 smooth frame 720x1440 (oversampled '
+        f'{n_ys}x{n_xs})',
+        lambda: msk.launch(*prepared, **kw),
+        lambda: msk.map_smooth_plain(*args, **kw),
+        lambda: grid_sample(image, coords, mode='bilinear',
+                            padding_mode='border', align_corners=True),
+    )
+    t['bound'], t['bound_by'] = smooth_bound(args, kw)
+    results['150^2 smooth frame'] = t
+    log(f'[map-time] {card} | grid_sample yardstick: float64 in and out, '
+        'without the NaN rules; cubic has no one-call counterpart (none)')
+    for label, t in results.items():
+        log(f'[map-time] {label}: bound {t["bound"] * 1e3:.2f} us '
+            f'({t["bound_by"]}), kernel at {t["bound"] / t["kernel"]:.1%} '
+            'of it')
+
+    for size, mode in ((150, 'linear'), (150, 'cubic'), (150, 'smooth'),
+                       (1024, 'linear'), (1024, 'cubic')):
+        cube = images[size]['cube']
+        body = bodies[size]
+        body.map_img(cube, interpolation=mode, **MAP_KW)
+        torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        body.map_img(cube, interpolation=mode, **MAP_KW)
+        torch.cuda.synchronize()
+        per_frame = (time.perf_counter() - t0) / cube.shape[0] * 1e3
+        peak = (torch.cuda.max_memory_allocated() - live) / 2**20
+        log(f'[map-time] {card} | {size}^2 {cube.shape[0]}-frame cube '
+            f'{mode}: {per_frame:.3f} ms per frame (host clock, numpy cube '
+            f'in, maps left on the card); peak device memory of the call '
+            f'{peak:.1f} MiB above what was allocated before it')
+    for size, mode in ((150, 'nearest'), (150, 'linear'), (150, 'cubic'),
+                       (150, (3, 1)), (150, 'smooth'), (1024, 'linear'),
+                       (1024, 'cubic')):
+        img = images[size]['with_nan']
+        t0 = time.perf_counter()
+        bodies[size].map_img(img, interpolation=mode, as_numpy=True,
+                             **MAP_KW)
+        log(f'[map-time] {card} | one blocked {size}^2 map_img({mode!r}, '
+            f'as_numpy=True) {(time.perf_counter() - t0) * 1e3:.2f} ms '
+            '(host clock)')
+    return results
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
@@ -280,7 +691,9 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix='synthetic_kernels_') as kdir:
             write_synthetic_kernels(kdir, seed=0)
             pt.set_kernel_path(kdir)
-            body, args, launches, peak, reports = main_path_phase(device)
+            body, args, launches, peak, reports, n_disc = main_path_phase(
+                device
+            )
             if launches < 1:
                 raise SmokeFailure('compute_backplanes launched no kernel')
             cases_phase(device)
@@ -288,6 +701,14 @@ def main() -> int:
             kernel_ms, plain_ms = timing_phase(body, args, card)
             log(f'[memory] {card} | peak device memory of the main path '
                 f'{peak / 2**20:.1f} MiB')
+            t_map = time.perf_counter()
+            bodies, images, calls, map_launches, map_errors, map_peak = \
+                map_phase(device)
+            map_times = map_timing_phase(bodies, images, calls, card_line())
+            log(f'[memory] {card} | peak device memory of the map path '
+                f'{map_peak / 2**20:.1f} MiB (its 17 outputs and the '
+                'recorded kernel inputs held for the comparisons included)')
+            log(f'[map] phase {time.perf_counter() - t_map:.1f} s')
             pt.clear_kernels()
     except SmokeFailure as exc:
         log(f'FAIL: {exc}')
@@ -296,18 +717,60 @@ def main() -> int:
         reports[k]['max_abs_err'] for k in ANGLE_PLANES
         if np.isfinite(reports[k]['max_abs_err'])
     )
-    log(f'[done] {time.perf_counter() - t_start:.1f} s; max_abs_err is the '
-        f'largest angle error [deg] of the {SIZE}x{SIZE} main path')
-    print(json.dumps({'kernels': [dict(
-        name='backplanes26',
-        route='cuda',
-        source='planetmapper_tpu_torch/csrc/backplanes.cu',
-        replaces='planetmapper_tpu/ops/pallas_pipeline.py:262',
-        launches=launches,
-        max_abs_err=float(angle_err),
-        ms=kernel_ms,
-        plain_ms=plain_ms,
-    )]}))
+    bp_bound, bp_bound_by = bound(
+        4 * len(bk.PLANE_ORDER) * SIZE * SIZE,
+        BACKPLANE_FLOP_PER_DISC_PIXEL * n_disc,
+    )
+    spline_t = map_times['150^2 linear frame']
+    smooth_t = map_times['150^2 smooth frame']
+    log(f'[done] {time.perf_counter() - t_start:.1f} s; max_abs_err: '
+        f'backplanes26 the largest angle error [deg] of the {SIZE}x{SIZE} '
+        'main path, the map kernels the largest value error of every '
+        'map_img call; ms, plain_ms, library_ms, bound_ms: backplanes26 at '
+        f'{SIZE}x{SIZE}, map_spline the 150^2 linear frame and map_smooth '
+        'the 150^2 smooth frame onto the 720x1440 map')
+    print(json.dumps({'kernels': [
+        dict(
+            name='backplanes26',
+            route='cuda',
+            source='planetmapper_tpu_torch/csrc/backplanes.cu',
+            replaces='planetmapper_tpu/ops/pallas_pipeline.py:262',
+            launches=launches,
+            max_abs_err=float(angle_err),
+            ms=kernel_ms,
+            plain_ms=plain_ms,
+            bound_ms=bp_bound,
+            bound_by=bp_bound_by,
+            library_ms=None,
+        ),
+        dict(
+            name='map_spline',
+            route='cuda',
+            source='planetmapper_tpu_torch/csrc/map_spline.cu',
+            replaces='planetmapper_tpu/ops/map_pallas.py:268 and '
+                     'planetmapper_tpu/ops/map_pallas.py:628',
+            launches=map_launches['map_spline'],
+            max_abs_err=map_errors['spline'],
+            ms=spline_t['kernel'],
+            plain_ms=spline_t['plain'],
+            bound_ms=spline_t['bound'],
+            bound_by=spline_t['bound_by'],
+            library_ms=spline_t['library'],
+        ),
+        dict(
+            name='map_smooth',
+            route='cuda',
+            source='planetmapper_tpu_torch/csrc/map_smooth.cu',
+            replaces='planetmapper_tpu/ops/smooth_pallas.py:208',
+            launches=map_launches['map_smooth'],
+            max_abs_err=map_errors['smooth'],
+            ms=smooth_t['kernel'],
+            plain_ms=smooth_t['plain'],
+            bound_ms=smooth_t['bound'],
+            bound_by=smooth_t['bound_by'],
+            library_ms=smooth_t['library'],
+        ),
+    ]}))
     print(f'card: {card}')
     print(json.dumps({
         'ok': True,

@@ -3,14 +3,15 @@ planetmapper_tpu_torch: the PyTorch/CUDA port of planetmapper_tpu.
 
 This package mirrors ``planetmapper_tpu`` module for module. Scene geometry
 (SPICE kernels, ephemerides, frames, per-scene anchors) runs as float64
-PyTorch code on CPU tensors; the per-pixel backplane pipeline runs on the
-device chosen for each :class:`BodyXY` - a hand-written CUDA kernel on an
-NVIDIA GPU (``csrc/backplanes.cu``), or its plain float64 PyTorch version
-on CPU tensors.
+PyTorch code on CPU tensors; the per-pixel backplane pipeline and the map
+reprojection run on the device chosen for each :class:`BodyXY` -
+hand-written CUDA kernels on an NVIDIA GPU (``csrc/*.cu``), or their plain
+PyTorch versions on CPU tensors.
 
-Ported so far: ``Body``, ``BodyXY`` (disc parameters and the fused
-26-backplane pipeline), the kernel-path functions and :mod:`.pipeline`.
-The rest of the JAX package's API is listed in ROADMAP.md.
+Ported so far: ``Body``, ``BodyXY`` (disc parameters, the fused
+26-backplane pipeline, the map coordinates and ``map_img``), the
+kernel-path functions and :mod:`.pipeline`. The rest of the JAX package's
+API is listed in ROADMAP.md.
 """
 
 from __future__ import annotations

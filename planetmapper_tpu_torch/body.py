@@ -5,8 +5,9 @@ This slice ports what a :class:`Body` needs to build its scene and to feed
 the fused backplane pipeline: the constructor (scene constants, sub-observer
 and sub-solar points, ring plane), the longitude-sign helper, the
 lonlat -> radec -> angular transforms that the pipeline anchors use
-(through :func:`Body.north_pole_angle`), and the angular <-> km matrices.
-The other transforms and the limb, terminator, ring, local-solar-time,
+(through :func:`Body.north_pole_angle`), the angular <-> km matrices, the
+illumination and visibility functions the map coordinates use, and the
+surface-altitude adjustment of the map getters. The other transforms and the limb, terminator, ring, local-solar-time,
 state, occultation and plotting methods are listed in ROADMAP.md.
 
 Scene tensors are float64 on the CPU (:data:`._device.SCENE_DEVICE`); public
@@ -16,6 +17,7 @@ methods take and return floats or numpy arrays like the JAX package.
 from __future__ import annotations
 
 import datetime
+import functools
 import math
 import os
 from typing import Any
@@ -30,6 +32,7 @@ from .base import (
     NotFoundError,
     SpiceError,
     _cache_stable_result,
+    _replace_np_arr_args_with_tuples,
     get_pool,
 )
 from .core import geometry as geom
@@ -75,6 +78,73 @@ def lst_quantization_enabled() -> bool:
     return os.environ.get(
         'PLANETMAPPER_TPU_LST_QUANTIZATION', 'on'
     ).lower() not in ('off', '0', 'false')
+
+
+class _AdjustedSurfaceAltitude:
+    """
+    Context manager temporarily raising the target's surface by ``alt`` km
+    (parity with the reference's kernel-pool mutation, body.py:172-230;
+    here it swaps the radii attributes, which the geometry takes as
+    arguments).
+    """
+
+    def __init__(self, body: 'Body', alt: float = 0.0, **kwargs) -> None:
+        self.do_adjustment = alt != 0.0 and alt != body._alt_adjustment
+        if self.do_adjustment:
+            self.body = body
+            self.alt = float(alt)
+            if not math.isfinite(self.alt):
+                raise ValueError(
+                    'Cannot adjust surface altitude with non-finite alt value'
+                )
+            if body._alt_adjustment != 0.0:
+                raise ValueError(
+                    'Cannot nest _AdjustedSurfaceAltitude context managers '
+                    'with alt != 0'
+                )
+
+    def __enter__(self) -> None:
+        if self.do_adjustment:
+            self.original_radii = self.body.radii
+            self.change_radii(self.original_radii + self.alt)
+            self.body._alt_adjustment = self.alt
+
+    def __exit__(self, exc_type, exc_val, exc_tb) -> None:
+        if self.do_adjustment:
+            self.change_radii(self.original_radii)
+            self.body._alt_adjustment = 0.0
+
+    def change_radii(self, radii: np.ndarray) -> None:
+        """Apply new radii to the body."""
+        self.body._assign_radius_values(np.asarray(radii, dtype=float))
+
+
+def _adjust_surface_altitude_decorator(fn):
+    @functools.wraps(fn)
+    def decorated(self, *args, **kwargs):
+        with _AdjustedSurfaceAltitude(self, **kwargs):
+            return fn(self, *args, **kwargs)
+
+    return decorated
+
+
+def _cache_clearable_alt_dependent_result(fn):
+    """
+    Like :func:`.base._cache_clearable_result`, keyed also by the surface
+    altitude adjustment in force.
+    """
+
+    @functools.wraps(fn)
+    def decorated(self, *args_in, **kwargs_in):
+        args, kwargs = _replace_np_arr_args_with_tuples(args_in, kwargs_in)
+        key = (
+            fn.__name__, args, frozenset(kwargs.items()), self._alt_adjustment
+        )
+        if key not in self._cache:
+            self._cache[key] = fn(self, *args, **kwargs)
+        return self._cache[key]
+
+    return decorated
 
 
 _ENGINE_CACHE: dict[tuple, SceneEngine] = {}

@@ -1,29 +1,49 @@
 """
 BodyXY: the pixel/backplane render core (port of ``planetmapper_tpu.body_xy``).
 
-This slice ports the constructor, the disc-parameter interface, the
-pixel -> angular affine and the fused 26-backplane pipeline
+Ported: the constructor, the disc-parameter interface, the pixel <->
+angular affine, the fused 26-backplane pipeline
 (:func:`BodyXY.generate_backplanes_fused`, which runs
-:func:`..pipeline.compute_backplanes`). The backplane registry,
-``get_backplane_img``/``map_img`` and the matplotlib transforms are listed
-in ROADMAP.md.
+:func:`..pipeline.compute_backplanes`), the map coordinates
+(:func:`BodyXY.generate_map_coordinates`, ``get_x_map``/``get_y_map`` and
+the lonlat/targvec/illumination/obsvec/radec maps behind them) and
+:func:`BodyXY.map_img`. The backplane registry, the other map getters and
+the matplotlib transforms are listed in ROADMAP.md.
 
-Each BodyXY carries the device its pixel pipeline runs on (``device=``;
-cuda when a card is present, cpu otherwise).
+Each BodyXY carries the device its pixel pipeline and its map reprojection
+run on (``device=``; cuda when a card is present, cpu otherwise). The map
+coordinates are computed like the rest of the scene layer, in float64 on
+CPU tensors, and returned as numpy arrays.
 """
 
 from __future__ import annotations
 
 import datetime
 import math
-from typing import Any
+import warnings
+from typing import Any, Literal
 
 import numpy as np
 import torch
 
 from ._device import resolve_device
-from .base import _cache_clearable_result
-from .body import Body
+from .base import (
+    _as_readonly_view,
+    _cache_clearable_result,
+    _cache_stable_result,
+    _return_readonly_array,
+)
+from .body import (
+    Body,
+    _adjust_surface_altitude_decorator,
+    _cache_clearable_alt_dependent_result,
+)
+from .ops.projections import (
+    ProjectionTransformer,
+    ProjStringError,
+    transformer_from_proj_string,
+)
+from .progress import progress_decorator
 
 
 class BodyXY(Body):
@@ -111,6 +131,38 @@ class BodyXY(Body):
         m3[:2, :2] = m2
         m3[:2, 2] = offset
         return m3
+
+    @_cache_clearable_result
+    def _get_angular2xy_matrix(self) -> np.ndarray:
+        return np.linalg.inv(self._get_xy2angular_matrix())
+
+    def _obsvec2xy(self, obsvec: np.ndarray):
+        angular_x, angular_y = self._obsvec2angular(obsvec)
+        ang1 = np.stack(
+            np.broadcast_arrays(
+                np.asarray(angular_x, dtype=float),
+                np.asarray(angular_y, dtype=float),
+                np.ones_like(np.asarray(angular_x, dtype=float)),
+            ),
+            axis=-1,
+        )
+        v = ang1 @ self._get_angular2xy_matrix().T
+        if v.ndim == 1:
+            return float(v[0]), float(v[1])
+        return v[..., 0], v[..., 1]
+
+    def radec2xy(self, ra, dec):
+        """RA/Dec -> image pixel coordinates."""
+        return self._maybe_transform_as_arrays(self._radec2xy, ra, dec)
+
+    def _radec2xy(self, ra, dec):
+        return self._obsvec2xy(self._radec2obsvec_norm(ra, dec))
+
+    def _xy_in_image_frame(self, x, y):
+        return (
+            (x > -0.5) & (x < self._nx - 0.5)
+            & (y > -0.5) & (y < self._ny - 0.5)
+        )
 
     # ------------------------------------------------------------------
     # Disc parameter interface
@@ -276,3 +328,387 @@ class BodyXY(Body):
         from .pipeline import compute_backplanes
 
         return compute_backplanes(self)
+
+    # ------------------------------------------------------------------
+    # Map projection machinery
+    # ------------------------------------------------------------------
+    @_cache_stable_result
+    @_adjust_surface_altitude_decorator
+    def generate_map_coordinates(
+        self,
+        projection: str = 'rectangular',
+        *,
+        degree_interval: float = 1,
+        lon: float = 0,
+        lat: float = 0,
+        size: int = 100,
+        lon_coords=None,
+        lat_coords=None,
+        projection_x_coords=None,
+        projection_y_coords=None,
+        xlim: tuple[float, float] | None = None,
+        ylim: tuple[float, float] | None = None,
+        alt: float = 0.0,
+    ):
+        """
+        Generate map coordinates and the transformer for a projection.
+        Returns ``(lons, lats, xx, yy, transformer, info)`` like the
+        reference (body_xy.py:2755). Supported projections: 'rectangular',
+        'orthographic', 'azimuthal', 'azimuthal equal area', 'manual', or a
+        proj string using one of the natively implemented projections.
+        """
+        info: dict[str, Any]
+        west = self.positive_longitude_direction == 'W'
+        if projection == 'rectangular':
+            lons = np.arange(degree_interval / 2, 360, degree_interval)
+            if west:
+                lons = lons[::-1]
+            lats = np.arange(-90 + degree_interval / 2, 90, degree_interval)
+            lons, lats = np.meshgrid(lons, lats)
+            xx, yy = lons, lats
+            transformer = self._get_default_transformer()
+            info = dict(projection=projection, degree_interval=degree_interval)
+        elif projection == 'manual':
+            lons = lon_coords
+            lats = lat_coords
+            if lons is None or lats is None:
+                raise ValueError(
+                    'lon_coords and lat_coords must be provided for manual '
+                    'projection'
+                )
+            lons = np.asarray(lons)
+            lats = np.asarray(lats)
+            if lons.ndim != lats.ndim:
+                raise ValueError(
+                    'lon_coords and lat_coords must have the same number of '
+                    'dimensions'
+                )
+            if lons.ndim == 1:
+                lons, lats = np.meshgrid(lons, lats)
+            if lons.ndim != 2:
+                raise ValueError(
+                    'lon_coords and lat_coords must be 1D or 2D arrays'
+                )
+            if lons.shape != lats.shape:
+                raise ValueError(
+                    'lon_coords and lat_coords must have the same shape'
+                )
+            xx, yy = lons, lats
+            transformer = self._get_default_transformer()
+            info = dict(projection=projection)
+        elif projection == 'orthographic':
+            b = self.r_polar / self.r_eq
+            transformer = ProjectionTransformer(
+                kind='ortho', a=self.r_eq, b=self.r_polar, lon_0=lon,
+                lat_0=lat, to_meter=self.r_eq,
+                y_0=self.r_eq * (b - 1) * np.sin(np.radians(lat * 2)),
+                west_positive=west,
+            )
+            lim = max(1, b) * 1.01
+            lons, lats, xx, yy = self._grid_from_transformer(
+                transformer, np.linspace(-lim, lim, size)
+            )
+            info = dict(projection=projection, lon=lon, lat=lat, size=size)
+        elif projection == 'azimuthal':
+            transformer = ProjectionTransformer(
+                kind='aeqd', a=self.r_eq, b=self.r_eq, lon_0=lon, lat_0=lat,
+                to_meter=self.r_eq * np.pi, west_positive=west,
+            )
+            lons, lats, xx, yy = self._grid_from_transformer(
+                transformer, np.linspace(-1.01, 1.01, size)
+            )
+            info = dict(projection=projection, lon=lon, lat=lat, size=size)
+        elif projection == 'azimuthal equal area':
+            transformer = ProjectionTransformer(
+                kind='laea', a=self.r_eq, b=self.r_eq, lon_0=lon, lat_0=lat,
+                to_meter=self.r_eq * 2, west_positive=west,
+            )
+            lons, lats, xx, yy = self._grid_from_transformer(
+                transformer, np.linspace(-1.01, 1.01, size)
+            )
+            info = dict(projection=projection, lon=lon, lat=lat, size=size)
+        else:
+            if projection_x_coords is None:
+                raise ValueError('x coords must be provided')
+            self._check_proj_string_for_axis(projection)
+            transformer = transformer_from_proj_string(projection)
+            xs = np.asarray(projection_x_coords)
+            ys = (
+                xs
+                if projection_y_coords is None
+                else np.asarray(projection_y_coords)
+            )
+            if xs.ndim != ys.ndim:
+                raise ValueError(
+                    'x and y coords must have the same number of dimensions'
+                )
+            if xs.ndim == 1:
+                xx, yy = np.meshgrid(xs, ys)
+            elif xs.ndim == 2:
+                xx, yy = xs, ys
+            else:
+                raise ValueError('x and y coords must be 1D or 2D arrays')
+            if xx.shape != yy.shape:
+                raise ValueError('x and y coords must have the same shape')
+            lons, lats = transformer.transform(xx, yy, direction='INVERSE')
+            info = dict(
+                projection=projection,
+                projection_x_coords=projection_x_coords,
+                projection_y_coords=projection_y_coords,
+            )
+
+        info['xlim'] = xlim
+        info['ylim'] = ylim
+        lons = np.array(lons, dtype=float)
+        lats = np.array(lats, dtype=float)
+        xx = np.array(xx, dtype=float)
+        yy = np.array(yy, dtype=float)
+        if xlim is not None:
+            x_arr = xx[0]
+            keep = (x_arr >= min(xlim)) & (x_arr <= max(xlim))
+            xx, yy = xx[:, keep], yy[:, keep]
+            lons, lats = lons[:, keep], lats[:, keep]
+        if ylim is not None:
+            y_arr = yy[:, 0]
+            keep = (y_arr >= min(ylim)) & (y_arr <= max(ylim))
+            xx, yy = xx[keep, :], yy[keep, :]
+            lons, lats = lons[keep, :], lats[keep, :]
+
+        lons[~np.isfinite(lons)] = np.nan
+        lats[~np.isfinite(lats)] = np.nan
+
+        if alt != 0.0:
+            info['alt'] = alt
+        return (
+            _as_readonly_view(lons),
+            _as_readonly_view(lats),
+            _as_readonly_view(xx),
+            _as_readonly_view(yy),
+            transformer,
+            info,
+        )
+
+    def _grid_from_transformer(self, transformer, xs):
+        xx, yy = np.meshgrid(xs, xs)
+        lons, lats = transformer.transform(xx, yy, direction='INVERSE')
+        return lons, lats, xx, yy
+
+    def _get_default_transformer(self):
+        return ProjectionTransformer(
+            kind='lonlat', a=self.r_eq, b=self.r_polar
+        )
+
+    def create_proj_string(self, proj: str, **parameters) -> str:
+        """
+        Build a proj-style projection string with the body's ``+a``, ``+b``
+        and ``+axis`` parameters set automatically (pass None to omit one).
+        """
+        if 'a' not in parameters:
+            parameters['a'] = self.r_eq
+        if 'b' not in parameters:
+            parameters['b'] = self.r_polar
+        if 'axis' not in parameters:
+            parameters['axis'] = (
+                f'{self.positive_longitude_direction.lower()}nu'
+            )
+        for k in [k for k, v in parameters.items() if v is None]:
+            parameters.pop(k)
+        parameters_string = ' '.join(
+            f'+{k}={v}' for k, v in parameters.items()
+        )
+        space = ' ' if parameters_string else ''
+        return f'+proj={proj} {parameters_string}{space}+type=crs'
+
+    def _check_proj_string_for_axis(self, projection: str) -> None:
+        expected_axis = f'+axis={self.positive_longitude_direction.lower()}nu'
+        if expected_axis not in projection:
+            raise ProjStringError(
+                f'Projection string {projection!r} does not have the '
+                f'expected axis orientation {expected_axis!r} for positive '
+                f'{self.positive_longitude_direction} coordinates.'
+            )
+
+    def _make_empty_map(self, nz: int | None = None, **map_kwargs) -> np.ndarray:
+        n0, n1 = self._get_lonlat_map(**map_kwargs).shape[:2]
+        shape = (n0, n1) if nz is None else (n0, n1, nz)
+        return np.full(shape, np.nan)
+
+    # -- maps (numpy, from float64 CPU tensors) -------------------------
+    @_cache_stable_result
+    @_adjust_surface_altitude_decorator
+    @_return_readonly_array
+    def _get_lonlat_map(self, **map_kwargs) -> np.ndarray:
+        lons, lats, *_ = self.generate_map_coordinates(**map_kwargs)
+        lonlat_map = np.stack([np.asarray(lons) % 360, np.asarray(lats)],
+                              axis=-1)
+        lonlat_map[~np.isfinite(lonlat_map)] = np.nan
+        return lonlat_map
+
+    @_cache_stable_result
+    @progress_decorator
+    @_adjust_surface_altitude_decorator
+    def _get_targvec_map(self, **map_kwargs) -> np.ndarray:
+        lonlats = self._get_lonlat_map(**map_kwargs)
+        return np.asarray(
+            self._lonlat2targvec_radians(
+                np.deg2rad(lonlats[..., 0]),
+                np.deg2rad(lonlats[..., 1]),
+                alt=0.0,
+                not_visible_nan=False,
+            )
+        )
+
+    @_cache_stable_result
+    @progress_decorator
+    @_adjust_surface_altitude_decorator
+    @_return_readonly_array
+    def _get_illumf_map(self, **map_kwargs) -> np.ndarray:
+        targvec = self._get_targvec_map(**map_kwargs)
+        phase, incdnc, emissn, visibl, lit = self._illumf_from_targvec_radians(
+            targvec
+        )
+        return np.stack(
+            [
+                np.rad2deg(np.asarray(phase)),
+                np.rad2deg(np.asarray(incdnc)),
+                np.rad2deg(np.asarray(emissn)),
+                np.asarray(visibl, dtype=float),
+                np.asarray(lit, dtype=float),
+            ],
+            axis=-1,
+        )
+
+    @_cache_stable_result
+    @_adjust_surface_altitude_decorator
+    def _get_obsvec_map(self, **map_kwargs) -> np.ndarray:
+        targvec = self._get_targvec_map(**map_kwargs)
+        return np.asarray(self._targvec2obsvec(targvec))
+
+    @_cache_stable_result
+    @progress_decorator
+    @_adjust_surface_altitude_decorator
+    @_return_readonly_array
+    def _get_radec_map(self, **map_kwargs) -> np.ndarray:
+        visible = self._get_illumf_map(**map_kwargs)[:, :, 3] > 0
+        ra, dec = self._obsvec2radec_radians(self._get_obsvec_map(**map_kwargs))
+        ra = np.where(visible, np.asarray(ra), np.nan)
+        dec = np.where(visible, np.asarray(dec), np.nan)
+        return np.rad2deg(np.stack([ra, dec], axis=-1))
+
+    @_cache_clearable_alt_dependent_result
+    @progress_decorator
+    @_adjust_surface_altitude_decorator
+    @_return_readonly_array
+    def _get_xy_map(self, **map_kwargs) -> np.ndarray:
+        radec_map = np.asarray(self._get_radec_map(**map_kwargs))
+        ra = radec_map[..., 0]
+        dec = radec_map[..., 1]
+        finite = np.isfinite(ra)
+        with warnings.catch_warnings():
+            warnings.filterwarnings('ignore', 'invalid value encountered')
+            x, y = self.radec2xy(
+                np.where(finite, ra, 0.0), np.where(finite, dec, 0.0)
+            )
+            x = np.asarray(x)
+            y = np.asarray(y)
+            ok = finite & self._xy_in_image_frame(x, y)
+        x = np.where(ok, x, np.nan)
+        y = np.where(ok, y, np.nan)
+        return np.stack([x, y], axis=-1)
+
+    def get_x_map(self, **map_kwargs) -> np.ndarray:
+        """Map of x pixel coordinates of each location."""
+        return self._get_xy_map(**map_kwargs)[:, :, 0]
+
+    def get_y_map(self, **map_kwargs) -> np.ndarray:
+        """Map of y pixel coordinates of each location."""
+        return self._get_xy_map(**map_kwargs)[:, :, 1]
+
+    @_cache_clearable_alt_dependent_result
+    def _get_map_samples(self, **map_kwargs):
+        """The x/y maps' :class:`..ops.interp_device.MapSamples` on this
+        body's device (copied once per map and disc)."""
+        from .ops.interp_device import _device_xy
+
+        return _device_xy(
+            self.get_x_map(**map_kwargs), self.get_y_map(**map_kwargs),
+            self.device,
+        )
+
+    # ------------------------------------------------------------------
+    # Mapping (reprojection of observed images)
+    # ------------------------------------------------------------------
+    def map_img(
+        self,
+        img,
+        *,
+        interpolation: (
+            Literal['nearest', 'smooth', 'linear', 'quadratic', 'cubic']
+            | int
+            | tuple[int, int]
+        ) = 'linear',
+        propagate_nan: bool = True,
+        warn_nan: bool = False,
+        spline_smoothing: float = 0,
+        smooth_oversample_by: int = 5,
+        smooth_max_oversampled_img_size: int = 10_000,
+        as_numpy: bool = False,
+        fetch_dtype=None,
+        **map_kwargs,
+    ):
+        """
+        Project an observed image ``(ny, nx)``, or a cube ``(nz, ny, nx)``,
+        to a map (see :func:`generate_map_coordinates` for the projection
+        options, and the reference documentation for the interpolation
+        modes: 'nearest', spline degrees 1-3 ('linear'/'quadratic'/'cubic',
+        an int, or a ``(ky, kx)`` tuple whose first degree runs along image
+        rows) and the monotonic PCHIP-based 'smooth').
+
+        ``img`` may be a numpy array or a tensor. The result is a
+        ``torch.Tensor`` on this body's device (``as_numpy=False``) or a
+        numpy array (``as_numpy=True``): float32 for the spline and smooth
+        modes, the image's dtype for 'nearest'. ``fetch_dtype`` (a numpy
+        dtype such as ``np.float16``) casts the result on the device before
+        any copy to the host.
+        """
+        spline_k = {'linear': 1, 'quadratic': 2, 'cubic': 3}
+        if interpolation in spline_k:
+            interpolation = spline_k[interpolation]  # type: ignore[index]
+        if isinstance(img, torch.Tensor):
+            img = img.to(self.device)
+        else:
+            img = torch.as_tensor(np.asarray(img), device=self.device)
+        if img.shape[-2:] != (self._ny, self._nx):
+            raise ValueError(
+                f'The input `img` shape {tuple(img.shape)!r} is inconsistent '
+                f'with the body\'s image size (ny={self._ny}, nx={self._nx})'
+            )
+        samples = self._get_map_samples(**map_kwargs)
+
+        from .ops import interp_device, pchip_device
+
+        if interpolation == 'nearest':
+            if not img.is_floating_point():
+                img = img.to(torch.float64)
+            out = interp_device.nearest_interpolation_device(img, samples)
+        elif isinstance(interpolation, (int, tuple)):
+            out = interp_device.spline_interpolation_device(
+                img.to(torch.float64), samples,
+                interpolation=interpolation, warn_nan=warn_nan,
+                propagate_nan=propagate_nan,
+                spline_smoothing=spline_smoothing,
+            )
+        elif interpolation == 'smooth':
+            out = pchip_device.smooth_interpolation_device(
+                img.to(torch.float64), samples,
+                propagate_nan=propagate_nan,
+                oversample_by=smooth_oversample_by,
+                max_oversampled_img_size=smooth_max_oversampled_img_size,
+            )
+        else:
+            raise ValueError(f'Unknown interpolation method {interpolation!r}')
+        if fetch_dtype is not None:
+            out = out.to(torch.from_numpy(np.empty(0, fetch_dtype)).dtype)
+        if as_numpy:
+            return out.cpu().numpy()
+        return out

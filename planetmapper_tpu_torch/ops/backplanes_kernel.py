@@ -6,10 +6,9 @@ build_pallas_pipeline`` with a hand-written kernel for Hopper (sm_90a). The
 source note in ``csrc/backplanes.cu`` says what bounds it and how it is laid
 out. Here:
 
-- :func:`build_library` compiles the source with ``nvcc`` into a shared
-  library with a plain C interface, under ``build/`` at the repository root,
-  named by the hash of the source and flags; :func:`load_library` loads it
-  with ``ctypes``. Both run at first use on a CUDA device, never at import.
+- :data:`LIBRARY` (:mod:`.cuda_build`) compiles the source with ``nvcc``
+  into a shared library with a plain C interface under ``build/`` and loads
+  it with ``ctypes``, at first use on a CUDA device, never at import.
 - :func:`build_backplanes_kernel` returns ``impl(nx, ny, xy2angular, disc,
   radii, anchors, row0=0.0) -> dict`` with the contract of the JAX
   package's kernel. On CUDA tensors it computes the per-scene float64
@@ -21,18 +20,12 @@ out. Here:
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-from dataclasses import dataclass
-from pathlib import Path
-from typing import Any
 
 import torch
 
 from ..core.ephemeris import CLIGHT
+from .cuda_build import CudaLibrary, check_launch
 
 DEG = math.pi / 180.0
 
@@ -74,91 +67,7 @@ _F_HAVE_SUN = 4
 _F_OPTIMIZE_SPEED = 8
 _F_LST_QUANT = 16
 
-SOURCE = Path(__file__).resolve().parent.parent / 'csrc' / 'backplanes.cu'
-BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
-NVCC_FLAGS = (
-    '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-    '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
-)
-
-
-@dataclass
-class _KernelState:
-    """The loaded library and the launch count (one per process)."""
-
-    lib: Any = None
-    launches: int = 0
-    ptxas_log: str = ''
-
-
-_STATE = _KernelState()
-
-
-def launch_count() -> int:
-    """Kernel launches so far in this process (plain-version calls excluded)."""
-    return _STATE.launches
-
-
-def reset_launch_count() -> None:
-    _STATE.launches = 0
-
-
-def _find_nvcc() -> str:
-    candidates = [shutil.which('nvcc')]
-    cuda_home = os.environ.get('CUDA_HOME') or os.environ.get('CUDA_PATH')
-    if cuda_home:
-        candidates.append(os.path.join(cuda_home, 'bin', 'nvcc'))
-    candidates.append('/usr/local/cuda/bin/nvcc')
-    for path in candidates:
-        if path and os.path.exists(path):
-            return path
-    raise RuntimeError(
-        'nvcc not found: the backplane kernel is compiled from '
-        f'{SOURCE} with the CUDA toolkit at first use on a CUDA device'
-    )
-
-
-def build_library() -> Path:
-    """
-    Compile ``csrc/backplanes.cu`` (if not already built for this exact
-    source and flag set) and return the library path. The ``-Xptxas -v``
-    report (registers, spills) is kept beside it and in :func:`ptxas_log`.
-    """
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + ' '.join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib = BUILD_DIR / f'libbackplanes26-{digest}.so'
-    log = BUILD_DIR / f'libbackplanes26-{digest}.ptxas.txt'
-    if not lib.exists():
-        nvcc = _find_nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f'{lib.name}.{os.getpid()}.tmp')
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(SOURCE)],
-            capture_output=True, text=True, check=False,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f'nvcc failed with exit code {proc.returncode} on {SOURCE}:\n'
-                f'{proc.stdout}\n{proc.stderr}'
-            )
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)
-    _STATE.ptxas_log = log.read_text() if log.exists() else ''
-    return lib
-
-
-def ptxas_log() -> str:
-    """The ``-Xptxas -v`` output of the build (empty before a build)."""
-    return _STATE.ptxas_log
-
-
-def load_library():
-    """Build (at first use) and load the kernel library; returns the handle."""
-    if _STATE.lib is not None:
-        return _STATE.lib
-    path = build_library()
-    lib = ctypes.CDLL(str(path))
+def _configure(lib) -> None:
     lib.backplanes26_scene_size.restype = ctypes.c_int
     lib.backplanes26_n_planes.restype = ctypes.c_int
     lib.backplanes26_launch.restype = ctypes.c_int
@@ -169,13 +78,18 @@ def load_library():
     ]
     if lib.backplanes26_scene_size() != SCENE_SIZE:
         raise RuntimeError(
-            f'{SOURCE} expects {lib.backplanes26_scene_size()} scene '
+            f'backplanes.cu expects {lib.backplanes26_scene_size()} scene '
             f'scalars, the wrapper packs {SCENE_SIZE}'
         )
     if lib.backplanes26_n_planes() != len(PLANE_ORDER):
         raise RuntimeError('plane count of the kernel and wrapper differ')
-    _STATE.lib = lib
-    return lib
+
+
+LIBRARY = CudaLibrary('backplanes26', 'backplanes.cu', _configure)
+load_library = LIBRARY.load
+launch_count = LIBRARY.launch_count
+reset_launch_count = LIBRARY.reset_launch_count
+ptxas_log = LIBRARY.ptxas_log
 
 
 def scene_scalars(xy2angular, disc, radii, anchors) -> torch.Tensor:
@@ -312,11 +226,8 @@ def build_backplanes_kernel(
                 float(row0), slots, int(n_lt_iters), int(geodetic_iters),
                 flags, stream,
             )
-        if rc != 0:
-            raise RuntimeError(
-                f'backplane kernel launch failed: cudaError {rc}'
-            )
-        _STATE.launches += 1
+        check_launch(rc, 'backplane')
+        LIBRARY.launches += 1
 
     def impl(nx, ny, xy2angular, disc, radii, anchors, row0=0.0):
         device = _check_inputs(xy2angular, disc, radii, anchors)

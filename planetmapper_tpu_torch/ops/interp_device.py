@@ -1,0 +1,253 @@
+"""
+Image -> map reprojection on the body's device for :func:`BodyXY.map_img`
+('nearest' and the spline modes; port of ``planetmapper_tpu.ops.
+interp_device``).
+
+- ``nearest``: one gather per sample (plain PyTorch: there is no TPU kernel
+  behind it in the JAX package either).
+- spline degrees 1-3 with ``spline_smoothing=0`` (the default) and sources
+  up to :data:`_DEVICE_SOLVE_MAX` px: NaN infill (:func:`_infill_device`)
+  and the collocation solve ``C = Ainv_y @ cleaned @ Ainv_x.T`` run in
+  float64 on the device against the cached inverses of
+  :func:`_grid_spline_solver` (a plain matrix product, as the JAX package
+  leaves it to XLA), then the hand-written kernel
+  :func:`.map_spline_kernel.map_spline` evaluates every frame.
+- ``spline_smoothing > 0`` or larger sources: scipy's FITPACK solves each
+  frame on the host (adaptive knots), and the same kernel evaluates it.
+
+The NaN conventions are the reference's (body_xy.py:1855-1904): a sample is
+NaN when any of its 4 surrounding integer pixels is NaN or it is outside
+the grid of pixel centres; non-finite pixels are infilled with 3x3 means
+(else the frame's median) before the solve.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .map_spline_kernel import map_spline
+
+#: Largest source side solved on the device (dense inverses of the two
+#: collocation matrices); larger sources take the host FITPACK branch, as
+#: in the JAX package (interp_device.py:265).
+_DEVICE_SOLVE_MAX = 2048
+
+
+@dataclass(frozen=True)
+class MapSamples:
+    """
+    The map sample coordinates on a device: float64 ``x``, ``y`` flattened
+    in map order (0 where not ``valid``), the map ``shape``, and the
+    ``limits`` ``(nanmin x, nanmax x, nanmin y, nanmax y)`` of the host
+    maps (None when no sample is valid).
+    """
+
+    x: torch.Tensor
+    y: torch.Tensor
+    valid: torch.Tensor
+    shape: tuple[int, ...]
+    limits: tuple[float, float, float, float] | None
+
+
+def _device_xy(x_map: np.ndarray, y_map: np.ndarray,
+               device: torch.device) -> MapSamples:
+    """:class:`MapSamples` of host x/y maps, copied once to ``device``."""
+    x_map = np.asarray(x_map, dtype=np.float64)
+    y_map = np.asarray(y_map, dtype=np.float64)
+    valid = np.isfinite(x_map) & np.isfinite(y_map)
+    limits = None
+    if valid.any():
+        limits = (
+            float(np.nanmin(x_map)), float(np.nanmax(x_map)),
+            float(np.nanmin(y_map)), float(np.nanmax(y_map)),
+        )
+    return MapSamples(
+        x=torch.from_numpy(np.where(valid, x_map, 0.0).ravel()).to(device),
+        y=torch.from_numpy(np.where(valid, y_map, 0.0).ravel()).to(device),
+        valid=torch.from_numpy(valid.ravel()).to(device),
+        shape=tuple(x_map.shape),
+        limits=limits,
+    )
+
+
+def _frame_flags(frames: torch.Tensor) -> dict[str, np.ndarray]:
+    """Per-frame host flags (one device sync): all finite, any finite."""
+    finite = torch.isfinite(frames.reshape(frames.shape[0], -1))
+    flags = torch.stack([finite.all(dim=1), finite.any(dim=1)]).cpu().numpy()
+    return dict(all_finite=flags[0], any_finite=flags[1])
+
+
+def _infill_device(frame: torch.Tensor):
+    """
+    The reference's NaN infill (body_xy.py:1871-1904, :func:`..interp.
+    replace_nans_with_interpolated_values`) on the device: non-finite cells
+    with a finite cell in their clipped 3x3 neighbourhood take the
+    neighbourhood mean; the others take the frame's median of finite
+    values (0 if it has none). Returns ``(cleaned, nan_grid)``; the
+    propagation grid is ``isnan`` (infinities are infilled for the solve
+    but not propagated, reference body_xy.py:1668).
+    """
+    finite = torch.isfinite(frame)
+    values = torch.sort(frame[finite]).values
+    n = values.numel()
+    if n:
+        # the mean of the two middle values, as np.nanmedian (torch's
+        # nanmedian returns the lower one)
+        med = (values[(n - 1) // 2] + values[n // 2]) / 2
+    else:
+        med = torch.zeros((), dtype=frame.dtype, device=frame.device)
+    z = torch.nn.functional.pad(torch.where(finite, frame, 0.0), (1, 1, 1, 1))
+    g = torch.nn.functional.pad(finite.to(frame.dtype), (1, 1, 1, 1))
+    ny, nx = frame.shape
+    s = torch.zeros_like(frame)
+    cnt = torch.zeros_like(frame)
+    for dy in range(3):
+        for dx in range(3):
+            s = s + z[dy:dy + ny, dx:dx + nx]
+            cnt = cnt + g[dy:dy + ny, dx:dx + nx]
+    nb_mean = s / torch.where(cnt > 0, cnt, 1.0)
+    cleaned = torch.where(
+        finite, frame, torch.where(cnt > 0, nb_mean, med)
+    )
+    return cleaned, torch.isnan(frame)
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_spline_solver(ny: int, nx: int, kx: int, ky: int):
+    """
+    FITPACK knots of the s=0 interpolating spline on the regular ``(ny,
+    nx)`` pixel grid and the dense inverses of the two 1-D B-spline
+    collocation matrices, as numpy arrays ``(ty, tx, ainv_y, ainv_x)``.
+    ``C = ainv_y @ img @ ainv_x.T`` then reproduces scipy's
+    ``RectBivariateSpline(s=0)`` coefficients to rounding error.
+    """
+    import scipy.interpolate
+
+    spline = scipy.interpolate.RectBivariateSpline(
+        np.arange(ny), np.arange(nx), np.zeros((ny, nx)), kx=ky, ky=kx, s=0
+    )
+    ty, tx = spline.get_knots()
+    ay = scipy.interpolate.BSpline.design_matrix(
+        np.arange(ny, dtype=float), ty, ky, extrapolate=False
+    ).toarray()
+    ax = scipy.interpolate.BSpline.design_matrix(
+        np.arange(nx, dtype=float), tx, kx, extrapolate=False
+    ).toarray()
+    return ty, tx, np.linalg.inv(ay), np.linalg.inv(ax)
+
+
+@functools.lru_cache(maxsize=16)
+def _device_solver(ny: int, nx: int, kx: int, ky: int,
+                   device: torch.device):
+    """:func:`_grid_spline_solver` as float64 tensors on ``device``."""
+    return tuple(
+        torch.from_numpy(a).to(device)
+        for a in _grid_spline_solver(ny, nx, kx, ky)
+    )
+
+
+def _fitpack_coeffs(img, kx, ky, spline_smoothing, warn_nan):
+    """Host-side FITPACK solve (reference body_xy.py:1673-1680)."""
+    import scipy.interpolate
+
+    from .interp import replace_nans_with_interpolated_values
+
+    cleaned = replace_nans_with_interpolated_values(img, warn_nan)
+    spline = scipy.interpolate.RectBivariateSpline(
+        np.arange(img.shape[0]),
+        np.arange(img.shape[1]),
+        cleaned,
+        kx=ky,  # scipy's first axis is our y
+        ky=kx,
+        s=spline_smoothing,
+    )
+    ty, tx = spline.get_knots()
+    c = spline.get_coeffs()
+    return ty, tx, c
+
+
+def spline_interpolation_device(
+    img: torch.Tensor, samples: MapSamples, *, interpolation,
+    warn_nan: bool, propagate_nan: bool, spline_smoothing: float,
+) -> torch.Tensor:
+    """
+    Spline reprojection of a frame ``(ny, nx)`` or a cube ``(nz, ny, nx)``
+    (float64 on the samples' device). Returns float32 shaped like the map
+    (or ``(nz,) + map``).
+    """
+    if isinstance(interpolation, int):
+        kx = ky = interpolation
+    else:
+        # reference semantics (RectBivariateSpline with scipy's first axis
+        # = image rows): tuple[0] is the degree along image ROWS
+        ky, kx = interpolation
+    cube = img.ndim == 3
+    frames = img if cube else img[None]
+    ny, nx = frames.shape[-2:]
+    flags = _frame_flags(frames)
+    device = frames.device
+
+    if spline_smoothing == 0 and max(ny, nx) <= _DEVICE_SOLVE_MAX:
+        if warn_nan:
+            for ok in flags['all_finite']:
+                if not ok:
+                    print(
+                        'Warning, image contains NaN values which will '
+                        'be corrected'
+                    )
+        ty, tx, ainv_y, ainv_x = _device_solver(ny, nx, kx, ky, device)
+        cleaned = frames
+        nans = torch.zeros(frames.shape, dtype=torch.bool, device=device)
+        if not flags['all_finite'].all():
+            cleaned = frames.clone()
+            for i in np.flatnonzero(~flags['all_finite']):
+                cleaned[i], nans[i] = _infill_device(frames[i])
+        coeffs = torch.matmul(ainv_y, torch.matmul(cleaned, ainv_x.T))
+        vals = map_spline(
+            samples.x, samples.y, samples.valid, ty, tx, coeffs, nans,
+            kx=kx, ky=ky, propagate_nan=propagate_nan,
+        )
+        if not propagate_nan and not flags['any_finite'].all():
+            # host semantics: a frame with no finite values maps to NaN
+            dead = torch.from_numpy(~flags['any_finite']).to(device)
+            vals = torch.where(dead[:, None], torch.nan, vals)
+    else:
+        # host FITPACK branch (smoothing picks knots per frame)
+        host = frames.cpu().numpy()
+        vals = torch.full((frames.shape[0], samples.x.shape[0]), torch.nan,
+                          dtype=torch.float32, device=device)
+        for i, frame in enumerate(host):
+            if np.all(np.isnan(frame)):
+                continue
+            ty, tx, c = _fitpack_coeffs(
+                frame, kx, ky, spline_smoothing, warn_nan
+            )
+            n_cy, n_cx = len(ty) - ky - 1, len(tx) - kx - 1
+            vals[i] = map_spline(
+                samples.x, samples.y, samples.valid,
+                torch.from_numpy(ty).to(device),
+                torch.from_numpy(tx).to(device),
+                torch.from_numpy(c.reshape(1, n_cy, n_cx)).to(device),
+                torch.from_numpy(np.isnan(frame)[None]).to(device),
+                kx=kx, ky=ky, propagate_nan=propagate_nan,
+            )[0]
+    vals = vals.reshape((frames.shape[0],) + samples.shape)
+    return vals if cube else vals[0]
+
+
+def nearest_interpolation_device(img: torch.Tensor,
+                                 samples: MapSamples) -> torch.Tensor:
+    """
+    Nearest-pixel gather (reference body_xy.py:1633-1649) of a frame or a
+    cube, in the image's dtype; NaN where the sample is not valid.
+    """
+    ny, nx = img.shape[-2:]
+    xi = torch.round(samples.x).long().clamp(0, nx - 1)
+    yi = torch.round(samples.y).long().clamp(0, ny - 1)
+    flat = img.reshape(img.shape[:-2] + (ny * nx,))
+    out = torch.where(samples.valid, flat[..., yi * nx + xi], torch.nan)
+    return out.reshape(img.shape[:-2] + samples.shape)

@@ -1,7 +1,7 @@
 """
-The CUDA backplane kernel against its plain float64 PyTorch version, on the
-card. Every test here carries the ``cuda`` marker and skips without a CUDA
-device; on a machine with one:
+The port's CUDA kernels (backplanes, map spline, map smooth) against their
+plain PyTorch versions, on the card. Every test here carries the ``cuda``
+marker and skips without a CUDA device; on a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
@@ -21,6 +21,9 @@ import planetmapper_tpu_torch as tpm
 from planetmapper_tpu_torch import pipeline
 from planetmapper_tpu_torch._device import f64
 from planetmapper_tpu_torch.ops import backplanes_kernel as bk
+from planetmapper_tpu_torch.ops import interp_device, pchip_device
+from planetmapper_tpu_torch.ops import map_smooth_kernel as msk
+from planetmapper_tpu_torch.ops import map_spline_kernel as msp
 from planetmapper_tpu_torch.testing import compare
 from planetmapper_tpu_torch.testing.synthetic_kernels import (
     write_synthetic_kernels,
@@ -134,3 +137,101 @@ def test_compute_backplanes_launches_kernel(kernel_path, device):
     body._pipeline_precision = 'double'
     pipeline.compute_backplanes(body)
     assert bk.launch_count() == 1  # 'double' pins the plain graph
+
+
+# ---------------------------------------------------------------------------
+# Map kernels
+# ---------------------------------------------------------------------------
+
+def _map_case(n, frames, nan, seed, device, my=72, mx=144):
+    """Seeded frames (n x n) and a smooth map-like field of samples."""
+    rng = np.random.default_rng(seed)
+    img = rng.normal(size=(frames, n, n))
+    if nan:
+        img[:, n // 4:n // 4 + 4, n // 3:n // 3 + 3] = np.nan
+        img[0, n // 2, n // 2] = np.inf
+    yy, xx = np.meshgrid(np.linspace(-3, n + 2, my),
+                         np.linspace(-3, n + 2, mx), indexing='ij')
+    x_map = xx + 2 * np.sin(yy / 7.0)
+    y_map = yy + 2 * np.cos(xx / 9.0)
+    x_map[rng.uniform(size=x_map.shape) < 0.05] = np.nan
+    samples = interp_device._device_xy(x_map, y_map, device)
+    return f64(img, device), samples
+
+
+def _assert_within_one_ulp(got, ref):
+    got = got.cpu().numpy()
+    ref = ref.cpu().numpy()
+    assert got.dtype == ref.dtype == np.float32
+    assert np.array_equal(np.isnan(got), np.isnan(ref))
+    finite = ~np.isnan(ref)
+    assert finite.sum() > 100
+    # both compute in float64 and store float32; nvcc's fused multiply-adds
+    # may move a rounding by one float32 ulp (taken at no less than 1e-6,
+    # where float64 rounding of O(1) terms is no longer below it)
+    ulp = np.spacing(np.maximum(np.abs(ref[finite]), np.float32(1e-6)))
+    assert np.all(np.abs(got[finite] - ref[finite]) <= ulp)
+
+
+@pytest.mark.parametrize('kxy', [(1, 1), (2, 2), (3, 3), (3, 1)])
+@pytest.mark.parametrize('nan', [False, True])
+@pytest.mark.parametrize('n, frames', [(150, 1), (150, 3), (700, 2)])
+def test_map_spline_matches_plain_version(device, kxy, nan, n, frames):
+    ky, kx = kxy
+    img, samples = _map_case(n, frames, nan, n + frames, device)
+    ty, tx, ainv_y, ainv_x = interp_device._device_solver(
+        n, n, kx, ky, device
+    )
+    cleaned = img.clone()
+    nans = torch.zeros(img.shape, dtype=torch.bool, device=device)
+    for i in range(frames):
+        cleaned[i], nans[i] = interp_device._infill_device(img[i])
+    coeffs = ainv_y @ (cleaned @ ainv_x.T)
+    for propagate_nan in (True, False):
+        args = (samples.x, samples.y, samples.valid, ty, tx, coeffs, nans)
+        kw = dict(kx=kx, ky=ky, propagate_nan=propagate_nan)
+        before = msp.launch_count()
+        got = msp.map_spline(*args, **kw)
+        torch.cuda.synchronize()
+        assert msp.launch_count() == before + 1
+        _assert_within_one_ulp(got, msp.map_spline_plain(*args, **kw))
+
+
+@pytest.mark.parametrize('propagate_nan', [True, False])
+@pytest.mark.parametrize('nan, frames', [(False, 1), (True, 1), (True, 3)])
+def test_map_smooth_matches_plain_version(device, propagate_nan, nan, frames):
+    n = 150
+    img, samples = _map_case(n, frames, nan, 7 * frames, device)
+    box = pchip_device.smooth_box(samples.limits, n, n)
+    iy0, iy1, ix0, ix1 = box
+    grids = torch.stack([
+        pchip_device.oversample(f, box, 5, 5) for f in img
+    ])
+    args = (samples.x, samples.y, samples.valid, grids, torch.isnan(img))
+    kw = dict(iy0=iy0, ix0=ix0, y_step=0.2, x_step=0.2,
+              propagate_nan=propagate_nan)
+    before = msk.launch_count()
+    got = msk.map_smooth(*args, **kw)
+    torch.cuda.synchronize()
+    assert msk.launch_count() == before + 1
+    _assert_within_one_ulp(got, msk.map_smooth_plain(*args, **kw))
+
+
+def test_map_img_launches_map_kernels(kernel_path, device):
+    bodies = {}
+    for where in ('cpu', device):
+        body = tpm.BodyXY('Jupiter', observer='EARTH',
+                          utc='2005-01-01T00:00:00', sz=150, device=where)
+        body.set_disc_params(75.0, 75.0, 60.0, 12.3)
+        bodies[torch.device(where).type] = body
+    img = np.random.default_rng(0).normal(size=(150, 150))
+    img[40:44, 50:53] = np.nan
+    for interpolation, lib in (('cubic', msp), ((3, 1), msp),
+                               ('smooth', msk)):
+        lib.reset_launch_count()
+        got = bodies['cuda'].map_img(img, interpolation=interpolation,
+                                     degree_interval=2)
+        assert got.device.type == 'cuda' and lib.launch_count() == 1
+        ref = bodies['cpu'].map_img(img, interpolation=interpolation,
+                                    degree_interval=2)
+        _assert_within_one_ulp(got, ref)

@@ -69,6 +69,9 @@ def kernel_files(tmp_path_factory):
 def test_import_pulls_in_no_jax_or_matplotlib():
     code = (
         'import sys, planetmapper_tpu_torch\n'
+        'from planetmapper_tpu_torch.ops import (cuda_build, interp,\n'
+        '    interp_device, map_smooth_kernel, map_spline_kernel,\n'
+        '    pchip_device, projections)\n'
         'bad = [m for m in ("jax", "matplotlib", "planetmapper_tpu") '
         'if m in sys.modules]\n'
         'print(bad)\n'
