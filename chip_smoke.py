@@ -10,7 +10,8 @@ on 2005-01-01 (synthetic SPICE kernels written at run time):
 - backplanes: drives ``pipeline.compute_backplanes`` on a 2048x2048 BodyXY
   and holds the backplane kernel against its plain float64 PyTorch version
   on the card: at the full frame, and at a ragged, a row-offset, an
-  un-gated and a plane-subset case; times both at 2048x2048.
+  un-gated, a triaxial and a plane-subset case; times both at 2048x2048
+  on the card, and the main path's call by the host clock.
 - map: drives ``BodyXY.map_img`` onto the 720x1440 0.25-degree map of the
   JAX package's map benchmark (bench.py:160-293), from a 150x150 frame in
   every mode and from a 1024x1024 frame in 'linear' and 'cubic', frames
@@ -45,7 +46,7 @@ from planetmapper_tpu_torch.ops import cuda_build, interp, interp_device
 from planetmapper_tpu_torch.ops import map_smooth_kernel as msk
 from planetmapper_tpu_torch.ops import map_spline_kernel as msp
 from planetmapper_tpu_torch.ops import pchip_device
-from planetmapper_tpu_torch.testing import compare
+from planetmapper_tpu_torch.testing import bounds, compare
 from planetmapper_tpu_torch.testing.synthetic_kernels import (
     AU_KM,
     write_synthetic_kernels,
@@ -73,14 +74,9 @@ ANGLE_PLANES = (  # degrees
 )
 FLAGS = dict(positive_west=True, prograde=True, have_sun=True)
 
-#: H100 SXM peaks (NVIDIA's data sheet): HBM bandwidth and FP64 outside the
-#: tensor cores, which the kernels' scalar double arithmetic runs on.
-HBM_BYTES_PER_S = 3.35e12
-FP64_FLOP_PER_S = 34e12
-#: FP64 operations of the backplane kernel per on-disc pixel (PR 2's count
-#: of its ray, light-time, intercept and angle chain); off-disc pixels are
-#: counted as none, so the bound stays a lower bound.
-BACKPLANE_FLOP_PER_DISC_PIXEL = 3000
+#: Jupiter's radii scaled to a triaxial body inside the kernel's geodetic
+#: range (pipeline._kernel_geodetic_iters: 4 Bowring steps)
+TRIAXIAL_SCALE = (1.0, 0.98, 0.935)
 
 #: The map benchmark of the JAX package: a 720x1440 rectangular map at
 #: 0.25 deg (bench.py:168) from a 150x150 frame (bench.py:163-167; the
@@ -121,13 +117,11 @@ def to_numpy(out: dict) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in out.items()}
 
 
-def pipeline_args(body, device):
-    return (
-        f64(body._get_xy2angular_matrix(), device),
-        f64(np.asarray(body.get_disc_params()), device),
-        f64(np.asarray(body.radii), device),
-        pipeline._device_anchors(body),
-    )
+def device_inputs(body) -> tuple:
+    """The body's pipeline inputs as float64 tensors on its device."""
+    *values, anchors = pipeline.pipeline_inputs(body)
+    return (*(f64(v, body.device) for v in values),
+            pipeline.anchors_from_numpy(anchors, body.device))
 
 
 def check_against_plain(label, got, ref, disc, row0=0.0) -> dict:
@@ -177,6 +171,12 @@ def build_phase() -> None:
             elif 'registers' in line:
                 log(f'[build] {library.name} {entry}ptxas: '
                     f'{line.split(":", 1)[-1].strip()}; {spills}')
+    occ = bk.occupancy()
+    log(f'[build] backplanes26 on {torch.cuda.get_device_name(0)}: '
+        f'{occ["registers"]} registers, {occ["local_bytes"]} bytes of local '
+        f'memory per thread, {occ["blocks_per_sm"]} resident blocks of 256 '
+        'threads per SM')
+    return occ
 
 
 def main_path_phase(device, size=SIZE, disc=DISC):
@@ -185,7 +185,7 @@ def main_path_phase(device, size=SIZE, disc=DISC):
     body = pt.BodyXY('Jupiter', observer='EARTH', utc=UTC, sz=size,
                      device=device)
     body.set_disc_params(*disc)
-    args = pipeline_args(body, device)
+    args = device_inputs(body)
     log(f'[scene] BodyXY + anchors {time.perf_counter() - t0:.2f} s on '
         f'{body.device}; Jupiter at {body.target_distance / AU_KM:.3f} AU')
     _, use_kernel = pipeline.select_pipeline_impl(body, size, size)
@@ -235,7 +235,7 @@ def cases_phase(device) -> None:
     body = pt.BodyXY('Jupiter', observer='EARTH', utc=UTC, nx=nx, ny=ny,
                      device=device)
     body.set_disc_params(*disc)
-    args = pipeline_args(body, device)
+    args = device_inputs(body)
     row0, rows = BAND
     full = None
     for speed in (True, False):
@@ -262,6 +262,7 @@ def cases_phase(device) -> None:
             f'(optimize_speed={speed})')
         if speed:
             full = frame
+    triaxial_case(nx, ny, disc, args)
     for planes in SUBSETS:
         sub = to_numpy(bk.build_backplanes_kernel(
             optimize_speed=True, lst_quant=True, planes=planes, **FLAGS,
@@ -272,6 +273,33 @@ def cases_phase(device) -> None:
             if not np.array_equal(sub[name], full[name], equal_nan=True):
                 raise SmokeFailure(f'subset {planes}: {name} differs')
     log(f'[subsets] {len(SUBSETS)} subsets equal the full set exactly')
+
+
+def triaxial_case(nx, ny, disc, args) -> None:
+    """A triaxial body (4 Bowring steps) against the robust plain graph."""
+    xy2angular, disc_t, radii, anchors = args
+    radii = radii * torch.tensor(TRIAXIAL_SCALE, dtype=torch.float64,
+                                 device=radii.device)
+
+    # _kernel_geodetic_iters reads only a body's radii
+    shape = type('Shape', (), {'radii': radii.cpu().numpy()})()
+    iters = pipeline._kernel_geodetic_iters(shape)
+    if iters != 4:
+        raise SmokeFailure(f'triaxial radii take {iters} Bowring steps')
+    kern = bk.build_backplanes_kernel(
+        optimize_speed=True, lst_quant=True, geodetic_iters=iters, **FLAGS,
+    )
+    plain = pipeline.fused_backplanes_fn(
+        optimize_speed=True, robust_geodetic=True, **FLAGS,
+    )
+    launches = bk.launch_count()
+    got = to_numpy(kern(nx, ny, xy2angular, disc_t, radii, anchors))
+    if bk.launch_count() != launches + 1:
+        raise SmokeFailure('the triaxial case launched no kernel')
+    check_against_plain(
+        f'triaxial radii x {TRIAXIAL_SCALE} {nx}x{ny}', got,
+        to_numpy(plain(nx, ny, xy2angular, disc_t, radii, anchors)), disc,
+    )
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -292,37 +320,104 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def timing_phase(body, args, card: str) -> tuple[float, float]:
-    """Kernel and plain version at the full frame, in turns; blocked call."""
+def host_clock_ms(fn, reps: int) -> float:
+    """
+    What a caller waiting for one call of ``fn`` pays: the host-clock time
+    from the call to the end of a synchronise after it, the median of
+    ``reps`` calls (host work, launches and device time together).
+    """
+    samples = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(samples))
+
+
+def back_to_back_ms(fn, reps: int) -> float:
+    """Host-clock time per call of ``reps`` calls and one synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def in_turns(runs: dict, timer) -> dict[str, list[float]]:
+    """``timer(fn, reps)`` of every run after a warm-up, in two turns."""
+    for fn, _ in runs.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in runs}
+    order = list(runs)
+    for turn in (order, order[::-1]):
+        for name in turn:
+            fn, reps = runs[name]
+            times[name].append(timer(fn, reps))
+    return times
+
+
+def timing_phase(body, args, card: str) -> dict[str, float]:
+    """
+    The kernel and its plain version at the full frame; the main path's
+    call as a caller pays for it; one blocked call with the copy out.
+
+    - device time (CUDA events, calls queued behind a device-side sleep):
+      the kernel alone, on a packed scene, and the plain float64 graph;
+    - one synchronised call (host clock, median): the kernel alone on a
+      packed scene; the main path, ``compute_backplanes(body,
+      as_numpy=False)``, which packs the scene on the host first; the
+      contract's impl on CUDA tensors, which copies them to the host first;
+    - the main path back to back (host clock, one synchronise at the end);
+    - ``pack_scene`` alone (host clock).
+    """
     kern = bk.build_backplanes_kernel(
         optimize_speed=True, lst_quant=True, **FLAGS,
     )
     plain = pipeline.fused_backplanes_fn(**FLAGS)
-    scene = bk.scene_scalars(*args)
-    out = torch.empty((len(bk.PLANE_ORDER), SIZE, SIZE),
-                      dtype=torch.float32, device=scene.device)
-    runs = {
-        'kernel': (lambda: kern.launch(scene, out, SIZE, SIZE), 50),
-        'kernel with scene prep': (lambda: kern(SIZE, SIZE, *args), 50),
-        'plain': (lambda: plain(SIZE, SIZE, *args), 5),
-    }
-    for fn, _ in runs.values():
-        fn()  # warm-up
-    torch.cuda.synchronize()
-    times = {name: [] for name in runs}
-    for order in (('plain', 'kernel', 'kernel with scene prep'),
-                  ('kernel with scene prep', 'kernel', 'plain')):
-        for name in order:
-            fn, reps = runs[name]
-            times[name].append(cuda_time_ms(fn, reps))
-    log(f'[time] {card} | {SIZE}x{SIZE} ms per call (two turns each): '
-        + json.dumps(times))
+    host = pipeline.pipeline_inputs(body)
+    scene = bk.pack_scene(*host)
+    device = args[0].device
+
+    def kernel():
+        kern.run(scene, SIZE, SIZE, device)
+
+    def main_path():
+        pipeline.compute_backplanes(body, as_numpy=False)
+
+    device_ms = in_turns({'kernel': (kernel, 50),
+                          'plain': (lambda: plain(SIZE, SIZE, *args), 5)},
+                         cuda_time_ms)
+    call_ms = in_turns({
+        'kernel': (kernel, 20),
+        'main path': (main_path, 20),
+        'from device tensors': (lambda: kern(SIZE, SIZE, *args), 20),
+    }, host_clock_ms)
+    back_ms = in_turns({'main path': (main_path, 50)}, back_to_back_ms)
+    reps = 500
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        bk.pack_scene(*host)
+    pack_us = (time.perf_counter() - t0) * 1e6 / reps
+    log(f'[time] {card} | {SIZE}x{SIZE} device ms per call (CUDA events, '
+        f'two turns): {json.dumps(device_ms)}')
+    log(f'[time] {card} | {SIZE}x{SIZE} ms of one synchronised call (host '
+        f'clock, median of 20, two turns): {json.dumps(call_ms)}')
+    log(f'[time] {card} | {SIZE}x{SIZE} main path back to back (host clock '
+        f'per call over 50, two turns): {json.dumps(back_ms)}; pack_scene '
+        f'{pack_us:.1f} us per call (host clock, {reps} calls)')
+    prep = np.mean(call_ms['main path']) - np.mean(call_ms['kernel'])
+    log(f'[time] {card} | the main path\'s call takes {prep * 1e3:.1f} us '
+        'more than the kernel alone, both synchronised')
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pipeline.compute_backplanes(body)
     log(f'[time] {card} | one blocked compute_backplanes (planes to numpy) '
         f'{(time.perf_counter() - t0) * 1e3:.2f} ms')
-    return float(np.mean(times['kernel'])), float(np.mean(times['plain']))
+    return {name: float(np.mean(t)) for name, t in device_ms.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -428,10 +523,8 @@ def smooth_bound(args, kw):
 
 
 def bound(n_bytes: float, flop: float):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_flop = flop / FP64_FLOP_PER_S * 1e3
-    return max(t_bytes, t_flop), ('bytes' if t_bytes >= t_flop
-                                  else 'operations')
+    """Bytes and FP64 operations of a map kernel call: (ms, bound_by)."""
+    return bounds.roofline_ms(n_bytes, f64_ops=flop)
 
 
 def compare_with_plain(label, kind, size, args, kwargs, out) -> float:
@@ -565,15 +658,7 @@ def time_pair(name, kernel, plain, library, reps=(200, 10, 200)):
     runs = {'kernel': (kernel, reps[0]), 'plain': (plain, reps[1])}
     if library is not None:
         runs['library'] = (library, reps[2])
-    for fn, _ in runs.values():
-        fn()
-    torch.cuda.synchronize()
-    times = {k: [] for k in runs}
-    order = list(runs)
-    for turn in (order, order[::-1]):
-        for k in turn:
-            fn, n = runs[k]
-            times[k].append(cuda_time_ms(fn, n))
+    times = in_turns(runs, cuda_time_ms)
     log(f'[map-time] {name}: ms per call (two turns each) '
         + json.dumps(times))
     return {k: float(np.mean(v)) for k, v in times.items()}
@@ -687,7 +772,7 @@ def main() -> int:
     log(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'{torch.cuda.get_device_name(0)}')
     try:
-        build_phase()
+        occupancy = build_phase()
         with tempfile.TemporaryDirectory(prefix='synthetic_kernels_') as kdir:
             write_synthetic_kernels(kdir, seed=0)
             pt.set_kernel_path(kdir)
@@ -698,7 +783,15 @@ def main() -> int:
                 raise SmokeFailure('compute_backplanes launched no kernel')
             cases_phase(device)
             card = card_line()
-            kernel_ms, plain_ms = timing_phase(body, args, card)
+            bp_times = timing_phase(body, args, card)
+            bp_bound = bounds.backplane_bound(SIZE, SIZE, n_disc)
+            log(f'[time] {card} | backplanes26 bound {bp_bound["ms"]:.4f} ms '
+                f'({bp_bound["bound_by"]}: {bp_bound["f64_ops"]} FP64 + '
+                f'{bp_bound["f32_ops"]} FP32 operations, {bp_bound["bytes"]} '
+                f'bytes; {n_disc} on-disc pixels); kernel at '
+                f'{bp_bound["ms"] / bp_times["kernel"]:.1%} of it; '
+                f'{occupancy["registers"]} registers, '
+                f'{occupancy["blocks_per_sm"]} blocks per SM')
             log(f'[memory] {card} | peak device memory of the main path '
                 f'{peak / 2**20:.1f} MiB')
             t_map = time.perf_counter()
@@ -717,10 +810,6 @@ def main() -> int:
         reports[k]['max_abs_err'] for k in ANGLE_PLANES
         if np.isfinite(reports[k]['max_abs_err'])
     )
-    bp_bound, bp_bound_by = bound(
-        4 * len(bk.PLANE_ORDER) * SIZE * SIZE,
-        BACKPLANE_FLOP_PER_DISC_PIXEL * n_disc,
-    )
     spline_t = map_times['150^2 linear frame']
     smooth_t = map_times['150^2 smooth frame']
     log(f'[done] {time.perf_counter() - t_start:.1f} s; max_abs_err: '
@@ -737,10 +826,10 @@ def main() -> int:
             replaces='planetmapper_tpu/ops/pallas_pipeline.py:262',
             launches=launches,
             max_abs_err=float(angle_err),
-            ms=kernel_ms,
-            plain_ms=plain_ms,
-            bound_ms=bp_bound,
-            bound_by=bp_bound_by,
+            ms=bp_times['kernel'],
+            plain_ms=bp_times['plain'],
+            bound_ms=bp_bound['ms'],
+            bound_by=bp_bound['bound_by'],
             library_ms=None,
         ),
         dict(

@@ -1,10 +1,11 @@
 """
 Device choice for the port.
 
-The pixel pipeline runs on ``cuda`` when a card is present and on ``cpu``
-otherwise. The choice is made once, where a :class:`BodyXY` is built (or
-where the caller passes ``device=``), and travels with the object: no
-module reads a global device. Scene work (ephemerides, frame rotations,
+The pixel pipeline runs on ``cuda`` unless the caller asks for the CPU
+with ``device='cpu'``; without a card and without ``device=``, building a
+:class:`BodyXY` raises rather than carrying on on the CPU. The choice is
+made once, where a :class:`BodyXY` is built, and travels with the object:
+no module reads a global device. Scene work (ephemerides, frame rotations,
 anchors) is a chain of scalar programs and always runs on CPU tensors,
 where each step costs no kernel launch.
 """
@@ -18,9 +19,17 @@ SCENE_DEVICE = torch.device('cpu')
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``device`` as a :class:`torch.device`; ``None`` picks cuda if present."""
+    """
+    ``device`` as a :class:`torch.device`. ``None`` means ``cuda`` and raises
+    when no CUDA device is present: the CPU is taken only when asked for.
+    """
     if device is None:
-        return torch.device('cuda' if torch.cuda.is_available() else 'cpu')
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                'no CUDA device is available: the port runs on the card by '
+                "default; pass device='cpu' to run on the CPU"
+            )
+        return torch.device('cuda')
     return torch.device(device)
 
 

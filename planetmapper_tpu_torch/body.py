@@ -7,8 +7,9 @@ and sub-solar points, ring plane), the longitude-sign helper, the
 lonlat -> radec -> angular transforms that the pipeline anchors use
 (through :func:`Body.north_pole_angle`), the angular <-> km matrices, the
 illumination and visibility functions the map coordinates use, and the
-surface-altitude adjustment of the map getters. The other transforms and the limb, terminator, ring, local-solar-time,
-state, occultation and plotting methods are listed in ROADMAP.md.
+surface-altitude adjustment of the map getters. The other transforms and
+the limb, terminator, ring, local-solar-time, state, occultation and
+plotting methods are listed in ROADMAP.md.
 
 Scene tensors are float64 on the CPU (:data:`._device.SCENE_DEVICE`); public
 methods take and return floats or numpy arrays like the JAX package.

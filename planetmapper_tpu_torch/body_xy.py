@@ -11,7 +11,8 @@ the lonlat/targvec/illumination/obsvec/radec maps behind them) and
 the matplotlib transforms are listed in ROADMAP.md.
 
 Each BodyXY carries the device its pixel pipeline and its map reprojection
-run on (``device=``; cuda when a card is present, cpu otherwise). The map
+run on (``device=``; cuda by default, which raises without a card, and cpu
+only when asked for with ``device='cpu'``). The map
 coordinates are computed like the rest of the scene layer, in float64 on
 CPU tensors, and returned as numpy arrays.
 """
@@ -74,8 +75,10 @@ class BodyXY(Body):
             nx = sz
             ny = sz
 
-        super().__init__(target, utc, observer, **kwargs)
+        # resolved first: without a card and without device=, fail before
+        # building the scene
         self.device = resolve_device(device)
+        super().__init__(target, utc, observer, **kwargs)
 
         self._nx: int = nx
         self._ny: int = ny

@@ -4,36 +4,76 @@
 // (build_pallas_pipeline: kernel body at :481, pallas_call at :1152). The
 // reference on the GPU is the plain float64 PyTorch graph
 // planetmapper_tpu_torch.pipeline.fused_backplanes_fn, whose per-pixel
-// algebra this kernel follows step by step.
+// algebra this kernel follows.
 //
-// Design (first version: right and simple, fast later):
+// Design (second version, for Hopper):
 // - One thread per pixel in 32x8 blocks over a ceil(ny/8) x ceil(nx/32)
-//   grid; threads past the ragged edge return. Row y is `row + row0`, so a
-//   frame can be split into row bands (as at pallas_pipeline.py:320-323).
-// - Everything runs in native double: the H100 has it, so the TPU kernel's
-//   double-single chains and polynomial atan2/asin are not needed. The ray
-//   trig is computed per pixel (sincos of the two angular offsets), not
-//   from separable row/column tables.
-// - The per-scene float64 scalars (the anchors reduced to the values below,
-//   see `Scene`) are computed by the PyTorch wrapper and read here through
-//   the read-only cache; every thread reads the same addresses.
-// - Stores are float32 into one (NP, ny, nx) tensor in PLANE_ORDER, as the
-//   TPU kernel stores them; the wrapper upcasts RADIAL-VELOCITY to float64.
+//   grid; threads past the ragged edge help build the block's tables, then
+//   return. Row y is `row + row0`, so a frame can be split into row bands.
+// - The scene is 106 float64 values packed on the host by the wrapper
+//   (ops/backplanes_kernel.py pack_scene) and passed by value in the
+//   kernel's parameter struct (a __grid_constant__ of ~1 KB). Every
+//   instruction takes its scene operands from the constant bank, so no
+//   register holds a scene value, and no launch reads or copies a scene
+//   buffer. The host folds what depends on the scene alone: reciprocal
+//   radii, the geodetic constants, the affine maps pixel -> ray angle and
+//   pixel -> km/arcsec, et - tau0, et - sun_epoch0, sun_pos0 - targ_pos0.
+// - The rotation J2000 -> body-fixed (second-order Taylor about tau0) is
+//   built once per light-time evaluation and once for the final epoch,
+//   and applied to every vector at that epoch.
+// - Separable ray trigonometry: the ray's two angles are affine in (x, y),
+//   so sin/cos of a*x + (b*y + c) come from per-column sincos(a*x) and
+//   per-row sincos(b*y + c) by the angle-addition identity. Each block
+//   builds its 32 column and 8 row pairs (80 double sincospi, on angles
+//   the host gives in half turns) in shared memory instead of 512. The
+//   ray is read from these tables again after the disc chain rather than
+//   held in six registers through it.
+// - Strength reduction: multiplications by reciprocals in place of
+//   divisions by constants and radii, rsqrt in place of 1/sqrt, and exact
+//   compare-and-add wraps in place of fmod where the argument's range is
+//   known (atan2 output; LOCAL-SOLAR-TIME's [-12, 36]). Each moves a float64
+//   value by at most an ulp or two, far below the float32 stores.
 // - With optimize_speed, a pixel outside the r_cut circle skips the light
-//   time / intercept chain and writes NaN to the on-disc planes; a block
-//   wholly outside skips it in every thread. The ring occlusion distance
-//   stays in a register.
-// - Plane subsets are a run-time slot table in one compiled kernel: every
-//   plane is computed by the same instructions whichever subset is asked
-//   for, so a subset equals the full set bit for bit.
+//   time / intercept chain and writes NaN to the on-disc planes. Plane
+//   subsets are a run-time slot table in one compiled kernel: every plane
+//   is computed by the same instructions whichever subset is asked for, so
+//   a subset equals the full set bit for bit.
+// - Stores are float32 into one (NP, ny, nx) tensor in PLANE_ORDER, except
+//   RADIAL-VELOCITY, which the contract returns in float64: it is stored
+//   as float64 into its own (ny, nx) buffer, so no pass widens it later.
 //
-// What bounds it on this card: per pixel it does ~60 double
-// transcendentals and a few hundred double multiply-adds against 104 bytes
-// of float32 stores, so double-precision arithmetic (not memory traffic)
-// sets its time. This first design does nothing about that beyond fusing
-// the whole pipeline into one pass; making it fast is later work.
+// Precision of each plane (bars: tests/test_pallas_core.py:673-696, plus
+// one float32 ulp of the stored value):
+// - float64 throughout: the ray, the light-time loop and ellipsoid
+//   intercept, the Bowring iterations, PIXEL-X/Y, KM-X/Y, ANGULAR-X/Y,
+//   DISTANCE, RADIAL-VELOCITY, DOPPLER, LIMB-DISTANCE, RING-RADIUS,
+//   RING-DISTANCE; lon_e = atan2(y, x) of the surface point in float64,
+//   so LON-GRAPHIC, LON-CENTRIC (wrapped exactly to [0, 360)) and
+//   LOCAL-SOLAR-TIME (whose 1/3600 h bins float32 noise would flip) are
+//   float64 to the store.
+// - float32 atan2f of float64 arguments, converted to degrees and wrapped
+//   in float64: LAT-GRAPHIC, LAT-CENTRIC (atan2f(z, rho)), RA, DEC
+//   (atan2f(z, rho)), PHASE, INCIDENCE, EMISSION (atan2f(|a x b|, a.b)),
+//   AZIMUTH, LIMB-LON/LAT-GRAPHIC, RING-LON-GRAPHIC: atan2f's 2 ulps and
+//   the argument rounding give <= 3e-5 deg against the 1e-4 deg bar.
 //
-// Built by planetmapper_tpu_torch/ops/backplanes_kernel.py with
+// What bounds it: the function's least work (planetmapper_tpu_torch/
+// testing/bounds.py, counted from the plain graph at the cheapest known
+// form of each step) is ~380 float64 operations per pixel and ~700 more
+// per on-disc pixel, 0.098 ms at 2048^2 at the card's peak rates, below
+// its 108 bytes of stores per pixel, 0.135 ms at the HBM rate: the bound
+// is the stores'. The kernel's own instruction stream is longer (double
+// rsqrt, division, atan2 and sincospi expand to many instructions) and is
+// not counted. The first design held 126 registers (2 blocks of 256
+// threads per SM, 25% occupancy). This one is launched with
+// __launch_bounds__(256, 3): ptxas (CUDA 12.8, sm_90a) gives 80 registers,
+// no spills and no stack, and the card keeps 3 blocks of 256 threads per
+// SM (37.5% occupancy); builds at a minimum of 2 blocks ran slower and at
+// 4 blocks spilled. chip_smoke.py's [build] phase prints the registers,
+// local memory and resident blocks of every build
+// (backplanes26_occupancy below).
+//
+// Built by planetmapper_tpu_torch/ops/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -Xptxas -v
 // and called through ctypes (plain C interface at the bottom).
@@ -41,13 +81,20 @@
 #include <cuda_runtime.h>
 
 #include <math.h>
+#include <string.h>
 
 namespace {
 
 constexpr int kPlanes = 26;
+constexpr int kBlockX = 32;
+constexpr int kBlockY = 8;
+constexpr int kMinBlocksPerSM = 3;
 constexpr double kPi = 3.141592653589793;
-constexpr double kDeg = kPi / 180.0;
+constexpr double kDegPerRad = 180.0 / kPi;
 constexpr double kClight = 299792.458;  // km/s
+constexpr double kInvClight = 1.0 / kClight;
+constexpr double kHoursPerRad = 12.0 / kPi;
+constexpr double kInvLstBin = 1.0 / 3600.0;
 
 // Output planes, in PLANE_ORDER.
 enum Plane {
@@ -58,38 +105,44 @@ enum Plane {
     RING_LON_GRAPHIC, RING_DISTANCE,
 };
 
-// Offsets into the float64 scene vector (must match _SCENE_LAYOUT in
-// ops/backplanes_kernel.py; checked at load time via backplanes26_scene_size).
+// Offsets into the float64 scene (must match _SCENE_LAYOUT in
+// ops/backplanes_kernel.py; checked at load time via
+// backplanes26_scene_size).
 enum Scene {
-    S_XY2A = 0,            // xy2angular rows 0-1 (6)
-    S_MANG = 6,            // obsvec2angular (3x3, row-major)
-    S_ET = 15,
-    S_TAU0 = 16,
-    S_TARGET_LT = 17,
-    S_TARG_REL0 = 18,      // targ_pos0 - obs_pos
-    S_TARG_VEL0 = 21,
-    S_TARG_POS0 = 24,
-    S_ROT0 = 27,           // rotation and its derivatives at tau0 (3x3 each)
-    S_ROT1 = 36,
-    S_ROT2H = 45,          // 0.5 * rot2
-    S_RADII = 54,
-    S_FLAT = 57,
-    S_DISC = 58,           // x0, y0, r_cut
-    S_SUN_POS0 = 61,
-    S_SUN_VEL0 = 64,
-    S_SUN_EPOCH0 = 67,
-    S_OBS_VEL = 68,
-    S_A2KM = 71,           // angular2km (2x2, row-major)
-    S_KPA = 75,            // km per arcsec
-    S_SOLAR_LON = 76,
-    S_TARGET_OBSVEC = 77,
-    S_SP_OBSVEC = 80,
-    S_SP_RAYVEC = 83,
-    S_SP_DIST = 86,
-    S_SP_TARGVEC = 87,
-    S_RING_N = 90,
-    S_RING_C = 93,
-    SCENE_SIZE = 94,
+    S_RAY = 0,          // ra / pi = [0]*x + ([1]*y + [2]); dec / pi: [3..5]
+    S_MANG = 6,         // obsvec2angular (3x3, row-major)
+    S_KM = 15,          // KM-X/Y affine in (x, y) (2x3, row-major)
+    S_ANGULAR = 21,     // ANGULAR-X/Y affine in (x, y) (2x3)
+    S_ET_TAU0 = 27,     // et - tau0
+    S_TAU0 = 28,
+    S_TARGET_LT = 29,
+    S_TARG_REL0 = 30,   // targ_pos0 - obs_pos
+    S_TARG_VEL0 = 33,
+    S_ROT0 = 36,        // rotation and its derivatives at tau0 (3x3 each)
+    S_ROT1 = 45,
+    S_ROT2H = 54,       // 0.5 * rot2
+    S_RINV = 63,        // 1 / radii
+    S_RINV2 = 66,       // 1 / radii^2
+    S_RE = 69,          // geodetic spheroid (re, f): re
+    S_OMF = 70,         // 1 - f
+    S_OMF2 = 71,        // (1 - f)^2
+    S_E2 = 72,          // f (2 - f)
+    S_EP2_RE_OMF = 73,  // e2 / (1 - e2) * (re (1 - f))
+    S_E2_RE = 74,       // e2 * re
+    S_DISC = 75,        // x0, y0, r_cut^2
+    S_SUN_REL0 = 78,    // sun_pos0 - targ_pos0
+    S_SUN_VEL0 = 81,
+    S_SUN_OFF = 84,     // et - sun_epoch0
+    S_OBS_VEL = 85,
+    S_SOLAR_LON = 88,   // in [-pi, pi]
+    S_TARGET_OBSVEC = 89,
+    S_SP_OBSVEC = 92,
+    S_SP_RAYVEC = 95,
+    S_SP_DIST = 98,
+    S_SP_TARGVEC = 99,
+    S_RING_N = 102,
+    S_RING_C = 105,
+    SCENE_SIZE = 106,
 };
 
 enum Flags {
@@ -101,8 +154,9 @@ enum Flags {
 };
 
 struct Params {
-    int nx, ny;
+    double s[SCENE_SIZE];
     double row0;
+    int nx, ny;
     int slot[kPlanes];  // output slot of each plane, -1 when not requested
     int n_lt_iters;
     int geodetic_iters;
@@ -123,6 +177,9 @@ __device__ __forceinline__ V3 operator-(V3 a) { return {-a.x, -a.y, -a.z}; }
 __device__ __forceinline__ V3 operator*(V3 a, double s) {
     return {a.x * s, a.y * s, a.z * s};
 }
+__device__ __forceinline__ V3 hadamard(V3 a, V3 b) {
+    return {a.x * b.x, a.y * b.y, a.z * b.z};
+}
 __device__ __forceinline__ double dot(V3 a, V3 b) {
     return a.x * b.x + a.y * b.y + a.z * b.z;
 }
@@ -131,71 +188,106 @@ __device__ __forceinline__ V3 cross(V3 a, V3 b) {
     return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
             a.x * b.y - a.y * b.x};
 }
-__device__ __forceinline__ V3 hadamard_div(V3 a, V3 b) {
-    return {a.x / b.x, a.y / b.y, a.z / b.z};
+
+__device__ __forceinline__ V3 sc3(const Params& p, int i) {
+    return {p.s[i], p.s[i + 1], p.s[i + 2]};
 }
 
-__device__ __forceinline__ double sc(const double* s, int i) {
-    return __ldg(s + i);
-}
-__device__ __forceinline__ V3 sc3(const double* s, int i) {
-    return {__ldg(s + i), __ldg(s + i + 1), __ldg(s + i + 2)};
+// x in (-360, 360) -> [0, 360): exact for atan2 output in degrees.
+__device__ __forceinline__ double wrap360(double x) {
+    return x < 0.0 ? x + 360.0 : x;
 }
 
-// Clamp to [-1, 1] that keeps NaN (fmin/fmax would drop it).
-__device__ __forceinline__ double clamp_unit(double x) {
-    return x > 1.0 ? 1.0 : (x < -1.0 ? -1.0 : x);
+// float32 atan2 of float64 arguments, in degrees (float64).
+__device__ __forceinline__ double atan2_deg(double y, double x) {
+    return (double)atan2f((float)y, (float)x) * kDegPerRad;
 }
 
-// x mod m with the sign of m (numpy / torch.remainder semantics).
-__device__ __forceinline__ double remainder_pos(double x, double m) {
-    double r = fmod(x, m);
-    return (r < 0.0) ? r + m : r;
+// Angle between two vectors in degrees: atan2(|a x b|, a.b), well
+// conditioned at 0 and 180 degrees; float64 up to the float32 atan2.
+__device__ __forceinline__ double angle_deg(V3 a, V3 b) {
+    return atan2_deg(norm(cross(a, b)), dot(a, b));
 }
 
-// Rotation J2000 -> body-fixed at tau0 + dt (second-order Taylor), applied
-// to v; `transpose` applies its inverse.
-__device__ V3 rot_apply(const double* s, double dt, V3 v, bool transpose) {
+// Per-block sin/cos of the column and row parts of the two ray angles
+// (ra and dec): [0] sin ra, [1] cos ra, [2] sin dec, [3] cos dec.
+struct RayTables {
+    double col[4][kBlockX];
+    double row[4][kBlockY];
+};
+
+// The J2000 ray of this thread's pixel: angle addition over the tables,
+// then the obsvec2angular rotation.
+__device__ __forceinline__ V3 ray_j2000(const Params& p,
+                                        const RayTables& tab) {
+    const int cx = threadIdx.x, ry = threadIdx.y;
+    const double sra = tab.col[0][cx] * tab.row[1][ry]
+                       + tab.col[1][cx] * tab.row[0][ry];
+    const double cra = tab.col[1][cx] * tab.row[1][ry]
+                       - tab.col[0][cx] * tab.row[0][ry];
+    const double sdec = tab.col[2][cx] * tab.row[3][ry]
+                        + tab.col[3][cx] * tab.row[2][ry];
+    const double cdec = tab.col[3][cx] * tab.row[3][ry]
+                        - tab.col[2][cx] * tab.row[2][ry];
+    const V3 vec = {cra * cdec, sra * cdec, sdec};
+    return {vec.x * p.s[S_MANG + 0] + vec.y * p.s[S_MANG + 3]
+                + vec.z * p.s[S_MANG + 6],
+            vec.x * p.s[S_MANG + 1] + vec.y * p.s[S_MANG + 4]
+                + vec.z * p.s[S_MANG + 7],
+            vec.x * p.s[S_MANG + 2] + vec.y * p.s[S_MANG + 5]
+                + vec.z * p.s[S_MANG + 8]};
+}
+
+// Rotation J2000 -> body-fixed at tau0 + dt (second-order Taylor).
+struct Rot {
+    double m[9];
+};
+
+__device__ __forceinline__ Rot rot_at(const Params& p, double dt) {
     const double dt2 = dt * dt;
-    double r[9];
+    Rot r;
 #pragma unroll
     for (int k = 0; k < 9; ++k) {
-        r[k] = sc(s, S_ROT0 + k) + sc(s, S_ROT1 + k) * dt
-               + sc(s, S_ROT2H + k) * dt2;
+        r.m[k] = p.s[S_ROT0 + k] + p.s[S_ROT1 + k] * dt
+                 + p.s[S_ROT2H + k] * dt2;
     }
-    if (transpose) {
-        return {r[0] * v.x + r[3] * v.y + r[6] * v.z,
-                r[1] * v.x + r[4] * v.y + r[7] * v.z,
-                r[2] * v.x + r[5] * v.y + r[8] * v.z};
-    }
-    return {r[0] * v.x + r[1] * v.y + r[2] * v.z,
-            r[3] * v.x + r[4] * v.y + r[5] * v.z,
-            r[6] * v.x + r[7] * v.y + r[8] * v.z};
+    return r;
+}
+
+__device__ __forceinline__ V3 apply(const Rot& r, V3 v) {
+    return {r.m[0] * v.x + r.m[1] * v.y + r.m[2] * v.z,
+            r.m[3] * v.x + r.m[4] * v.y + r.m[5] * v.z,
+            r.m[6] * v.x + r.m[7] * v.y + r.m[8] * v.z};
+}
+
+__device__ __forceinline__ V3 apply_t(const Rot& r, V3 v) {
+    return {r.m[0] * v.x + r.m[3] * v.y + r.m[6] * v.z,
+            r.m[1] * v.x + r.m[4] * v.y + r.m[7] * v.z,
+            r.m[2] * v.x + r.m[5] * v.y + r.m[8] * v.z};
 }
 
 // Inverse of the time derivative of the rotation at tau0 + dt, applied to v.
-__device__ V3 rot_dot_transpose_apply(const double* s, double dt, V3 v) {
-    double r[9];
+__device__ __forceinline__ V3 rot_dot_transpose_apply(const Params& p,
+                                                      double dt, V3 v) {
+    Rot r;
 #pragma unroll
     for (int k = 0; k < 9; ++k) {
-        r[k] = sc(s, S_ROT1 + k) + 2.0 * sc(s, S_ROT2H + k) * dt;
+        r.m[k] = p.s[S_ROT1 + k] + 2.0 * p.s[S_ROT2H + k] * dt;
     }
-    return {r[0] * v.x + r[3] * v.y + r[6] * v.z,
-            r[1] * v.x + r[4] * v.y + r[7] * v.z,
-            r[2] * v.x + r[5] * v.y + r[8] * v.z};
+    return apply_t(r, v);
 }
 
 // Smallest non-negative ray parameter of the ellipsoid intercept
 // (core/geometry.py ray_ellipsoid_intercept): recentred discriminant.
-__device__ bool ray_ellipsoid(V3 origin, V3 dir, V3 radii, double* s_out) {
-    const V3 o = hadamard_div(origin, radii);
-    const V3 d = hadamard_div(dir, radii);
-    const double a = dot(d, d);
-    const double b = dot(o, d);
-    const double t_ca = -b / a;
+__device__ __forceinline__ bool ray_ellipsoid(const Params& p, V3 origin,
+                                              V3 dir, double* s_out) {
+    const V3 rinv = sc3(p, S_RINV);
+    const V3 o = hadamard(origin, rinv);
+    const V3 d = hadamard(dir, rinv);
+    const double a_inv = 1.0 / dot(d, d);
+    const double t_ca = -dot(o, d) * a_inv;
     const V3 q = o + d * t_ca;
-    const double cq = dot(q, q) - 1.0;
-    const double disc = -cq / a;
+    const double disc = -(dot(q, q) - 1.0) * a_inv;
     bool found = disc >= 0.0;
     const double sqrt_disc = sqrt(found ? disc : 0.0);
     const double s_near = t_ca - sqrt_disc;
@@ -205,124 +297,120 @@ __device__ bool ray_ellipsoid(V3 origin, V3 dir, V3 radii, double* s_out) {
     return found;
 }
 
-// Graphic latitude of a point on (or near) the (re, f) spheroid: Bowring's
-// form from the reduced latitude plus `iters` refinement steps (0 is exact
-// on the spheroid; 4 for triaxial bodies' off-spheroid surface points).
-__device__ double bowring_lat(double rho, double z, double re, double f,
-                              int iters) {
-    const double omf = 1.0 - f;
-    const double e2 = f * (2.0 - f);
-    const double ep2 = e2 / (1.0 - e2);
+// Numerator and denominator of the graphic latitude atan2 of a point on
+// (or near) the (re, f) spheroid: Bowring's form from the reduced latitude
+// plus `iters` float64 refinement steps (0 is exact on the spheroid; 4 for
+// triaxial bodies' off-spheroid surface points).
+__device__ __forceinline__ double bowring_lat_deg(const Params& p, double rho,
+                                                  double z, int iters) {
+    const double omf = p.s[S_OMF];
     const double w = rho * omf;
-    const double rb = 1.0 / sqrt(z * z + w * w);
+    const double rb = rsqrt(z * z + w * w);
     double sb = z * rb;
     double cb = w * rb;
-    double num = z + ep2 * (re * omf) * sb * sb * sb;
-    double den = rho - e2 * re * cb * cb * cb;
+    double num = z + p.s[S_EP2_RE_OMF] * sb * sb * sb;
+    double den = rho - p.s[S_E2_RE] * cb * cb * cb;
     for (int i = 0; i < iters; ++i) {
-        const double rr = 1.0 / sqrt(num * num + den * den);
+        const double rr = rsqrt(num * num + den * den);
         const double sl = num * rr;
         const double cl = den * rr;
-        const double rb2 = 1.0 / sqrt(omf * omf * sl * sl + cl * cl);
+        const double rb2 = rsqrt(p.s[S_OMF2] * sl * sl + cl * cl);
         sb = omf * sl * rb2;
         cb = cl * rb2;
-        num = z + ep2 * (re * omf) * sb * sb * sb;
-        den = rho - e2 * re * cb * cb * cb;
+        num = z + p.s[S_EP2_RE_OMF] * sb * sb * sb;
+        den = rho - p.s[S_E2_RE] * cb * cb * cb;
     }
-    return atan2(num, den);
+    return atan2_deg(num, den);
 }
 
 // Altitude above the (re, f) spheroid of an exterior point (ring plane):
-// trig-free Bowring, geocentric start, two refinement steps.
-__device__ double exterior_alt(double rho, double z, double re, double f) {
-    const double omf = 1.0 - f;
-    const double e2 = f * (2.0 - f);
-    const double ep2 = e2 / (1.0 - e2);
+// trig-free Bowring, geocentric start, two refinement steps; float64.
+__device__ __forceinline__ double exterior_alt(const Params& p, double rho,
+                                               double z) {
+    const double omf = p.s[S_OMF];
     const double w = rho * omf;
-    const double rb = 1.0 / sqrt(z * z + w * w);
+    const double rb = rsqrt(z * z + w * w);
     double sb = z * rb;
     double cb = w * rb;
     for (int i = 0; i < 2; ++i) {
-        const double num = z + ep2 * (re * omf) * sb * sb * sb;
-        const double den = rho - e2 * re * cb * cb * cb;
-        const double rr = 1.0 / sqrt(num * num + den * den);
+        const double num = z + p.s[S_EP2_RE_OMF] * sb * sb * sb;
+        const double den = rho - p.s[S_E2_RE] * cb * cb * cb;
+        const double rr = rsqrt(num * num + den * den);
         const double sl = num * rr;
         const double cl = den * rr;
-        const double rb2 = 1.0 / sqrt(omf * omf * sl * sl + cl * cl);
+        const double rb2 = rsqrt(p.s[S_OMF2] * sl * sl + cl * cl);
         sb = omf * sl * rb2;
         cb = cl * rb2;
     }
-    const double num = z + ep2 * (re * omf) * sb * sb * sb;
-    const double den = rho - e2 * re * cb * cb * cb;
-    const double rr = 1.0 / sqrt(num * num + den * den);
+    const double num = z + p.s[S_EP2_RE_OMF] * sb * sb * sb;
+    const double den = rho - p.s[S_E2_RE] * cb * cb * cb;
+    const double rr = rsqrt(num * num + den * den);
     const double sl = num * rr;
     const double cl = den * rr;
-    const double n = re / sqrt(1.0 - e2 * sl * sl);
-    return rho * cl + z * sl - n * (1.0 - e2 * sl * sl);
+    const double k = 1.0 - p.s[S_E2] * sl * sl;
+    const double n = p.s[S_RE] * rsqrt(k);
+    return rho * cl + z * sl - n * k;
 }
 
 // Body-fixed vector of an observer-frame point, retargeted in time about
 // the sub-observer point (pipeline.py _obsvec2targvec_lin).
-__device__ V3 obsvec2targvec(const double* s, V3 obsvec) {
-    const V3 off = obsvec - sc3(s, S_SP_OBSVEC);
+__device__ __forceinline__ V3 obsvec2targvec(const Params& p, V3 obsvec) {
+    const V3 off = obsvec - sc3(p, S_SP_OBSVEC);
     const double dist_offset =
-        norm(off - sc3(s, S_SP_RAYVEC)) - sc(s, S_SP_DIST);
-    const double tau0 = sc(s, S_TAU0);
-    const double dt = (tau0 - dist_offset / kClight) - tau0;
-    return sc3(s, S_SP_TARGVEC) + rot_apply(s, dt, off, false);
+        norm(off - sc3(p, S_SP_RAYVEC)) - p.s[S_SP_DIST];
+    const double tau0 = p.s[S_TAU0];
+    const double dt = (tau0 - dist_offset * kInvClight) - tau0;
+    return sc3(p, S_SP_TARGVEC) + apply(rot_at(p, dt), off);
 }
 
-// Angle between two vectors (SPICE vsep half-angle construction).
-__device__ double vsep(V3 a, V3 b) {
-    const V3 an = a * (1.0 / norm(a));
-    const V3 bn = b * (1.0 / norm(b));
-    if (dot(an, bn) >= 0.0) {
-        return 2.0 * asin(clamp_unit(0.5 * norm(an - bn)));
+__global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocksPerSM)
+backplanes26_kernel(float* __restrict__ out, double* __restrict__ rv_out,
+                    const __grid_constant__ Params p) {
+    // ---- the block's ray tables: sin/cos of the column and row parts ---
+    __shared__ RayTables tab;
+    const int t = threadIdx.y * kBlockX + threadIdx.x;
+    if (t < 2 * kBlockX) {
+        const int c = t % kBlockX;
+        const int k = t / kBlockX;  // 0: ra, 1: dec
+        const double x = (double)(blockIdx.x * kBlockX + c);
+        double sv, cv;
+        sincospi((k ? p.s[S_RAY + 3] : p.s[S_RAY + 0]) * x, &sv, &cv);
+        tab.col[2 * k][c] = sv;
+        tab.col[2 * k + 1][c] = cv;
+    } else if (t < 2 * kBlockX + 2 * kBlockY) {
+        const int r = (t - 2 * kBlockX) % kBlockY;
+        const int k = (t - 2 * kBlockX) / kBlockY;
+        const double y = (double)(blockIdx.y * kBlockY + r) + p.row0;
+        const double arg = k ? p.s[S_RAY + 4] * y + p.s[S_RAY + 5]
+                             : p.s[S_RAY + 1] * y + p.s[S_RAY + 2];
+        double sv, cv;
+        sincospi(arg, &sv, &cv);
+        tab.row[2 * k][r] = sv;
+        tab.row[2 * k + 1][r] = cv;
     }
-    return kPi - 2.0 * asin(clamp_unit(0.5 * norm(an + bn)));
-}
+    __syncthreads();
 
-__global__ void __launch_bounds__(256)
-backplanes26_kernel(const double* __restrict__ s, float* __restrict__ out,
-                    const Params p) {
-    const int col = blockIdx.x * blockDim.x + threadIdx.x;
-    const int row = blockIdx.y * blockDim.y + threadIdx.y;
+    const int col = blockIdx.x * kBlockX + threadIdx.x;
+    const int row = blockIdx.y * kBlockY + threadIdx.y;
     if (col >= p.nx || row >= p.ny) return;
 
     const size_t plane_stride = (size_t)p.nx * (size_t)p.ny;
     const size_t pix = (size_t)row * (size_t)p.nx + (size_t)col;
     auto store = [&](int plane, double v) {
         const int k = p.slot[plane];
-        if (k >= 0) out[(size_t)k * plane_stride + pix] = (float)v;
+        if (k < 0) return;
+        if (plane == RADIAL_VELOCITY) {
+            rv_out[pix] = v;
+        } else {
+            out[(size_t)k * plane_stride + pix] = (float)v;
+        }
     };
     auto wanted = [&](int plane) { return p.slot[plane] >= 0; };
 
     const double nan = __longlong_as_double(0x7ff8000000000000ULL);
     const double lon_sign = (p.flags & F_POSITIVE_WEST) ? -1.0 : 1.0;
-    const double spin_sign = (p.flags & F_PROGRADE) ? 1.0 : -1.0;
-    const V3 radii = sc3(s, S_RADII);
-    const double re = radii.x;
-    const double flat = sc(s, S_FLAT);
-
-    // ---- pixel -> angular -> unit ray in J2000 ------------------------
     const double xg = (double)col;
     const double yg = (double)row + p.row0;
-    const double ang_x = sc(s, S_XY2A + 0) * xg + sc(s, S_XY2A + 1) * yg
-                         + sc(s, S_XY2A + 2);
-    const double ang_y = sc(s, S_XY2A + 3) * xg + sc(s, S_XY2A + 4) * yg
-                         + sc(s, S_XY2A + 5);
-    double sra, cra, sdec, cdec;
-    sincos(-ang_x / 3600.0 * kDeg, &sra, &cra);
-    sincos(ang_y / 3600.0 * kDeg, &sdec, &cdec);
-    const V3 vec = {cra * cdec, sra * cdec, sdec};
-    const V3 d = {
-        vec.x * sc(s, S_MANG + 0) + vec.y * sc(s, S_MANG + 3)
-            + vec.z * sc(s, S_MANG + 6),
-        vec.x * sc(s, S_MANG + 1) + vec.y * sc(s, S_MANG + 4)
-            + vec.z * sc(s, S_MANG + 7),
-        vec.x * sc(s, S_MANG + 2) + vec.y * sc(s, S_MANG + 5)
-            + vec.z * sc(s, S_MANG + 8),
-    };
 
     // ---- the disc chain: light time, intercept, on-disc planes --------
     bool need_chain = false;
@@ -334,107 +422,104 @@ backplanes26_kernel(const double* __restrict__ s, float* __restrict__ out,
     }
     bool off = false;
     if (p.flags & F_OPTIMIZE_SPEED) {
-        const double dx = xg - sc(s, S_DISC + 0);
-        const double dy = yg - sc(s, S_DISC + 1);
-        const double r_cut = sc(s, S_DISC + 2);
-        off = dx * dx + dy * dy > r_cut * r_cut;
+        const double dx = xg - p.s[S_DISC + 0];
+        const double dy = yg - p.s[S_DISC + 1];
+        off = dx * dx + dy * dy > p.s[S_DISC + 2];
     }
     double dist_surface = nan;  // ring occlusion (NaN: nothing hides it)
     bool found = false;
     if (need_chain && !off) {
-        const double et = sc(s, S_ET);
-        const double tau0 = sc(s, S_TAU0);
-        const double target_lt = sc(s, S_TARGET_LT);
-        const V3 targ_rel0 = sc3(s, S_TARG_REL0);
-        const V3 targ_vel0 = sc3(s, S_TARG_VEL0);
+        const V3 d = ray_j2000(p, tab);
+        const V3 targ_rel0 = sc3(p, S_TARG_REL0);
+        const V3 targ_vel0 = sc3(p, S_TARG_VEL0);
+        const double target_lt = p.s[S_TARGET_LT];
         double lt = target_lt;
         double s_hit = 0.0;
         V3 spoint = {0.0, 0.0, 0.0};
         for (int it = 0; it <= p.n_lt_iters; ++it) {
-            const double dt = (et - lt) - tau0;
-            const V3 targ_rel = targ_rel0 + targ_vel0 * dt;
-            const V3 o_bf = -rot_apply(s, dt, targ_rel, false);
-            const V3 d_bf = rot_apply(s, dt, d, false);
-            found = ray_ellipsoid(o_bf, d_bf, radii, &s_hit);
+            const double dt = p.s[S_ET_TAU0] - lt;
+            const Rot r = rot_at(p, dt);
+            const V3 o_bf = -apply(r, targ_rel0 + targ_vel0 * dt);
+            const V3 d_bf = apply(r, d);
+            found = ray_ellipsoid(p, o_bf, d_bf, &s_hit);
             spoint = o_bf + d_bf * s_hit;
-            lt = (found ? s_hit : target_lt * kClight) / kClight;
+            lt = found ? s_hit * kInvClight : target_lt;
         }
-        const double tau = et - lt;
-        const double dt = tau - tau0;
+        const double dt = p.s[S_ET_TAU0] - lt;
 
         if (found) {
             dist_surface = lt * kClight;
             // -- lon/lat ------------------------------------------------
             const double lon_e = atan2(spoint.y, spoint.x);
-            const double rho = hypot(spoint.x, spoint.y);
-            store(LON_GRAPHIC, remainder_pos(lon_sign * lon_e / kDeg, 360.0));
+            const double rho = sqrt(spoint.x * spoint.x + spoint.y * spoint.y);
+            store(LON_GRAPHIC, wrap360(lon_sign * lon_e * kDegPerRad));
             if (wanted(LAT_GRAPHIC)) {
                 store(LAT_GRAPHIC,
-                      bowring_lat(rho, spoint.z, re, flat, p.geodetic_iters)
-                          / kDeg);
+                      bowring_lat_deg(p, rho, spoint.z, p.geodetic_iters));
             }
-            store(LON_CENTRIC, remainder_pos(lon_e / kDeg, 360.0));
-            const double r_sp = norm(spoint);
-            store(LAT_CENTRIC,
-                  asin(clamp_unit(spoint.z / r_sp)) / kDeg);
-
-            // -- illumination --------------------------------------------
-            const V3 point_j = rot_apply(s, dt, spoint, true);
-            const V3 srfvec_j2000 = targ_rel0 + targ_vel0 * dt + point_j;
-            const V3 srfvec_bf = rot_apply(s, dt, srfvec_j2000, false);
-            V3 sun_bf = {nan, nan, nan};
-            if (p.flags & F_HAVE_SUN) {
-                const V3 point_ssb =
-                    sc3(s, S_TARG_POS0) + targ_vel0 * dt + point_j;
-                const double lt_s =
-                    norm(sc3(s, S_SUN_POS0) - point_ssb) / kClight;
-                const double sun_dt = (tau - lt_s) - sc(s, S_SUN_EPOCH0);
-                const V3 sun_pos =
-                    sc3(s, S_SUN_POS0) + sc3(s, S_SUN_VEL0) * sun_dt;
-                sun_bf = rot_apply(s, dt, sun_pos - point_ssb, false);
-            }
-            const V3 normal_raw = hadamard_div(
-                spoint, {radii.x * radii.x, radii.y * radii.y,
-                         radii.z * radii.z});
-            const V3 normal = normal_raw * (1.0 / norm(normal_raw));
-            const V3 to_obs = -srfvec_bf;
-            store(PHASE, vsep(sun_bf, to_obs) / kDeg);
-            store(INCIDENCE, vsep(normal, sun_bf) / kDeg);
-            store(EMISSION, vsep(normal, to_obs) / kDeg);
-            if (wanted(AZIMUTH)) {
-                // dihedral between the tangent-plane projections of the
-                // sun and observer directions (well conditioned at the
-                // sub-solar and sub-observer caps)
-                const V3 a = sun_bf - normal * dot(normal, sun_bf);
-                const V3 b = to_obs - normal * dot(normal, to_obs);
-                store(AZIMUTH,
-                      (kPi - atan2(norm(cross(a, b)), dot(a, b))) / kDeg);
-            }
+            store(LON_CENTRIC, wrap360(lon_e * kDegPerRad));
+            store(LAT_CENTRIC, atan2_deg(spoint.z, rho));
 
             // -- local solar time -----------------------------------------
             if (wanted(LOCAL_SOLAR_TIME)) {
-                double lst = remainder_pos(
-                    12.0 + spin_sign * (lon_e - sc(s, S_SOLAR_LON)) * 12.0
-                               / kPi,
-                    24.0);
-                if (p.flags & F_LST_QUANT) lst = floor(lst * 3600.0) / 3600.0;
+                // lon_e and the solar longitude lie in [-pi, pi]: the
+                // argument lies in [-12, 36] and wraps with one add
+                const double spin_sign = (p.flags & F_PROGRADE) ? 1.0 : -1.0;
+                double lst = 12.0 + spin_sign * (lon_e - p.s[S_SOLAR_LON])
+                                        * kHoursPerRad;
+                lst = lst < 0.0 ? lst + 24.0 : (lst >= 24.0 ? lst - 24.0 : lst);
+                if (p.flags & F_LST_QUANT) {
+                    lst = floor(lst * 3600.0) * kInvLstBin;
+                }
                 store(LOCAL_SOLAR_TIME, lst);
+            }
+
+            // -- illumination vectors (one rotation at the final epoch) ---
+            const Rot r = rot_at(p, dt);
+            const V3 point_j = apply_t(r, spoint);
+            const V3 drift = targ_vel0 * dt;
+            const V3 srfvec_j2000 = (targ_rel0 + drift) + point_j;
+            const V3 to_obs = -apply(r, srfvec_j2000);
+            V3 sun_bf = {nan, nan, nan};
+            if (p.flags & F_HAVE_SUN) {
+                // sun_pos - point_ssb, about the target centre at tau0
+                const V3 to_sun0 = sc3(p, S_SUN_REL0) - (drift + point_j);
+                const double lt_s = norm(to_sun0) * kInvClight;
+                const double sun_dt = (p.s[S_SUN_OFF] - lt) - lt_s;
+                sun_bf = apply(r, to_sun0 + sc3(p, S_SUN_VEL0) * sun_dt);
             }
 
             // -- state ----------------------------------------------------
             store(DISTANCE, dist_surface);
             if (wanted(RADIAL_VELOCITY) || wanted(DOPPLER)) {
                 const V3 p_vel =
-                    targ_vel0 + rot_dot_transpose_apply(s, dt, spoint);
-                const V3 rhat = srfvec_j2000 * (1.0 / norm(srfvec_j2000));
-                const V3 obs_vel = sc3(s, S_OBS_VEL);
+                    targ_vel0 + rot_dot_transpose_apply(p, dt, spoint);
+                const V3 rhat =
+                    srfvec_j2000 * rsqrt(dot(srfvec_j2000, srfvec_j2000));
+                const V3 obs_vel = sc3(p, S_OBS_VEL);
                 const double rv_t = dot(rhat, p_vel);
                 const double rv_o = dot(rhat, obs_vel);
                 const double dltdt = (rv_t - rv_o) / (kClight + rv_t);
                 const double rv = dot(rhat, p_vel * (1.0 - dltdt) - obs_vel);
                 store(RADIAL_VELOCITY, rv);
-                const double beta = rv / kClight;
+                const double beta = rv * kInvClight;
                 store(DOPPLER, sqrt((1.0 + beta) / (1.0 - beta)));
+            }
+
+            // -- illumination angles --------------------------------------
+            const V3 normal_raw = hadamard(spoint, sc3(p, S_RINV2));
+            const V3 normal =
+                normal_raw * rsqrt(dot(normal_raw, normal_raw));
+            store(PHASE, angle_deg(sun_bf, to_obs));
+            store(INCIDENCE, angle_deg(normal, sun_bf));
+            store(EMISSION, angle_deg(normal, to_obs));
+            if (wanted(AZIMUTH)) {
+                // dihedral between the tangent-plane projections of the
+                // sun and observer directions (well conditioned at the
+                // sub-solar and sub-observer caps)
+                const V3 a = sun_bf - normal * dot(normal, sun_bf);
+                const V3 b = to_obs - normal * dot(normal, to_obs);
+                store(AZIMUTH, 180.0 - angle_deg(a, b));
             }
         }
     }
@@ -454,34 +539,40 @@ backplanes26_kernel(const double* __restrict__ s, float* __restrict__ out,
     }
 
     // ---- RA/Dec, pixel, km, angular (every pixel) ---------------------
-    const double d_norm = norm(d);
-    store(RA, remainder_pos(atan2(d.y, d.x), 2.0 * kPi) / kDeg);
-    store(DEC, asin(clamp_unit(d.z / d_norm)) / kDeg);
+    // the ray again, from the tables: the barrier keeps the compiler from
+    // merging these reads with the chain's and holding the ray through it
+    asm volatile("" ::: "memory");
+    const V3 d = ray_j2000(p, tab);
+    const double d_norm2 = dot(d, d);
+    const double rho_d = sqrt(d.x * d.x + d.y * d.y);
+    store(RA, wrap360(atan2_deg(d.y, d.x)));
+    store(DEC, atan2_deg(d.z, rho_d));
     store(PIXEL_X, xg);
     store(PIXEL_Y, yg);
-    const double km_x = sc(s, S_A2KM + 0) * ang_x + sc(s, S_A2KM + 1) * ang_y;
-    const double km_y = sc(s, S_A2KM + 2) * ang_x + sc(s, S_A2KM + 3) * ang_y;
-    store(KM_X, km_x);
-    store(KM_Y, km_y);
-    store(ANGULAR_X, km_x / sc(s, S_KPA));
-    store(ANGULAR_Y, km_y / sc(s, S_KPA));
+    store(KM_X, p.s[S_KM + 0] * xg + p.s[S_KM + 1] * yg + p.s[S_KM + 2]);
+    store(KM_Y, p.s[S_KM + 3] * xg + p.s[S_KM + 4] * yg + p.s[S_KM + 5]);
+    store(ANGULAR_X,
+          p.s[S_ANGULAR + 0] * xg + p.s[S_ANGULAR + 1] * yg
+              + p.s[S_ANGULAR + 2]);
+    store(ANGULAR_Y,
+          p.s[S_ANGULAR + 3] * xg + p.s[S_ANGULAR + 4] * yg
+              + p.s[S_ANGULAR + 5]);
 
     // ---- limb: nearest point of the ray to the target centre ----------
     if (wanted(LIMB_DISTANCE) || wanted(LIMB_LON_GRAPHIC)
         || wanted(LIMB_LAT_GRAPHIC)) {
-        const V3 target_obsvec = sc3(s, S_TARGET_OBSVEC);
-        const V3 dn = d * (1.0 / d_norm);
+        const V3 target_obsvec = sc3(p, S_TARGET_OBSVEC);
+        const V3 dn = d * rsqrt(d_norm2);
         const V3 near = dn * dot(target_obsvec, dn);
         const double near_dist = norm(near - target_obsvec);
-        const V3 near_targvec = obsvec2targvec(s, near);
-        const V3 limb = near_targvec
-                        * (1.0 / norm(hadamard_div(near_targvec, radii)));
-        store(LIMB_LON_GRAPHIC,
-              remainder_pos(lon_sign * atan2(limb.y, limb.x) / kDeg, 360.0));
+        const V3 near_targvec = obsvec2targvec(p, near);
+        const V3 scaled = hadamard(near_targvec, sc3(p, S_RINV));
+        const V3 limb = near_targvec * rsqrt(dot(scaled, scaled));
+        store(LIMB_LON_GRAPHIC, wrap360(lon_sign * atan2_deg(limb.y, limb.x)));
         if (wanted(LIMB_LAT_GRAPHIC)) {
             store(LIMB_LAT_GRAPHIC,
-                  bowring_lat(hypot(limb.x, limb.y), limb.z, re, flat,
-                              p.geodetic_iters) / kDeg);
+                  bowring_lat_deg(p, sqrt(limb.x * limb.x + limb.y * limb.y),
+                                  limb.z, p.geodetic_iters));
         }
         store(LIMB_DISTANCE, near_dist - norm(limb));
     }
@@ -489,10 +580,10 @@ backplanes26_kernel(const double* __restrict__ s, float* __restrict__ out,
     // ---- ring plane ----------------------------------------------------
     if (wanted(RING_RADIUS) || wanted(RING_LON_GRAPHIC)
         || wanted(RING_DISTANCE)) {
-        const V3 ring_n = sc3(s, S_RING_N);
-        const double ring_c = sc(s, S_RING_C);
+        const V3 ring_n = sc3(p, S_RING_N);
+        const double ring_c = p.s[S_RING_C];
         const double denom = dot(d, ring_n);
-        const bool degenerate = fabs(denom) <= 1e-12 * d_norm;
+        const bool degenerate = fabs(denom) <= 1e-12 * sqrt(d_norm2);
         const bool in_plane = degenerate && fabs(ring_c) <= 1e-9 * fabs(ring_c);
         const bool parallel = degenerate && !in_plane;
         const double s_r = ring_c / (fabs(denom) > 0.0 ? denom : 1.0);
@@ -506,11 +597,11 @@ backplanes26_kernel(const double* __restrict__ s, float* __restrict__ out,
             store(RING_LON_GRAPHIC, nan);
             store(RING_DISTANCE, nan);
         } else {
-            const V3 rt = obsvec2targvec(s, intercept);
+            const V3 rt = obsvec2targvec(p, intercept);
             store(RING_RADIUS,
-                  exterior_alt(hypot(rt.x, rt.y), rt.z, re, flat) + re);
-            store(RING_LON_GRAPHIC,
-                  remainder_pos(lon_sign * atan2(rt.y, rt.x) / kDeg, 360.0));
+                  exterior_alt(p, sqrt(rt.x * rt.x + rt.y * rt.y), rt.z)
+                      + p.s[S_RE]);
+            store(RING_LON_GRAPHIC, wrap360(lon_sign * atan2_deg(rt.y, rt.x)));
             store(RING_DISTANCE, ring_distance);
         }
     }
@@ -524,13 +615,32 @@ int backplanes26_scene_size(void) { return SCENE_SIZE; }
 
 int backplanes26_n_planes(void) { return kPlanes; }
 
-// Launch the kernel on `stream`. `scene` and `out` are device pointers
-// (SCENE_SIZE float64; n_requested x ny x nx float32); `slots` is a host
-// array of 26 ints. Returns cudaGetLastError() after the launch.
-int backplanes26_launch(const double* scene, float* out, int nx, int ny,
+// Registers and local (spill) bytes per thread of the compiled kernel, and
+// its resident blocks per SM at its block size. Returns a cudaError_t.
+int backplanes26_occupancy(int* registers, int* local_bytes,
+                           int* blocks_per_sm) {
+    cudaFuncAttributes attr;
+    cudaError_t rc = cudaFuncGetAttributes(&attr, backplanes26_kernel);
+    if (rc != cudaSuccess) return (int)rc;
+    *registers = attr.numRegs;
+    *local_bytes = (int)attr.localSizeBytes;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, backplanes26_kernel, kBlockX * kBlockY, 0);
+}
+
+// Launch the kernel on `stream`. `scene` is a host array of SCENE_SIZE
+// float64 values, copied into the kernel's parameters before this returns;
+// `out` (n_float32_planes x ny x nx float32) and `rv_out` (ny x nx float64,
+// read only when RADIAL-VELOCITY is requested) are device pointers; `slots`
+// is a host array of 26 ints: each plane's index in `out`, -1 when not
+// requested (RADIAL-VELOCITY: 0 when requested). Returns cudaGetLastError()
+// after the launch.
+int backplanes26_launch(const double* scene, float* out, double* rv_out,
+                        int nx, int ny,
                         double row0, const int* slots, int n_lt_iters,
                         int geodetic_iters, int flags, void* stream) {
     Params p;
+    memcpy(p.s, scene, sizeof(p.s));
     p.nx = nx;
     p.ny = ny;
     p.row0 = row0;
@@ -538,9 +648,9 @@ int backplanes26_launch(const double* scene, float* out, int nx, int ny,
     p.n_lt_iters = n_lt_iters;
     p.geodetic_iters = geodetic_iters;
     p.flags = flags;
-    const dim3 block(32, 8);
-    const dim3 grid((nx + 31) / 32, (ny + 7) / 8);
-    backplanes26_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(scene, out,
+    const dim3 block(kBlockX, kBlockY);
+    const dim3 grid((nx + kBlockX - 1) / kBlockX, (ny + kBlockY - 1) / kBlockY);
+    backplanes26_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(out, rv_out,
                                                                   p);
     return (int)cudaGetLastError();
 }

@@ -3,18 +3,29 @@ The 26-backplane CUDA kernel (``csrc/backplanes.cu``) and its wrapper.
 
 Replaces the TPU kernel ``planetmapper_tpu/ops/pallas_pipeline.py:
 build_pallas_pipeline`` with a hand-written kernel for Hopper (sm_90a). The
-source note in ``csrc/backplanes.cu`` says what bounds it and how it is laid
-out. Here:
+source note in ``csrc/backplanes.cu`` says what bounds it, how it is laid
+out and the precision of each plane. Here:
 
 - :data:`LIBRARY` (:mod:`.cuda_build`) compiles the source with ``nvcc``
   into a shared library with a plain C interface under ``build/`` and loads
   it with ``ctypes``, at first use on a CUDA device, never at import.
+- :func:`pack_scene` reduces the scene (the ``xy2angular`` matrix, the disc
+  parameters, the radii and the anchors) to the kernel's 106 float64 values
+  with numpy on the host. The kernel receives them by value in its launch
+  parameters, so a launch copies no scene buffer and runs no preparatory
+  kernel. Given CUDA tensors, it first brings them to the host in one
+  small device-to-host copy (which waits for the device).
 - :func:`build_backplanes_kernel` returns ``impl(nx, ny, xy2angular, disc,
   radii, anchors, row0=0.0) -> dict`` with the contract of the JAX
-  package's kernel. On CUDA tensors it computes the per-scene float64
-  scalars with PyTorch on the device, launches the kernel on the current
-  stream and counts the launch; a build or launch fault raises. Only CPU
-  tensors take the plain version, :func:`..pipeline.fused_backplanes_fn`.
+  package's kernel. On CUDA tensors it packs the scene, launches the kernel
+  on the current stream and counts the launch; a build or launch fault
+  raises. Only CPU tensors take the plain version,
+  :func:`..pipeline.fused_backplanes_fn` (at ``precision='mixed'``, the
+  kernel's LON-CENTRIC range). ``impl.run(scene, nx, ny, device, row0)``
+  launches on a packed scene: the main path packs it from the body's host
+  anchors, so its call copies nothing from the device. RADIAL-VELOCITY is
+  stored by the kernel in float64 (the contract's type), the other planes
+  in float32.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from ..core.ephemeris import CLIGHT
@@ -47,14 +59,17 @@ DISC_PLANES = (
     'LOCAL-SOLAR-TIME', 'DISTANCE', 'RADIAL-VELOCITY', 'DOPPLER',
 )
 
-#: Layout of the float64 scene vector (the ``Scene`` offsets of the source).
+#: Layout of the float64 scene (the ``Scene`` offsets of the source).
 _SCENE_LAYOUT = (
-    ('xy2a', 6), ('m_ang', 9), ('et', 1), ('tau0', 1), ('target_lt', 1),
-    ('targ_rel0', 3), ('targ_vel0', 3), ('targ_pos0', 3),
+    ('ray', 6), ('m_ang', 9), ('km', 6), ('angular', 6),
+    ('et_tau0', 1), ('tau0', 1), ('target_lt', 1),
+    ('targ_rel0', 3), ('targ_vel0', 3),
     ('rot0', 9), ('rot1', 9), ('rot2h', 9),
-    ('radii', 3), ('flattening', 1), ('disc', 3),
-    ('sun_pos0', 3), ('sun_vel0', 3), ('sun_epoch0', 1), ('obs_vel', 3),
-    ('angular2km', 4), ('km_per_arcsec', 1), ('solar_lon_e', 1),
+    ('rinv', 3), ('rinv2', 3),
+    ('re', 1), ('omf', 1), ('omf2', 1), ('e2', 1), ('ep2_re_omf', 1),
+    ('e2_re', 1), ('disc', 3),
+    ('sun_rel0', 3), ('sun_vel0', 3), ('sun_off', 1), ('obs_vel', 3),
+    ('solar_lon_e', 1),
     ('target_obsvec', 3), ('subpoint_obsvec', 3), ('subpoint_rayvec', 3),
     ('subpoint_distance', 1), ('subpoint_targvec', 3),
     ('ring_plane_normal', 3), ('ring_plane_constant', 1),
@@ -72,10 +87,14 @@ def _configure(lib) -> None:
     lib.backplanes26_n_planes.restype = ctypes.c_int
     lib.backplanes26_launch.restype = ctypes.c_int
     lib.backplanes26_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_double, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # scene, outputs
+        ctypes.c_int, ctypes.c_int, ctypes.c_double,  # nx, ny, row0
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,  # slots, iterations, flags, stream
     ]
+    lib.backplanes26_occupancy.restype = ctypes.c_int
+    lib.backplanes26_occupancy.argtypes = [
+        ctypes.POINTER(ctypes.c_int)] * 3
     if lib.backplanes26_scene_size() != SCENE_SIZE:
         raise RuntimeError(
             f'backplanes.cu expects {lib.backplanes26_scene_size()} scene '
@@ -92,56 +111,104 @@ reset_launch_count = LIBRARY.reset_launch_count
 ptxas_log = LIBRARY.ptxas_log
 
 
-def scene_scalars(xy2angular, disc, radii, anchors) -> torch.Tensor:
+def occupancy() -> dict[str, int]:
     """
-    The float64 scene vector the kernel reads, computed with PyTorch on the
-    inputs' device in the order of ``_SCENE_LAYOUT``.
+    ``dict(registers, local_bytes, blocks_per_sm)`` of the compiled kernel
+    on the current CUDA device: registers and local (spill) bytes per
+    thread, and resident blocks of 256 threads per SM.
     """
-    re = radii[0]
+    lib = load_library()
+    values = [ctypes.c_int() for _ in range(3)]
+    check_launch(lib.backplanes26_occupancy(*values), 'backplane occupancy')
+    return dict(zip(('registers', 'local_bytes', 'blocks_per_sm'),
+                    (v.value for v in values)))
+
+
+def _host_values(xy2angular, disc, radii, anchors) -> dict[str, np.ndarray]:
+    """The inputs as float64 numpy arrays (CUDA tensors: one copy)."""
+    named = dict(anchors, xy2angular=xy2angular, disc=disc, radii=radii)
+    tensors = [k for k, v in named.items() if isinstance(v, torch.Tensor)]
+    out = {k: np.asarray(v, dtype=np.float64) for k, v in named.items()
+           if k not in tensors}
+    if tensors:
+        flat = torch.cat([
+            named[k].detach().reshape(-1).to(torch.float64) for k in tensors
+        ]).cpu().numpy()
+        start = 0
+        for k in tensors:
+            n = named[k].numel()
+            out[k] = flat[start:start + n].reshape(tuple(named[k].shape))
+            start += n
+    return out
+
+
+def pack_scene(xy2angular, disc, radii, anchors) -> np.ndarray:
+    """
+    The kernel's float64 scene in the order of ``_SCENE_LAYOUT``, computed
+    with numpy on the host from numpy arrays or tensors (CUDA tensors are
+    brought to the host in one copy first).
+    """
+    v = _host_values(xy2angular, disc, radii, anchors)
+    a, radii = v['xy2angular'], v['radii']
+    re, rp = radii[0], radii[2]
+    flattening = (re - rp) / re
+    omf = 1.0 - flattening
+    e2 = flattening * (2.0 - flattening)
+    ep2 = e2 / (1.0 - e2)
+    # ray angles in half turns (the kernel's sincospi), affine in (x, y):
+    # the plain graph's -ang_x / 3600 * DEG and ang_y / 3600 * DEG over pi
+    ray = np.concatenate([-a[0], a[1]]) * (DEG / 3600.0 / math.pi)
+    km = v['angular2km'] @ a[:2]
+    km_per_arcsec = 2.0 * re / (
+        2.0 * 60.0 * 60.0 / DEG * np.arcsin(re / (v['target_lt'] * CLIGHT))
+    )
+    disc = v['disc']
+    r_cut = disc[2] * np.max(radii) / re * 1.05 + 1.0
+    if not abs(float(v['solar_lon_e'])) <= math.pi:
+        raise ValueError('solar_lon_e must lie in [-pi, pi]')
     parts = dict(
-        xy2a=xy2angular[:2],
-        m_ang=anchors['obsvec2angular'],
-        et=anchors['et'],
-        tau0=anchors['tau0'],
-        target_lt=anchors['target_lt'],
-        targ_rel0=anchors['targ_pos0'] - anchors['obs_pos'],
-        targ_vel0=anchors['targ_vel0'],
-        targ_pos0=anchors['targ_pos0'],
-        rot0=anchors['rot0'],
-        rot1=anchors['rot1'],
-        rot2h=0.5 * anchors['rot2'],
-        radii=radii,
-        flattening=(re - radii[2]) / re,
-        disc=torch.stack([
-            disc[0], disc[1], disc[2] * torch.max(radii) / re * 1.05 + 1.0,
-        ]),
-        sun_pos0=anchors['sun_pos0'],
-        sun_vel0=anchors['sun_vel0'],
-        sun_epoch0=anchors['sun_epoch0'],
-        obs_vel=anchors['obs_vel'],
-        angular2km=anchors['angular2km'],
-        km_per_arcsec=2.0 * re / (
-            2.0 * 60.0 * 60.0 / DEG * torch.asin(
-                re / (anchors['target_lt'] * CLIGHT)
-            )
-        ),
-        solar_lon_e=anchors['solar_lon_e'],
-        target_obsvec=anchors['target_obsvec'],
-        subpoint_obsvec=anchors['subpoint_obsvec'],
-        subpoint_rayvec=anchors['subpoint_rayvec'],
-        subpoint_distance=anchors['subpoint_distance'],
-        subpoint_targvec=anchors['subpoint_targvec'],
-        ring_plane_normal=anchors['ring_plane_normal'],
-        ring_plane_constant=anchors['ring_plane_constant'],
+        ray=ray,
+        m_ang=v['obsvec2angular'],
+        km=km,
+        angular=km / km_per_arcsec,
+        et_tau0=v['et'] - v['tau0'],
+        tau0=v['tau0'],
+        target_lt=v['target_lt'],
+        targ_rel0=v['targ_pos0'] - v['obs_pos'],
+        targ_vel0=v['targ_vel0'],
+        rot0=v['rot0'],
+        rot1=v['rot1'],
+        rot2h=0.5 * v['rot2'],
+        rinv=1.0 / radii,
+        rinv2=1.0 / (radii * radii),
+        re=re,
+        omf=omf,
+        omf2=omf * omf,
+        e2=e2,
+        ep2_re_omf=ep2 * (re * omf),
+        e2_re=e2 * re,
+        disc=np.array([disc[0], disc[1], r_cut * r_cut]),
+        sun_rel0=v['sun_pos0'] - v['targ_pos0'],
+        sun_vel0=v['sun_vel0'],
+        sun_off=v['et'] - v['sun_epoch0'],
+        obs_vel=v['obs_vel'],
+        solar_lon_e=v['solar_lon_e'],
+        target_obsvec=v['target_obsvec'],
+        subpoint_obsvec=v['subpoint_obsvec'],
+        subpoint_rayvec=v['subpoint_rayvec'],
+        subpoint_distance=v['subpoint_distance'],
+        subpoint_targvec=v['subpoint_targvec'],
+        ring_plane_normal=v['ring_plane_normal'],
+        ring_plane_constant=v['ring_plane_constant'],
     )
     flat = []
     for name, size in _SCENE_LAYOUT:
-        value = parts[name].reshape(-1)
-        if value.numel() != size:
-            raise ValueError(f'scene value {name!r} has {value.numel()} '
+        value = np.asarray(parts[name], dtype=np.float64).reshape(-1)
+        if value.size != size:
+            raise ValueError(f'scene value {name!r} has {value.size} '
                              f'elements, expected {size}')
         flat.append(value)
-    return torch.cat(flat).contiguous()
+    return np.ascontiguousarray(np.concatenate(flat))
 
 
 def _check_inputs(xy2angular, disc, radii, anchors) -> torch.device:
@@ -187,7 +254,12 @@ def build_backplanes_kernel(
         PLANE_ORDER if planes is None
         else tuple(n for n in PLANE_ORDER if n in planes)
     )
-    slot_of = {name: i for i, name in enumerate(requested)}
+    # RADIAL-VELOCITY is stored in float64 into its own buffer; the other
+    # requested planes are the float32 stack, in PLANE_ORDER
+    stacked_names = tuple(n for n in requested if n != 'RADIAL-VELOCITY')
+    slot_of = {name: i for i, name in enumerate(stacked_names)}
+    if 'RADIAL-VELOCITY' in requested:
+        slot_of['RADIAL-VELOCITY'] = 0
     flags = (
         (_F_POSITIVE_WEST if positive_west else 0)
         | (_F_PROGRADE if prograde else 0)
@@ -199,35 +271,43 @@ def build_backplanes_kernel(
         *[slot_of.get(name, -1) for name in PLANE_ORDER]
     )
 
-    def launch(scene, stacked, nx, ny, row0=0.0):
+    def run(scene, nx, ny, device, row0=0.0):
         """
-        Launch on prepared CUDA buffers: the float64 scene vector of
-        :func:`scene_scalars` and the float32 ``(NP, ny, nx)`` output.
+        The requested planes of a scene packed by :func:`pack_scene` (host
+        float64), computed by one launch on the CUDA ``device``.
         """
-        if scene.numel() != SCENE_SIZE or not scene.is_contiguous():
-            raise ValueError(f'scene must hold {SCENE_SIZE} contiguous values')
-        if scene.dtype != torch.float64 or stacked.dtype != torch.float32:
-            raise TypeError('scene must be float64 and the output float32')
-        if (
-            tuple(stacked.shape) != (len(requested), ny, nx)
-            or not stacked.is_contiguous()
-        ):
+        if (not isinstance(scene, np.ndarray) or scene.dtype != np.float64
+                or scene.shape != (SCENE_SIZE,)
+                or not scene.flags.c_contiguous):
             raise ValueError(
-                f'output must be a contiguous ({len(requested)}, {ny}, {nx}) '
-                'tensor'
+                f'scene must be a contiguous float64 numpy array of '
+                f'{SCENE_SIZE} values (pack_scene)'
             )
-        if scene.device != stacked.device or stacked.device.type != 'cuda':
-            raise ValueError('scene and output must be on one CUDA device')
+        device = torch.device(device)
+        if device.type != 'cuda':
+            raise ValueError(f'no backplane kernel for device {device}')
+        if nx <= 0 or ny <= 0:
+            raise ValueError(f'image size must be positive, got {nx}x{ny}')
+        stacked = torch.empty(
+            (len(stacked_names), ny, nx), dtype=torch.float32, device=device
+        )
+        rv = None
+        if 'RADIAL-VELOCITY' in requested:
+            rv = torch.empty((ny, nx), dtype=torch.float64, device=device)
         lib = load_library()
-        with torch.cuda.device(stacked.device):
-            stream = torch.cuda.current_stream(stacked.device).cuda_stream
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
             rc = lib.backplanes26_launch(
-                scene.data_ptr(), stacked.data_ptr(), int(nx), int(ny),
+                scene.ctypes.data, stacked.data_ptr(),
+                None if rv is None else rv.data_ptr(), int(nx), int(ny),
                 float(row0), slots, int(n_lt_iters), int(geodetic_iters),
                 flags, stream,
             )
         check_launch(rc, 'backplane')
         LIBRARY.launches += 1
+        planes = dict(zip(stacked_names, stacked))
+        planes['RADIAL-VELOCITY'] = rv
+        return {name: planes[name] for name in requested}
 
     def impl(nx, ny, xy2angular, disc, radii, anchors, row0=0.0):
         device = _check_inputs(xy2angular, disc, radii, anchors)
@@ -237,27 +317,14 @@ def build_backplanes_kernel(
             plain = fused_backplanes_fn(
                 positive_west=positive_west, prograde=prograde,
                 have_sun=have_sun, optimize_speed=optimize_speed,
-                robust_geodetic=geodetic_iters > 0,
+                precision='mixed', robust_geodetic=geodetic_iters > 0,
             )
             out = plain(nx, ny, xy2angular, disc, radii, anchors, row0=row0)
             return {name: out[name] for name in requested}
         if device.type != 'cuda':
             raise ValueError(f'no backplane kernel for device {device}')
-        if nx <= 0 or ny <= 0:
-            raise ValueError(f'image size must be positive, got {nx}x{ny}')
+        return run(pack_scene(xy2angular, disc, radii, anchors), nx, ny,
+                   device, row0)
 
-        scene = scene_scalars(xy2angular, disc, radii, anchors)
-        stacked = torch.empty(
-            (len(requested), ny, nx), dtype=torch.float32, device=device
-        )
-        launch(scene, stacked, nx, ny, row0)
-        out = {}
-        for k, name in enumerate(requested):
-            plane = stacked[k]
-            if name == 'RADIAL-VELOCITY':
-                plane = plane.to(torch.float64)
-            out[name] = plane
-        return out
-
-    impl.launch = launch
+    impl.run = run
     return impl

@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from .interp_device import MapSamples

@@ -17,7 +17,9 @@ pixel grid (port of ``planetmapper_tpu.pipeline``).
   - :func:`fused_backplanes_fn`, the plain float64 PyTorch graph (the JAX
     package's ``precision='double'`` graph), taken on CPU tensors and for
     body shapes the kernel's geodetic solve cannot hold. It is also the
-    kernel's reference on the card.
+    kernel's reference on the card. At the default precision ``'mixed'``
+    it reports LON-CENTRIC in [0, 360) like the kernel, so CPU and CUDA
+    bodies agree without a wrap.
 
 The JAX package's progressive cold start, AOT prewarm, session warm thread
 and shape buckets exist for a remote TPU compile service and have no
@@ -220,17 +222,20 @@ def fused_backplanes_fn(
     ``impl(nx, ny, xy2angular, disc, radii, anchors, row0=0.0) -> dict`` of
     float64 tensors on the device of ``radii``.
 
-    Only ``precision='double'`` exists here: the JAX package's ``'mixed'``
-    graph is a TPU formulation, and on a GPU its role is the kernel's.
+    The arithmetic is float64 at either ``precision``. ``'double'`` reports
+    LON-CENTRIC in (-180, 180], as the JAX package's ``precision='double'``
+    graph does; ``'mixed'`` (the default of :func:`select_pipeline_impl`)
+    reports it in [0, 360), as the JAX package's mixed graph and the CUDA
+    kernel do. The JAX package's float32 ``'mixed'`` arithmetic is a TPU
+    formulation; on a GPU its role is the kernel's.
 
     ``robust_geodetic``: triaxial bodies (middle axis != re) put intercept
     points inside the biaxial (re, rp) spheroid, where the on-surface
     conversion diverges; they take the exact nearest-point solve.
     """
-    if precision != 'double':
+    if precision not in ('double', 'mixed'):
         raise ValueError(
-            f'the plain graph is float64 only (precision={precision!r}); '
-            "'mixed' selects the CUDA kernel in select_pipeline_impl"
+            f"precision must be 'double' or 'mixed', got {precision!r}"
         )
     lon_sign = -1.0 if positive_west else 1.0
     spin_sign = 1.0 if prograde else -1.0
@@ -312,7 +317,10 @@ def fused_backplanes_fn(
         out['LON-GRAPHIC'] = torch.where(found, lon_graphic, nan)
         out['LAT-GRAPHIC'] = torch.where(found, lat_gd / DEG, nan)
         _r, lon_c, lat_c = geom.rect_to_latlon_centric(spoint)
-        out['LON-CENTRIC'] = torch.where(found, lon_c / DEG, nan)
+        lon_c = lon_c / DEG
+        if precision == 'mixed':
+            lon_c = torch.remainder(lon_c, 360.0)
+        out['LON-CENTRIC'] = torch.where(found, lon_c, nan)
         out['LAT-CENTRIC'] = torch.where(found, lat_c / DEG, nan)
 
         # -- RA/Dec --------------------------------------------------------
@@ -544,6 +552,7 @@ def select_pipeline_impl(body, nx: int, ny: int,
             prograde=body.prograde,
             have_sun=body._engine._pos_s is not None,
             optimize_speed=bool(body._optimize_speed),
+            precision='mixed' if precision == 'mixed' else 'double',
             robust_geodetic=_robust_geodetic(body),
         )
     return impl, use_kernel
@@ -570,16 +579,30 @@ def get_fused_pipeline(body, nx: int, ny: int,
                        planes: tuple[str, ...] | None = None) -> Callable:
     """
     The pipeline for a body's configuration and image size on the body's
-    device: ``fn(xy2angular, disc, radii, anchors) -> dict`` of tensors,
-    with ``fn.precompile()`` (builds and loads the CUDA library when the
-    kernel serves; no-op otherwise) and ``fn.wait_steady(timeout=None)``
-    (the same: once the library is loaded the kernel serves every call).
+    device: ``fn(xy2angular, disc, radii, anchors) -> dict`` of tensors on
+    that device, with ``fn.precompile()`` (builds and loads the CUDA
+    library when the kernel serves; no-op otherwise) and
+    ``fn.wait_steady(timeout=None)`` (the same: once the library is loaded
+    the kernel serves every call).
+
+    The inputs are the host values of :func:`pipeline_inputs`. The kernel
+    packs its scene from them on the host
+    (:func:`.ops.backplanes_kernel.pack_scene`); the plain graph takes them
+    to the body's device.
     """
     planes = _canonical_planes(planes)
     impl, use_kernel = select_pipeline_impl(body, nx, ny, planes=planes)
+    dev = body.device
 
     def fn(xy2angular, disc, radii, anchors):
-        out = impl(nx, ny, xy2angular, disc, radii, anchors)
+        if use_kernel:
+            from .ops.backplanes_kernel import pack_scene
+
+            out = impl.run(pack_scene(xy2angular, disc, radii, anchors),
+                           nx, ny, dev)
+        else:
+            out = impl(nx, ny, f64(xy2angular, dev), f64(disc, dev),
+                       f64(radii, dev), anchors_from_numpy(anchors, dev))
         if planes is not None:
             out = {k: out[k] for k in planes}
         return out
@@ -612,13 +635,18 @@ def wait_for_steady_state(
     fn.wait_steady(timeout)
 
 
-def _device_anchors(body) -> dict[str, torch.Tensor]:
-    key = ('pipeline anchors (device)', str(body.device))
-    anchors = body._stable_cache.get(key)
-    if anchors is None:
-        anchors = anchors_from_numpy(body._get_pipeline_anchors(), body.device)
-        body._stable_cache[key] = anchors
-    return anchors
+def pipeline_inputs(body):
+    """
+    ``(xy2angular, disc, radii, anchors)`` of a body for
+    ``get_fused_pipeline``'s ``fn``: float64 numpy values on the host (the
+    anchors a dict of them, cached per body).
+    """
+    return (
+        np.asarray(body._get_xy2angular_matrix(), dtype=np.float64),
+        np.asarray(body.get_disc_params(), dtype=np.float64),
+        np.asarray(body.radii, dtype=np.float64),
+        body._get_pipeline_anchors(),
+    )
 
 
 def compute_backplanes(
@@ -640,13 +668,7 @@ def compute_backplanes(
     fn = get_fused_pipeline(
         body, nx, ny, planes=None if names is None else tuple(names)
     )
-    dev = body.device
-    out = fn(
-        f64(body._get_xy2angular_matrix(), dev),
-        f64(np.asarray(body.get_disc_params(), dtype=np.float64), dev),
-        f64(np.asarray(body.radii, dtype=np.float64), dev),
-        _device_anchors(body),
-    )
+    out = fn(*pipeline_inputs(body))
     checksum = None
     if with_checksum:
         checksum = sum(

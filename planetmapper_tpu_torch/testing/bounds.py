@@ -1,0 +1,177 @@
+"""
+Least times ("bounds") of the port's kernels on one H100 SXM, counted from
+the work of the function each kernel computes, not from the kernel's own
+instructions (numpy-free, no device).
+
+A bound is the larger of two times: the bytes the function must move (each
+input read once, each output written once) over the card's memory rate,
+and its arithmetic over the card's peak rate for the type it may run in.
+
+Operation convention: +, -, x, /, sqrt and a compare count 1 each; a fused
+multiply-add counts 2 (one multiply, one add); sin, cos, atan2, asin and
+acos count :data:`TRANSCENDENTAL_OPS` each; selects (``where``), negation
+and copies count 0.
+"""
+
+from __future__ import annotations
+
+#: H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bandwidth, and FP64 and
+#: FP32 outside the tensor cores, where scalar arithmetic runs.
+HBM_BYTES_PER_S = 3.35e12
+FP64_FLOP_PER_S = 34e12
+FP32_FLOP_PER_S = 67e12
+
+#: Operations counted for one sin, cos, atan2, asin or acos: a polynomial
+#: of degree ~9 in Horner form (9 multiply-adds) plus its range reduction.
+TRANSCENDENTAL_OPS = 20
+
+
+def roofline_ms(n_bytes: float, f64_ops: float = 0.0,
+                f32_ops: float = 0.0) -> tuple[float, str]:
+    """
+    ``(ms, 'bytes' or 'operations')``: the larger of the bytes over the HBM
+    rate and the operations over their peak rates (float32 and float64
+    work added, as if the two pipes never overlapped).
+    """
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (f64_ops / FP64_FLOP_PER_S + f32_ops / FP32_FLOP_PER_S) * 1e3
+    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                 else 'operations')
+
+
+# ---------------------------------------------------------------------------
+# backplanes26: the 26 planes of pipeline.fused_backplanes_fn
+# ---------------------------------------------------------------------------
+#
+# The function is that of the plain float64 graph (pipeline.fused_backplanes_fn,
+# the fixed reference of every design of the kernel), for a biaxial body
+# with optimize_speed and ``n_lt_iters + 1`` intercept evaluations (the
+# kernel's contract; the plain graph runs 4). Each step is counted at the
+# least work known to compute its outputs at the bars, whichever of the
+# plain graph's form and the kernel's is cheaper: the graph's dead values
+# (the unused altitude of the surface conversion, the untaken branch of
+# vsep) are left out; the ray's sin/cos come from per-column and per-row
+# values by angle addition (its two angles are affine in x and y); the
+# graphic latitudes and RING-RADIUS take the trig-free Bowring form; the
+# illumination angles take atan2(|a x b|, a.b); values that depend on the
+# scene alone are folded on the host. rsqrt counts 2 (a root and a
+# division). Each step is (ops, transcendentals, float32): float32 marks
+# what the kernel may finish in float32 at the kernel table's 1e-4 deg (the
+# atan2 of float64 arguments and what follows it, for LAT-GRAPHIC,
+# LAT-CENTRIC, RA, DEC, PHASE, INCIDENCE, EMISSION, AZIMUTH,
+# LIMB-LON/LAT-GRAPHIC and RING-LON-GRAPHIC); everything else is float64.
+
+#: Work of every pixel of the frame.
+BACKPLANE_EVERY_PIXEL = {
+    'ray: angle addition of the column and row sin/cos, unit ray': (
+        14, 0, False),
+    'ray to J2000 (3x3 product)': (15, 0, False),
+    'RA/Dec: rho': (4, 0, False),
+    'RA/Dec: atan2 x2, wrap, degrees': (4, 2, True),
+    'KM-X/Y, ANGULAR-X/Y (affine in x, y)': (16, 0, False),
+    'r_cut gate': (6, 0, False),
+    'limb: nearest point on the ray': (26, 0, False),
+    'limb: obsvec to targvec (rotation at its epoch)': (71, 0, False),
+    'limb: radial surface point, LIMB-DISTANCE': (20, 0, False),
+    'limb: lon': (4, 1, True),
+    'limb: rho': (4, 0, False),
+    'limb: graphic lat, trig-free Bowring form': (16, 0, False),
+    'limb: graphic lat, atan2, degrees': (1, 1, True),
+    'ring: plane intercept': (22, 0, False),
+    'ring: obsvec to targvec': (71, 0, False),
+    'ring: RING-RADIUS (rho, trig-free exterior Bowring, 3 steps)': (
+        87, 0, False),
+    'ring: lon': (4, 1, True),
+    'ring: RING-DISTANCE, occlusion': (7, 0, False),
+}
+
+#: Work of each column and each row of the frame: the ray angles' column
+#: and row parts (ra and dec) and their sin and cos.
+BACKPLANE_PER_COLUMN = {'ray: column angles, sin/cos': (2, 4, False)}
+BACKPLANE_PER_ROW = {'ray: row angles, sin/cos': (4, 4, False)}
+
+#: Work of one intercept evaluation of the light-time loop: epoch, target
+#: position, rotation, two 3x3 products, recentred intercept, light time.
+BACKPLANE_INTERCEPT_OPS = 112
+#: The last evaluation also forms the surface point.
+BACKPLANE_SURFACE_POINT_OPS = 6
+
+#: Work of the on-disc chain after the light-time loop, per on-disc pixel.
+BACKPLANE_ON_DISC = {
+    'final epoch': (2, 0, False),
+    'lon_e (feeds LST), LON-GRAPHIC, LON-CENTRIC': (7, 1, False),
+    'graphic lat: rho': (4, 0, False),
+    'graphic lat, trig-free Bowring form': (16, 0, False),
+    'graphic lat, atan2, degrees': (1, 1, True),
+    'LAT-CENTRIC: atan2(z, rho), degrees': (1, 1, True),
+    'illumination vectors, sun, normal': (125, 0, False),
+    'PHASE, INCIDENCE, EMISSION: |a x b| and a.b': (60, 0, False),
+    'PHASE, INCIDENCE, EMISSION: atan2, degrees': (3, 3, True),
+    'AZIMUTH: tangent-plane projections (dots shared), |a x b|, a.b': (
+        32, 0, False),
+    'AZIMUTH: atan2, degrees': (2, 1, True),
+    'LOCAL-SOLAR-TIME': (10, 0, False),
+    'DISTANCE, RADIAL-VELOCITY, DOPPLER': (76, 0, False),
+}
+
+
+def _ops(steps: dict) -> tuple[int, int]:
+    f64 = f32 = 0
+    for ops, transcendentals, single in steps.values():
+        total = ops + transcendentals * TRANSCENDENTAL_OPS
+        if single:
+            f32 += total
+        else:
+            f64 += total
+    return f64, f32
+
+
+def backplane_ops(n_lt_iters: int = 2) -> dict[str, tuple[int, int]]:
+    """
+    ``(f64, f32)`` operations of each kind of work: ``'every'`` pixel,
+    what an ``'on_disc'`` pixel adds (its light-time loop included), and
+    each ``'column'`` and ``'row'`` of the frame.
+    """
+    f64, f32 = _ops(BACKPLANE_ON_DISC)
+    f64 += (n_lt_iters + 1) * BACKPLANE_INTERCEPT_OPS \
+        + BACKPLANE_SURFACE_POINT_OPS
+    return {'every': _ops(BACKPLANE_EVERY_PIXEL), 'on_disc': (f64, f32),
+            'column': _ops(BACKPLANE_PER_COLUMN),
+            'row': _ops(BACKPLANE_PER_ROW)}
+
+
+#: Bytes the 26 planes take per pixel: 25 float32 planes and
+#: RADIAL-VELOCITY in float64, the contract's types.
+BACKPLANE_BYTES_PER_PIXEL = 25 * 4 + 8
+
+
+def backplane_bound(nx: int, ny: int, n_disc: int, *,
+                    n_lt_iters: int = 2) -> dict:
+    """
+    The bound of one backplanes26 launch over an ``nx`` x ``ny`` frame with
+    ``n_disc`` on-disc pixels (finite EMISSION): ``dict(ms, bound_by,
+    bytes, f64_ops, f32_ops)``. Off-disc pixels are counted without the
+    intercept chain (those inside the r_cut circle that miss the disc
+    still run it in every design, so the bound stays a lower bound); the
+    bytes are the stores of the 26 planes (the scene is a kilobyte).
+    """
+    if not 0 <= n_disc <= nx * ny:
+        raise ValueError(f'n_disc={n_disc} outside [0, {nx * ny}]')
+    ops = backplane_ops(n_lt_iters)
+    counts = dict(every=nx * ny, on_disc=n_disc, column=nx, row=ny)
+    f64 = sum(ops[k][0] * n for k, n in counts.items())
+    f32 = sum(ops[k][1] * n for k, n in counts.items())
+    n_bytes = BACKPLANE_BYTES_PER_PIXEL * nx * ny
+    ms, by = roofline_ms(n_bytes, f64, f32)
+    return dict(ms=ms, bound_by=by, bytes=n_bytes, f64_ops=f64, f32_ops=f32)
+
+
+def dsk_pairs_bound(n_values: int = 6 * 8192) -> tuple[float, str]:
+    """
+    Bytes bound of one call of the test kernels of ``ops/dsk.py``
+    (``tests/test_pallas_core.py:538``, ``:596``): one (8, 1024) block of
+    float32 pairs, ``6 x 8192`` float32 values moved in all (two pairs in,
+    one out). Their double-single arithmetic is not counted, so this is
+    the bytes half of the bound only.
+    """
+    return roofline_ms(4 * n_values)

@@ -9,9 +9,13 @@ The kernel tolerances are the JAX package's table for its TPU kernel
 in degrees, 1e-4 unless listed), at most 8 pixels whose NaN mask differs
 per plane, and at most 8 LOCAL-SOLAR-TIME pixels a 1-second bin apart.
 
-Longitude planes are compared on the circle (``min(d, 360 - d)``): the
-float64 graph reports LON-CENTRIC in (-180, 180] (as the JAX package's
-``precision='double'`` graph does) while the kernels report [0, 360).
+Longitude planes are compared on the circle (``min(d, 360 - d)``), for
+two reasons: a longitude that rounds to either side of the 0/360 seam,
+and LON-CENTRIC at ``precision='double'``, where the plain float64 graph
+reports (-180, 180] (as the JAX package's ``precision='double'`` graph
+does). At the default precision ``'mixed'`` every implementation (the
+plain graph on a CPU body, the CUDA kernel, the JAX package's mixed graph
+and TPU kernel) reports LON-CENTRIC in [0, 360).
 """
 
 from __future__ import annotations

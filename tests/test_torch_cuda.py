@@ -57,13 +57,9 @@ def _body(nx, ny, disc, device):
     body = tpm.BodyXY('Jupiter', observer='EARTH', utc='2005-01-01T00:00:00',
                       nx=nx, ny=ny, device=device)
     body.set_disc_params(*disc)
-    args = (
-        f64(body._get_xy2angular_matrix(), device),
-        f64(np.asarray(body.get_disc_params()), device),
-        f64(np.asarray(body.radii), device),
-        pipeline._device_anchors(body),
-    )
-    return body, args
+    *values, anchors = pipeline.pipeline_inputs(body)
+    return body, (*(f64(v, device) for v in values),
+                  pipeline.anchors_from_numpy(anchors, device))
 
 
 def _numpy(out):
@@ -126,6 +122,42 @@ def test_subsets_equal_full_set(kernel_path, device):
         assert set(sub) == set(planes)
         for name in planes:
             assert np.array_equal(sub[name], full[name], equal_nan=True), name
+
+
+def test_triaxial_kernel_matches_robust_plain_graph(kernel_path, device):
+    nx, ny, disc = 100, 70, (50.3, 34.7, 30.0, 12.3)
+    _, (xy2angular, disc_t, radii, anchors) = _body(nx, ny, disc, device)
+    # Jupiter scaled to a triaxial body inside the kernel's geodetic range
+    radii = radii * f64([1.0, 0.98, 0.935], device)
+    shape = type('Shape', (), {'radii': radii.cpu().numpy()})()
+    assert pipeline._kernel_geodetic_iters(shape) == 4
+    kernel = bk.build_backplanes_kernel(
+        optimize_speed=True, lst_quant=True, geodetic_iters=4, **FLAGS,
+    )
+    plain = pipeline.fused_backplanes_fn(robust_geodetic=True, **FLAGS)
+    args = (xy2angular, disc_t, radii, anchors)
+    before = bk.launch_count()
+    got = _numpy(kernel(nx, ny, *args))
+    torch.cuda.synchronize()
+    assert bk.launch_count() == before + 1
+    reports = compare.compare_backplanes(
+        got, _numpy(plain(nx, ny, *args)), float32_ulps=1,
+    )
+    assert not compare.failures(reports), compare.failures(reports)
+    assert np.isfinite(got['LAT-GRAPHIC']).sum() > 100
+
+
+def test_scene_from_device_tensors_equals_host_packing(kernel_path, device):
+    body, args = _body(96, 80, (47.6, 40.2, 30.0, 12.3), device)
+    host = pipeline.pipeline_inputs(body)
+    np.testing.assert_array_equal(bk.pack_scene(*args), bk.pack_scene(*host))
+    kernel = bk.build_backplanes_kernel(
+        optimize_speed=True, lst_quant=True, **FLAGS,
+    )
+    from_tensors = _numpy(kernel(96, 80, *args))
+    from_host = _numpy(kernel.run(bk.pack_scene(*host), 96, 80, device))
+    for name, plane in from_tensors.items():
+        assert np.array_equal(plane, from_host[name], equal_nan=True), name
 
 
 def test_compute_backplanes_launches_kernel(kernel_path, device):

@@ -11,7 +11,10 @@ synthetic SPICE kernels (Jupiter from the Earth on 2005-01-01):
 - the whole slice (``BodyXY.generate_backplanes_fused``) matches the JAX
   package's, against both of its graphs;
 - on CPU tensors the CUDA kernel's wrapper runs the plain version and
-  launches nothing.
+  launches nothing;
+- a BodyXY without ``device=`` needs a card, and LON-CENTRIC lies in
+  [0, 360) on a CPU body at the default precision, as in the JAX package;
+- the kernel's host scene packing and its bound's operation count.
 
 The kernel itself against its plain version on the card is
 ``tests/test_torch_cuda.py``.
@@ -29,10 +32,10 @@ import planetmapper_tpu_torch as tpm
 from planetmapper_tpu import pipeline as j_pipeline
 from planetmapper_tpu.kernels import pool as j_pool
 from planetmapper_tpu_torch import pipeline as t_pipeline
-from planetmapper_tpu_torch._device import f64
+from planetmapper_tpu_torch._device import f64, resolve_device
 from planetmapper_tpu_torch.kernels import pool as t_pool
 from planetmapper_tpu_torch.ops import backplanes_kernel
-from planetmapper_tpu_torch.testing import compare
+from planetmapper_tpu_torch.testing import bounds, compare
 from planetmapper_tpu_torch.testing.synthetic_kernels import (
     AU_KM,
     write_synthetic_kernels,
@@ -454,3 +457,93 @@ def test_forced_kernel_refuses_pathological_shape():
     assert t_pipeline._kernel_geodetic_iters(
         type('B', (), {'radii': np.array([1050.0, 840.0, 537.0])})()
     ) == 4
+
+
+# ---------------------------------------------------------------------------
+# Device default, LON-CENTRIC range, scene packing, the kernel's bound
+# ---------------------------------------------------------------------------
+
+def test_body_without_device_needs_a_card(bodies, monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpm.BodyXY('Jupiter', observer='EARTH', utc=UTC, nx=NX, ny=NY)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        resolve_device(None)
+    body = tpm.BodyXY(
+        'Jupiter', observer='EARTH', utc=UTC, nx=NX, ny=NY, device='cpu'
+    )
+    assert body.device == torch.device('cpu')
+    assert resolve_device('cpu') == torch.device('cpu')
+
+
+def test_lon_centric_range_matches_jax_mixed(bodies):
+    """
+    At the default precision both packages report LON-CENTRIC in [0, 360)
+    on a CPU body, compared directly (not on the circle); 'double' keeps
+    (-180, 180] in both.
+    """
+    j_body, t_body = bodies
+    for body in bodies:  # both at the default precision, 'mixed'
+        assert not hasattr(body, '_pipeline_precision')
+    got = t_pipeline.compute_backplanes(t_body)['LON-CENTRIC']
+    want = j_pipeline.compute_backplanes(j_body)['LON-CENTRIC']
+    t_body._pipeline_precision = 'double'
+    try:
+        signed = t_pipeline.compute_backplanes(t_body)['LON-CENTRIC']
+    finally:
+        del t_body._pipeline_precision
+    on_disc = np.isfinite(signed)
+    assert (signed[on_disc] < 0.0).sum() > 100  # negative longitudes in view
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    for lon in (got, want):
+        assert np.all((lon[on_disc] >= 0.0) & (lon[on_disc] < 360.0))
+    # the JAX mixed graph's float32 chain: the kernel table's 1e-4 deg
+    # plus two float32 ulps (as test_generate_backplanes_fused_matches_jax_mixed)
+    bound = 1e-4 + 2 * np.spacing(np.abs(want[on_disc]).astype(np.float32))
+    assert np.all(np.abs(got[on_disc] - want[on_disc]) <= bound)
+    np.testing.assert_allclose(
+        got[on_disc], np.mod(signed[on_disc], 360.0), rtol=0, atol=1e-12
+    )
+
+
+def test_pack_scene_from_numpy_and_tensors(bodies):
+    _, t_body = bodies
+    host = t_pipeline.pipeline_inputs(t_body)
+    tensors = (*(f64(v) for v in host[:3]),
+               t_pipeline.anchors_from_numpy(host[3], 'cpu'))
+    scene = backplanes_kernel.pack_scene(*host)
+    assert scene.dtype == np.float64
+    assert scene.shape == (backplanes_kernel.SCENE_SIZE,)
+    assert np.isfinite(scene).all()
+    np.testing.assert_array_equal(
+        backplanes_kernel.pack_scene(*tensors), scene
+    )
+    bad = dict(host[3], solar_lon_e=np.float64(4.0))
+    with pytest.raises(ValueError, match='solar_lon_e'):
+        backplanes_kernel.pack_scene(*host[:3], bad)
+
+
+@pytest.mark.parametrize('nx, ny, n_disc', [
+    (2048, 2048, 1_970_000), (1000, 700, 0), (64, 48, 957),
+])
+def test_backplane_bound_counts_the_function(nx, ny, n_disc):
+    ops = bounds.backplane_ops()
+    # pinned: every pixel 379 FP64 + 113 FP32 operations, an on-disc pixel
+    # 694 + 127 more (3 intercept evaluations), each column 82 and each row
+    # 84 FP64 (the ray's sin/cos tables), at 20 per transcendental
+    assert ops == {'every': (379, 113), 'on_disc': (694, 127),
+                   'column': (82, 0), 'row': (84, 0)}
+    got = bounds.backplane_bound(nx, ny, n_disc)
+    assert got['f64_ops'] == 379 * nx * ny + 694 * n_disc + 82 * nx + 84 * ny
+    assert got['f32_ops'] == 113 * nx * ny + 127 * n_disc
+    assert got['bytes'] == 108 * nx * ny
+    t_ops = got['f64_ops'] / 34e12 + got['f32_ops'] / 67e12
+    t_bytes = got['bytes'] / 3.35e12
+    assert got['ms'] == pytest.approx(max(t_ops, t_bytes) * 1e3, rel=1e-12)
+    assert got['bound_by'] == ('operations' if t_ops > t_bytes else 'bytes')
+    one_more_iter = bounds.backplane_bound(nx, ny, n_disc, n_lt_iters=3)
+    assert one_more_iter['f64_ops'] == got['f64_ops'] + 112 * n_disc
+    with pytest.raises(ValueError):
+        bounds.backplane_bound(nx, ny, nx * ny + 1)
+    assert bounds.dsk_pairs_bound() == (4 * 6 * 8192 / 3.35e12 * 1e3,
+                                        'bytes')
