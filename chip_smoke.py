@@ -14,11 +14,13 @@ on 2005-01-01 (synthetic SPICE kernels written at run time):
   on the card, and the main path's call by the host clock.
 - map: drives ``BodyXY.map_img`` onto the 720x1440 0.25-degree map of the
   JAX package's map benchmark (bench.py:160-293), from a 150x150 frame in
-  every mode and from a 1024x1024 frame in 'linear' and 'cubic', frames
-  and cubes, with and without a NaN block; holds every output of the two
-  map kernels against their plain versions on the same inputs, and small
-  maps against the host scipy reference; times the kernels, their plain
-  versions, ``grid_sample`` as a yardstick and blocked ``map_img`` calls.
+  every mode (spline degree 5 included) and from a 1024x1024 frame in
+  'linear', 'cubic' and degree 4, frames and cubes, with and without a NaN
+  block; holds every output of the two map kernels against their plain
+  versions on the same inputs, and small maps against the host scipy
+  reference; times the kernels with a cold L2 (after a read of a buffer
+  larger than it) and back to back (warm), their plain versions,
+  ``grid_sample`` as a yardstick and blocked ``map_img`` calls.
 
 Prints the card's name and power limit, one JSON line describing each
 kernel, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -51,10 +53,24 @@ from planetmapper_tpu_torch.testing.synthetic_kernels import (
     AU_KM,
     write_synthetic_kernels,
 )
+from planetmapper_tpu_torch.testing.timing import (
+    DISC,
+    MAP_BODIES,
+    MAP_CUBE_FRAMES,
+    MAP_KW,
+    MAP_SHAPE,
+    SIZE,
+    UTC,
+    back_to_back_ms,
+    cold_time_ms,
+    cuda_time_ms,
+    host_clock_ms,
+    in_turns,
+    l2_flush,
+    map_images,
+    spline_launch_buffers,
+)
 
-UTC = '2005-01-01T00:00:00'
-SIZE = 2048
-DISC = (1024.0, 1024.0, 819.2, 12.3)  # the JAX package's bench.py frame
 RAGGED = (1000, 700, (503.3, 341.7, 300.0, 12.3))  # nx, ny, disc
 BAND = (217, 333)  # row0, rows
 SUBSETS = [  # one per section of the kernel (tests/test_pallas_core.py:99)
@@ -78,22 +94,14 @@ FLAGS = dict(positive_west=True, prograde=True, have_sun=True)
 #: range (pipeline._kernel_geodetic_iters: 4 Bowring steps)
 TRIAXIAL_SCALE = (1.0, 0.98, 0.935)
 
-#: The map benchmark of the JAX package: a 720x1440 rectangular map at
-#: 0.25 deg (bench.py:168) from a 150x150 frame (bench.py:163-167; the
-#: regime of TPU kernel 2) and a 1024x1024 frame (bench.py:245-249;
-#: kernel 3), as frames and as cubes (bench.py:252, :278).
-MAP_KW = dict(degree_interval=0.25)
-MAP_SHAPE = (720, 1440)
-MAP_BODIES = {150: (75.0, 75.0, 60.0, 12.3), 1024: (512.0, 512.0, 409.6, 12.3)}
-MAP_CUBE_FRAMES = {150: 16, 1024: 8}
-#: NaN blocks: tests/test_pallas_core.py:712 for 150x150, one on the
-#: 1024x1024 disc
-NAN_BLOCK = {150: (slice(40, 44), slice(50, 53)),
-             1024: (slice(400, 404), slice(500, 503))}
+#: The map benchmark (MAP_* and map_images in testing/timing.py).
 #: Kernel against plain version: the JAX package's own TPU bars relative
 #: to max(scale, 1) (tests/test_pallas_core.py:727-732, :775-780, :812-817)
 MAP_BARS = {('spline', 150): 3e-5, ('spline', 1024): 5e-5,
             ('smooth', 150): 1e-4}
+#: The map_spline instances the main path runs most, as (kx, ky):
+#: 'linear', 'cubic' and (3, 1)
+MAIN_SPLINE_DEGREES = ((1, 1), (3, 3), (1, 3))
 
 
 class SmokeFailure(Exception):
@@ -157,7 +165,9 @@ def build_phase() -> None:
     t0 = time.perf_counter()
     cuda_build.build_all(libraries)
     log(f'[build] {len(libraries)} nvcc builds in parallel + load '
-        f'{time.perf_counter() - t0:.1f} s')
+        f'{time.perf_counter() - t0:.1f} s; nvcc per library: '
+        + ', '.join(f'{lib.name} {lib.build_seconds:.1f} s'
+                    for lib in libraries))
     for library in libraries:
         entry, spills = '', ''
         for line in library.ptxas_log().splitlines():
@@ -177,6 +187,25 @@ def build_phase() -> None:
         f'memory per thread, {occ["blocks_per_sm"]} resident blocks of 256 '
         'threads per SM')
     return occ
+
+
+def spline_occupancy(calls) -> None:
+    """Registers, local bytes and blocks per SM of the main map_spline
+    instances, at the shared memory of the main path's launches."""
+    seen = set()
+    for label, kind, args, kw, _ in calls.calls:
+        degrees = (kw.get('kx'), kw.get('ky'))
+        if kind != 'spline' or degrees not in MAIN_SPLINE_DEGREES or \
+                degrees in seen:
+            continue
+        seen.add(degrees)
+        ty, tx, coeffs = args[3], args[4], args[5]
+        *_, smem = msp.launch_plan(ty.numel(), tx.numel(), kw.get('uniform'))
+        occ = msp.occupancy(*degrees, smem)
+        log(f'[build] map_spline <kx={degrees[0]}, ky={degrees[1]}> ({label}, '
+            f'{smem} bytes of shared memory): {occ["registers"]} registers, '
+            f'{occ["local_bytes"]} bytes of local memory per thread, '
+            f'{occ["blocks_per_sm"]} resident blocks of 256 threads per SM')
 
 
 def main_path_phase(device, size=SIZE, disc=DISC):
@@ -302,64 +331,6 @@ def triaxial_case(nx, ny, disc, args) -> None:
     )
 
 
-def cuda_time_ms(fn, reps: int) -> float:
-    """
-    Device time per call of ``fn`` over ``reps`` calls (CUDA events). A
-    device-side sleep first lets the host queue the calls ahead of the
-    card, so that short kernels are timed back to back and not at the rate
-    the host launches them.
-    """
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def host_clock_ms(fn, reps: int) -> float:
-    """
-    What a caller waiting for one call of ``fn`` pays: the host-clock time
-    from the call to the end of a synchronise after it, the median of
-    ``reps`` calls (host work, launches and device time together).
-    """
-    samples = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        samples.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(samples))
-
-
-def back_to_back_ms(fn, reps: int) -> float:
-    """Host-clock time per call of ``reps`` calls and one synchronise."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / reps
-
-
-def in_turns(runs: dict, timer) -> dict[str, list[float]]:
-    """``timer(fn, reps)`` of every run after a warm-up, in two turns."""
-    for fn, _ in runs.values():
-        fn()
-    torch.cuda.synchronize()
-    times = {name: [] for name in runs}
-    order = list(runs)
-    for turn in (order, order[::-1]):
-        for name in turn:
-            fn, reps = runs[name]
-            times[name].append(timer(fn, reps))
-    return times
-
-
 def timing_phase(body, args, card: str) -> dict[str, float]:
     """
     The kernel and its plain version at the full frame; the main path's
@@ -455,16 +426,6 @@ class KernelCalls:
             interp_device.map_spline, pchip_device.map_smooth = originals
 
 
-def map_images(size: int, seed: int):
-    rng = np.random.default_rng(seed)
-    frame = rng.normal(size=(size, size))
-    with_nan = frame.copy()
-    with_nan[NAN_BLOCK[size]] = np.nan
-    cube = rng.normal(size=(MAP_CUBE_FRAMES[size], size, size))
-    cube[1][NAN_BLOCK[size]] = np.nan
-    return frame, with_nan, cube
-
-
 def map_runs():
     """(size, label, interpolation, image key) of the map main path."""
     runs = []
@@ -476,55 +437,10 @@ def map_runs():
     for mode in ('linear', 'cubic'):
         runs.append((1024, mode, 'with_nan'))
         runs.append((1024, mode, 'cube'))
+    # spline degrees 5 and 4: the kernel has instances for degrees 1..5
+    runs += [(150, 5, 'with_nan'), (1024, 4, 'with_nan')]
     return [(size, f'{size}^2 {mode} {key}', mode, key)
             for size, mode, key in runs]
-
-
-def spline_bound(args, kw):
-    """Least time of one map_spline call: (ms, 'bytes' or 'operations')."""
-    x, y, valid, ty, tx, coeffs, nan_grid = args
-    kx, ky = kw['kx'], kw['ky']
-    n_frames = coeffs.shape[0]
-    ny, nx = nan_grid.shape[-2:]
-    live = valid.bool()
-    live_frames = live[None].expand(n_frames, -1)
-    if kw['propagate_nan']:
-        live = live & ~msp.outside_grid(x, y, ny, nx)
-        live_frames = live[None] & ~msp.neighbour_nan(x, y, nan_grid)
-    n_bytes = (17 * x.numel() + 4 * n_frames * x.numel()
-               + 8 * coeffs.numel() + nan_grid.numel() + n_frames
-               + 8 * (ty.numel() + tx.numel()))
-
-    def basis_flop(k):  # clamp + de Boor-Cox, counted from map_spline.cu
-        return 2 + 7 * k * (k + 1) // 2 - k
-
-    flop = (int(live.sum()) * (basis_flop(kx) + basis_flop(ky))
-            + int(live_frames.sum()) * 2 * (ky + 1) * (kx + 2))
-    return bound(n_bytes, flop)
-
-
-def smooth_bound(args, kw):
-    """Least time of one map_smooth call: (ms, 'bytes' or 'operations')."""
-    x, y, valid, grid, nan_img = args
-    n_frames, n_ys, n_xs = grid.shape
-    yb = (y - kw['iy0']) / kw['y_step']
-    xb = (x - kw['ix0']) / kw['x_step']
-    live = valid.bool() & (yb >= 0) & (yb <= n_ys - 1) & (xb >= 0) & (
-        xb <= n_xs - 1)
-    live_frames = live[None].expand(n_frames, -1)
-    if kw['propagate_nan']:
-        ny, nx = nan_img.shape[-2:]
-        live = live & ~msp.outside_grid(x, y, ny, nx)
-        live_frames = live[None] & ~msp.neighbour_nan(x, y, nan_img)
-    n_bytes = (17 * x.numel() + 4 * n_frames * x.numel()
-               + 8 * grid.numel() + nan_img.numel() + n_frames)
-    flop = int(live.sum()) * 6 + int(live_frames.sum()) * 11
-    return bound(n_bytes, flop)
-
-
-def bound(n_bytes: float, flop: float):
-    """Bytes and FP64 operations of a map kernel call: (ms, bound_by)."""
-    return bounds.roofline_ms(n_bytes, f64_ops=flop)
 
 
 def compare_with_plain(label, kind, size, args, kwargs, out) -> float:
@@ -653,15 +569,28 @@ def map_phase(device):
     return bodies, images, calls, launches, errors, peak
 
 
-def time_pair(name, kernel, plain, library, reps=(200, 10, 200)):
-    """Kernel, plain version and library yardstick, in turns after warm-up."""
+def time_pair(name, kernel, plain, library, flush, reps=(200, 10, 200, 50)):
+    """
+    Kernel, plain version and library yardstick, in turns after warm-up:
+    back to back (warm L2) for all three, and one call after an L2 flush
+    (cold) for the kernel and the yardstick. ``kernel`` and ``library`` in
+    the result are the cold times.
+    """
     runs = {'kernel': (kernel, reps[0]), 'plain': (plain, reps[1])}
     if library is not None:
         runs['library'] = (library, reps[2])
-    times = in_turns(runs, cuda_time_ms)
-    log(f'[map-time] {name}: ms per call (two turns each) '
-        + json.dumps(times))
-    return {k: float(np.mean(v)) for k, v in times.items()}
+    warm = in_turns(runs, cuda_time_ms)
+    cold = in_turns({k: (fn, reps[3]) for k, (fn, _) in runs.items()
+                     if k != 'plain'},
+                    lambda fn, n: cold_time_ms(fn, n, flush))
+    log(f'[map-time] {name}: ms per call (two turns each), back to back: '
+        + json.dumps(warm) + f'; cold L2 (median of {reps[3]}): '
+        + json.dumps(cold))
+    out = {f'{k}_warm': float(np.mean(v)) for k, v in warm.items()}
+    out.update({k: float(np.mean(v)) for k, v in cold.items()})
+    out['plain'] = out.pop('plain_warm')
+    out.setdefault('library', None)
+    return out
 
 
 def normalised_grid(u, v, n_u, n_v):
@@ -673,20 +602,17 @@ def normalised_grid(u, v, n_u, n_v):
 
 def map_timing_phase(bodies, images, calls, card):
     """Kernels, plain versions, yardsticks; cubes per frame; blocked calls."""
+    spline_occupancy(calls)
     by_label = {(label, kind): (args, kwargs)
                 for label, kind, args, kwargs, _ in calls.calls}
     results = {}
     grid_sample = torch.nn.functional.grid_sample
+    flush = l2_flush(calls.calls[0][4].device)
     for label in ('150^2 linear frame', '150^2 cubic frame',
                   '1024^2 cubic with_nan'):
         args, kw = by_label[(label, 'spline')]
         x, y, valid, ty, tx, coeffs, nan_grid = args
-        nan_u8 = nan_grid.to(torch.uint8).contiguous()
-        prepared = (x, y, valid.to(torch.uint8), ty, tx, coeffs, nan_u8,
-                    nan_u8.reshape(nan_u8.shape[0], -1).any(1).to(
-                        torch.uint8),
-                    torch.empty((coeffs.shape[0], x.numel()),
-                                dtype=torch.float32, device=x.device))
+        prepared = spline_launch_buffers(args)
         library = None
         if kw['kx'] == kw['ky'] == 1:
             # s=0, k=1: the coefficients are the image; no NaN rules
@@ -699,9 +625,10 @@ def map_timing_phase(bodies, images, calls, card):
         t = time_pair(
             f'{card} | map_spline {label} 720x1440',
             lambda: msp.launch(*prepared, **kw),
-            lambda: msp.map_spline_plain(*args, **kw), library,
+            lambda: msp.map_spline_plain(*args, **kw), library, flush,
         )
-        t['bound'], t['bound_by'] = spline_bound(args, kw)
+        bound = bounds.spline_call_bound(args, kw)
+        t['bound'], t['bound_by'] = bound['ms'], bound['bound_by']
         results[label] = t
     args, kw = by_label[('150^2 smooth frame', 'smooth')]
     x, y, valid, grid_os, nan_img = args
@@ -721,15 +648,19 @@ def map_timing_phase(bodies, images, calls, card):
         lambda: msk.map_smooth_plain(*args, **kw),
         lambda: grid_sample(image, coords, mode='bilinear',
                             padding_mode='border', align_corners=True),
+        flush,
     )
-    t['bound'], t['bound_by'] = smooth_bound(args, kw)
+    bound = bounds.smooth_call_bound(args, kw)
+    t['bound'], t['bound_by'] = bound['ms'], bound['bound_by']
     results['150^2 smooth frame'] = t
     log(f'[map-time] {card} | grid_sample yardstick: float64 in and out, '
         'without the NaN rules; cubic has no one-call counterpart (none)')
     for label, t in results.items():
-        log(f'[map-time] {label}: bound {t["bound"] * 1e3:.2f} us '
-            f'({t["bound_by"]}), kernel at {t["bound"] / t["kernel"]:.1%} '
-            'of it')
+        log(f'[map-time] {card} | {label}: bound {t["bound"] * 1e3:.2f} us '
+            f'({t["bound_by"]}); kernel {t["kernel"] * 1e3:.2f} us cold, '
+            f'{t["kernel_warm"] * 1e3:.2f} us warm: '
+            f'{t["bound"] / t["kernel"]:.1%} of the bound cold, '
+            f'{t["bound"] / t["kernel_warm"]:.1%} warm')
 
     for size, mode in ((150, 'linear'), (150, 'cubic'), (150, 'smooth'),
                        (1024, 'linear'), (1024, 'cubic')):
@@ -799,8 +730,9 @@ def main() -> int:
                 map_phase(device)
             map_times = map_timing_phase(bodies, images, calls, card_line())
             log(f'[memory] {card} | peak device memory of the map path '
-                f'{map_peak / 2**20:.1f} MiB (its 17 outputs and the '
-                'recorded kernel inputs held for the comparisons included)')
+                f'{map_peak / 2**20:.1f} MiB (its {len(map_runs())} outputs '
+                'and the recorded kernel inputs held for the comparisons '
+                'included)')
             log(f'[map] phase {time.perf_counter() - t_map:.1f} s')
             pt.clear_kernels()
     except SmokeFailure as exc:
@@ -817,7 +749,8 @@ def main() -> int:
         'main path, the map kernels the largest value error of every '
         'map_img call; ms, plain_ms, library_ms, bound_ms: backplanes26 at '
         f'{SIZE}x{SIZE}, map_spline the 150^2 linear frame and map_smooth '
-        'the 150^2 smooth frame onto the 720x1440 map')
+        'the 150^2 smooth frame onto the 720x1440 map; the map kernels\' ms '
+        'and library_ms with a cold L2, their plain_ms back to back')
     print(json.dumps({'kernels': [
         dict(
             name='backplanes26',

@@ -27,11 +27,13 @@
 //   there, is NaN too (:287-308); a per-frame any-NaN flag skips those
 //   reads for clean frames.
 //
-// What bounds it on this card: per sample 16 B of float64 x/y and 1 B of
-// validity are read and 4 B are written per frame; 32 B of corners come
-// from a grid that stays in L2 (3.3 MB at 646^2), against ~20 double
-// operations. Memory traffic bounds it (about 6 us per frame for a
-// 720x1440 map at 3.35 TB/s), and a frame sits near launch latency.
+// What bounds it on this card: per sample 1 B of validity and, for the
+// valid samples, 16 B of float64 x/y are read and 4 B are written per
+// frame; 32 B of corners come from a grid that stays in L2 (3.3 MB at
+// 646^2), against ~20 double operations. Memory traffic bounds it (4.7 us
+// for one 150^2 frame on a 720x1440 map at 3.35 TB/s, counting each grid
+// value the samples touch once: testing/bounds.py:map_smooth_bound), and
+// a frame sits near launch latency.
 //
 // Built by planetmapper_tpu_torch/ops/map_smooth_kernel.py (through
 // ops/cuda_build.py) with

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from collections.abc import Callable
 from pathlib import Path
 
@@ -58,6 +59,8 @@ class CudaLibrary:
         self._lib: ctypes.CDLL | None = None
         self.launches = 0
         self._ptxas_log = ''
+        #: seconds nvcc took in this process's build (0.0 when cached)
+        self.build_seconds = 0.0
 
     def launch_count(self) -> int:
         """Kernel launches so far in this process (plain-version calls excluded)."""
@@ -81,10 +84,12 @@ class CudaLibrary:
             nvcc = find_nvcc()
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = lib.with_name(f'{lib.name}.{os.getpid()}.tmp')
+            t0 = time.perf_counter()
             proc = subprocess.run(
                 [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(self.source)],
                 capture_output=True, text=True, check=False,
             )
+            self.build_seconds = time.perf_counter() - t0
             if proc.returncode != 0:
                 raise RuntimeError(
                     f'nvcc failed with exit code {proc.returncode} on '

@@ -5,15 +5,18 @@ interp_device``).
 
 - ``nearest``: one gather per sample (plain PyTorch: there is no TPU kernel
   behind it in the JAX package either).
-- spline degrees 1-3 with ``spline_smoothing=0`` (the default) and sources
+- spline degrees 1-5 with ``spline_smoothing=0`` (the default) and sources
   up to :data:`_DEVICE_SOLVE_MAX` px: NaN infill (:func:`_infill_device`)
   and the collocation solve ``C = Ainv_y @ cleaned @ Ainv_x.T`` run in
   float64 on the device against the cached inverses of
   :func:`_grid_spline_solver` (a plain matrix product, as the JAX package
   leaves it to XLA), then the hand-written kernel
-  :func:`.map_spline_kernel.map_spline` evaluates every frame.
+  :func:`.map_spline_kernel.map_spline` evaluates every frame, told by
+  :func:`_grid_uniform_knots` that the knots are unit-spaced.
 - ``spline_smoothing > 0`` or larger sources: scipy's FITPACK solves each
-  frame on the host (adaptive knots), and the same kernel evaluates it.
+  frame on the host, and the same kernel evaluates it, told by
+  :func:`.map_spline_kernel.uniform_knots` whether the knots are
+  unit-spaced (at s=0 they are; the adaptive knots of s > 0 are searched).
 
 The NaN conventions are the reference's (body_xy.py:1855-1904): a sample is
 NaN when any of its 4 surrounding integer pixels is NaN or it is outside
@@ -29,7 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .map_spline_kernel import map_spline
+from .map_spline_kernel import map_spline, uniform_knots
 
 #: Largest source side solved on the device (dense inverses of the two
 #: collocation matrices); larger sources take the host FITPACK branch, as
@@ -140,6 +143,18 @@ def _grid_spline_solver(ny: int, nx: int, kx: int, ky: int):
     return ty, tx, np.linalg.inv(ay), np.linalg.inv(ax)
 
 
+@functools.lru_cache(maxsize=None)
+def _grid_uniform_knots(ny: int, nx: int, kx: int, ky: int):
+    """
+    ``(y, x)`` :class:`.map_spline_kernel.UniformKnots` of the knots of
+    :func:`_grid_spline_solver`, read from its numpy copies (no device
+    sync): FITPACK's s=0 knots of a pixel grid are spaced exactly 1 inside
+    the clamped ends, so the kernel finds intervals by arithmetic.
+    """
+    ty, tx, _, _ = _grid_spline_solver(ny, nx, kx, ky)
+    return uniform_knots(ty, ky), uniform_knots(tx, kx)
+
+
 @functools.lru_cache(maxsize=16)
 def _device_solver(ny: int, nx: int, kx: int, ky: int,
                    device: torch.device):
@@ -210,6 +225,7 @@ def spline_interpolation_device(
         vals = map_spline(
             samples.x, samples.y, samples.valid, ty, tx, coeffs, nans,
             kx=kx, ky=ky, propagate_nan=propagate_nan,
+            uniform=_grid_uniform_knots(ny, nx, kx, ky),
         )
         if not propagate_nan and not flags['any_finite'].all():
             # host semantics: a frame with no finite values maps to NaN
@@ -234,6 +250,7 @@ def spline_interpolation_device(
                 torch.from_numpy(c.reshape(1, n_cy, n_cx)).to(device),
                 torch.from_numpy(np.isnan(frame)[None]).to(device),
                 kx=kx, ky=ky, propagate_nan=propagate_nan,
+                uniform=(uniform_knots(ty, ky), uniform_knots(tx, kx)),
             )[0]
     vals = vals.reshape((frames.shape[0],) + samples.shape)
     return vals if cube else vals[0]

@@ -8,16 +8,21 @@ _pallas_eval_fn`` (sources up to 640 px) and ``_pallas_eval_windowed_fn``
 in the ``.cu`` file says what bounds it and how it is laid out.
 
 :func:`map_spline` evaluates a bivariate B-spline of degrees ``(ky, kx)``
-(FITPACK knots ``ty``, ``tx``; float64 coefficients ``(F, n_cy, n_cx)``) at
-the map samples and applies the 4-neighbour NaN rule of ``map_img``. It
-launches the kernel for CUDA tensors and counts the launch; a build or
-launch fault raises. Only CPU tensors take :func:`map_spline_plain`.
+(1..5 each; FITPACK knots ``ty``, ``tx``; float64 coefficients ``(F, n_cy,
+n_cx)``) at the map samples and applies the 4-neighbour NaN rule of
+``map_img``. It launches the kernel for CUDA tensors and counts the
+launch; a build or launch fault raises. Only CPU tensors take
+:func:`map_spline_plain`. Knots described by :func:`uniform_knots` (the
+FITPACK s=0 knots of a pixel grid) let the kernel find intervals by
+arithmetic and use the cardinal basis; other knots take its binary search.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .cuda_build import CudaLibrary, check_launch
@@ -26,12 +31,28 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+class _Axis(ctypes.Structure):
+    """``MapSplineAxis`` of ``map_spline.cu``: one spline axis."""
+
+    _fields_ = [('origin', ctypes.c_double), ('uniform', _I), ('lo', _I),
+                ('hi', _I), ('staged', _I)]
+
+
+#: Shared memory the wrapper lets both axes' knots take when the kernel
+#: searches them; larger knot vectors are read from global memory.
+KNOT_STAGE_BYTES = 40 * 1024
+
+
 def _configure(lib) -> None:
     lib.map_spline_launch.restype = _I
     lib.map_spline_launch.argtypes = [
         _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P,
-        ctypes.c_longlong, _I, _P,
+        ctypes.c_longlong, _I, ctypes.POINTER(_Axis), ctypes.POINTER(_Axis),
+        _P,
     ]
+    lib.map_spline_occupancy.restype = _I
+    lib.map_spline_occupancy.argtypes = [
+        _I, _I, _I, *[ctypes.POINTER(_I)] * 3]
 
 
 LIBRARY = CudaLibrary('map_spline', 'map_spline.cu', _configure)
@@ -41,7 +62,79 @@ reset_launch_count = LIBRARY.reset_launch_count
 ptxas_log = LIBRARY.ptxas_log
 
 #: Spline degrees the kernel is compiled for (kx, ky each).
-KERNEL_DEGREES = (1, 2, 3)
+KERNEL_DEGREES = (1, 2, 3, 4, 5)
+
+
+@dataclass(frozen=True)
+class UniformKnots:
+    """
+    One axis's knots as the kernel's arithmetic path takes them: ``t[j] ==
+    origin + j`` exactly on every interior knot, and ``[lo, hi]`` the
+    intervals whose 2k supporting knots all obey it (cardinal basis there).
+    """
+
+    origin: float
+    lo: int
+    hi: int
+
+
+def uniform_knots(t, k: int) -> UniformKnots | None:
+    """
+    :class:`UniformKnots` of the host knot vector ``t`` of degree ``k``, or
+    None when its interior is empty or not spaced exactly 1 (the kernel
+    then searches). The FITPACK s=0 knots of a pixel grid always qualify.
+    """
+    t = np.asarray(t, dtype=np.float64)
+    n_t = t.shape[0]
+    n_c = n_t - k - 1
+    if n_c <= k + 1:
+        return None
+    origin = float(t[k + 1]) - (k + 1)
+    on = t == origin + np.arange(n_t)
+    if not on[k + 1:n_c].all():
+        return None
+    # interval i is uniform when t[i-k+1 .. i+k] are all on the line
+    off = np.concatenate([[0], np.cumsum(~on)])
+    i = np.arange(k, n_c)
+    uniform = i[off[i + k + 1] == off[i - k + 1]]
+    lo, hi = (int(uniform[0]), int(uniform[-1])) if uniform.size else (
+        n_c, n_c - 1)
+    return UniformKnots(origin, lo, hi)
+
+
+def launch_plan(n_ty: int, n_tx: int, uniform=None):
+    """
+    ``(axis_y, axis_x, shared_bytes)``: the kernel's two axis descriptors
+    for knot counts ``n_ty``, ``n_tx`` and ``uniform`` (a pair of
+    :class:`UniformKnots` or None, or None), and the dynamic shared memory
+    of the launch (the staged knots).
+    """
+    described = uniform if uniform is not None else (None, None)
+    # searched knots are staged in shared memory; described ones are not
+    # (the arithmetic path reads only a few end knots)
+    axes = [_Axis(0.0, 0, 0, -1, 1) if u is None else
+            _Axis(u.origin, 1, u.lo, u.hi, 0) for u in described]
+    knots = sum(n for n, a in zip((n_ty, n_tx), axes) if a.staged)
+    if 8 * knots > KNOT_STAGE_BYTES:
+        for a in axes:
+            a.staged = 0
+        knots = 0
+    return axes[0], axes[1], 8 * knots
+
+
+def occupancy(kx: int, ky: int, shared_bytes: int = 0) -> dict[str, int]:
+    """
+    ``dict(registers, local_bytes, blocks_per_sm)`` of the ``<kx, ky>``
+    instance on the current CUDA device: registers and local (spill) bytes
+    per thread, and resident blocks of 256 threads per SM at
+    ``shared_bytes`` of dynamic shared memory.
+    """
+    lib = load_library()
+    values = [_I() for _ in range(3)]
+    check_launch(lib.map_spline_occupancy(kx, ky, shared_bytes, *values),
+                 'map spline occupancy')
+    return dict(zip(('registers', 'local_bytes', 'blocks_per_sm'),
+                    (v.value for v in values)))
 
 
 def _basis(t: torch.Tensor, k: int, u: torch.Tensor):
@@ -92,8 +185,12 @@ def outside_grid(x, y, ny: int, nx: int) -> torch.Tensor:
 
 
 def map_spline_plain(x, y, valid, ty, tx, coeffs, nan_grid, *, kx: int,
-                     ky: int, propagate_nan: bool) -> torch.Tensor:
-    """The kernel's function in plain PyTorch (float64, stored float32)."""
+                     ky: int, propagate_nan: bool,
+                     uniform=None) -> torch.Tensor:
+    """
+    The kernel's function in plain PyTorch (float64, stored float32);
+    ``uniform`` is accepted for the kernel's signature and not read.
+    """
     n_frames, _, n_cx = coeffs.shape
     by, iy0 = _basis(ty, ky, y)
     bx, ix0 = _basis(tx, kx, x)
@@ -137,13 +234,24 @@ def _check(x, y, valid, ty, tx, coeffs, nan_grid, kx, ky):
     return device
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (a copy if need be)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def map_spline(x, y, valid, ty, tx, coeffs, nan_grid, *, kx: int, ky: int,
-               propagate_nan: bool) -> torch.Tensor:
+               propagate_nan: bool, uniform=None) -> torch.Tensor:
     """
     ``(F, S)`` float32 spline values at the samples ``x``, ``y`` (float64,
     0 where ``valid`` is false) of each frame's coefficients, NaN where the
     sample is not valid or, with ``propagate_nan``, outside the source grid
     or next to one of its NaN pixels (``nan_grid`` (F, ny, nx), bool).
+
+    ``uniform``: ``(y, x)`` :class:`UniformKnots` (either may be None) of
+    ``ty`` and ``tx``, from :func:`uniform_knots` on a host copy of the same
+    knots; the kernel trusts it (nothing on the card checks it). None: the
+    kernel searches the knots.
     """
     device = _check(x, y, valid, ty, tx, coeffs, nan_grid, kx, ky)
     if device.type == 'cpu':
@@ -155,35 +263,42 @@ def map_spline(x, y, valid, ty, tx, coeffs, nan_grid, *, kx: int, ky: int,
                       device=device)
     nan_u8 = nan_grid.to(torch.uint8).contiguous()
     launch(
-        x.contiguous(), y.contiguous(), valid.to(torch.uint8).contiguous(),
+        _aligned(x), _aligned(y), valid.to(torch.uint8).contiguous(),
         ty.contiguous(), tx.contiguous(), coeffs.contiguous(), nan_u8,
         nan_u8.reshape(nan_u8.shape[0], -1).any(dim=1).to(torch.uint8),
-        out, kx=kx, ky=ky, propagate_nan=propagate_nan,
+        out, kx=kx, ky=ky, propagate_nan=propagate_nan, uniform=uniform,
     )
     return out
 
 
 def launch(x, y, valid, ty, tx, coeffs, nan_grid, any_nan, out, *,
-           kx: int, ky: int, propagate_nan: bool) -> None:
+           kx: int, ky: int, propagate_nan: bool, uniform=None) -> None:
     """
-    Launch the kernel on prepared contiguous CUDA buffers (``valid``,
-    ``nan_grid`` and the per-frame ``any_nan`` as uint8, ``out`` (F, S)
-    float32) on the current stream, and count the launch.
+    Launch the kernel on prepared contiguous CUDA buffers (``x`` and ``y``
+    16-byte aligned, ``valid``, ``nan_grid`` and the per-frame ``any_nan``
+    as uint8, ``out`` (F, S) float32) on the current stream, and count the
+    launch. ``uniform`` as for :func:`map_spline`.
     """
     if kx not in KERNEL_DEGREES or ky not in KERNEL_DEGREES:
         raise ValueError(
-            f'the map spline kernel takes degrees 1..3, got ({ky}, {kx})'
+            f'the map spline kernel takes degrees {KERNEL_DEGREES[0]}..'
+            f'{KERNEL_DEGREES[-1]}, got ({ky}, {kx})'
         )
     buffers = (x, y, valid, ty, tx, coeffs, nan_grid, any_nan, out)
     if any(t.device.type != 'cuda' or not t.is_contiguous() for t in buffers):
         raise ValueError('the map spline kernel takes contiguous CUDA tensors')
     if any(t.dtype != torch.uint8 for t in (valid, nan_grid, any_nan)):
         raise TypeError('valid, nan_grid and any_nan must be uint8')
+    if x.data_ptr() % 16 or y.data_ptr() % 16 or out.data_ptr() % 8:
+        raise ValueError('x and y must be 16-byte aligned, out 8-byte')
+    if coeffs[0].numel() >= 2**31 or nan_grid[0].numel() >= 2**31:
+        raise ValueError('a frame of 2^31 or more coefficients or pixels')
     n_frames, n_samples = out.shape
     if out.dtype != torch.float32 or n_samples != x.shape[0]:
         raise ValueError('out must be (F, S) float32')
     if n_frames * n_samples == 0:
         return
+    axis_y, axis_x, _ = launch_plan(ty.shape[0], tx.shape[0], uniform)
     lib = load_library()
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
@@ -192,7 +307,8 @@ def launch(x, y, valid, ty, tx, coeffs, nan_grid, any_nan, out, *,
             ty.data_ptr(), ty.shape[0], tx.data_ptr(), tx.shape[0],
             kx, ky, coeffs.data_ptr(), nan_grid.data_ptr(),
             any_nan.data_ptr(), nan_grid.shape[-2], nan_grid.shape[-1],
-            int(propagate_nan), out.data_ptr(), n_samples, n_frames, stream,
+            int(propagate_nan), out.data_ptr(), n_samples, n_frames,
+            ctypes.byref(axis_y), ctypes.byref(axis_x), stream,
         )
     check_launch(rc, 'map spline')
     LIBRARY.launches += 1

@@ -1,7 +1,9 @@
 """
 Least times ("bounds") of the port's kernels on one H100 SXM, counted from
 the work of the function each kernel computes, not from the kernel's own
-instructions (numpy-free, no device).
+instructions. The counts are plain numbers; the map kernels' are taken
+from one call's inputs (:func:`spline_call_bound`, :func:`smooth_call_bound`,
+tensors on any device).
 
 A bound is the larger of two times: the bytes the function must move (each
 input read once, each output written once) over the card's memory rate,
@@ -14,6 +16,10 @@ and copies count 0.
 """
 
 from __future__ import annotations
+
+import torch
+
+from ..ops.map_spline_kernel import _basis, neighbour_nan, outside_grid
 
 #: H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bandwidth, and FP64 and
 #: FP32 outside the tensor cores, where scalar arithmetic runs.
@@ -164,6 +170,175 @@ def backplane_bound(nx: int, ny: int, n_disc: int, *,
     n_bytes = BACKPLANE_BYTES_PER_PIXEL * nx * ny
     ms, by = roofline_ms(n_bytes, f64, f32)
     return dict(ms=ms, bound_by=by, bytes=n_bytes, f64_ops=f64, f32_ops=f32)
+
+
+# ---------------------------------------------------------------------------
+# map_spline and map_smooth: the map kernels of BodyXY.map_img
+# ---------------------------------------------------------------------------
+#
+# Bytes: what the function must read, once, and its outputs, written once.
+# A uint8 validity per sample, and float64 x and y only for the valid
+# samples (the others map to NaN unread); float32 per sample and frame out;
+# one uint8 any-NaN flag per frame; of the float64 coefficients (or
+# oversampled grid values) and of the uint8 NaN grid of the source only
+# the entries the samples touch (counted by the caller from the run's
+# inputs); the float64 knots whole (a few KB). Dead samples cost only
+# their bytes; the NaN rule's compares and selects are not counted.
+
+
+def map_spline_axis_ops(k: int) -> int:
+    """
+    Operations of one axis of one live sample at the least known work, a
+    uniform interval of the grid: the clamp into the knot span (2
+    compares), the interval by arithmetic (subtract, floor, compare), the
+    local coordinate (1), and the k+1 cardinal basis values as polynomials
+    of degree k in Horner form with k! folded into the coefficients (k
+    multiply-adds each).
+    """
+    return 6 + 2 * k * (k + 1)
+
+
+def map_spline_frame_ops(kx: int, ky: int) -> int:
+    """Operations of one live sample in one frame: the tensor-product sum."""
+    return 2 * (ky + 1) * (kx + 2)
+
+
+def map_sample_bytes(samples: int, valid_samples: int, frames: int) -> int:
+    """
+    Bytes of one map kernel launch besides its coefficients and NaN grid:
+    the validity of every sample, x and y of the valid ones, every value
+    out, the any-NaN flag of every frame.
+    """
+    return samples + 16 * valid_samples + 4 * frames * samples + frames
+
+
+def map_spline_bound(*, samples: int, valid_samples: int, live_samples: int,
+                     live_sample_frames: int, frames: int, coefficients: int,
+                     grid_cells: int, knots: int, kx: int, ky: int) -> dict:
+    """
+    The bound of one map_spline launch: ``samples`` map samples of which
+    ``valid_samples`` are valid, ``live_samples`` get a value in some frame
+    and ``live_sample_frames`` values are computed over ``frames`` frames;
+    ``coefficients`` float64 coefficients that the live values weight and
+    ``grid_cells`` NaN-grid cells that the NaN rule reads, both summed over
+    the frames; ``knots`` of both axes; degrees ``kx``, ``ky``.
+    ``dict(ms, bound_by, bytes, f64_ops)``.
+    """
+    n_bytes = (map_sample_bytes(samples, valid_samples, frames)
+               + 8 * coefficients + grid_cells + 8 * knots)
+    ops = (live_samples * (map_spline_axis_ops(kx) + map_spline_axis_ops(ky))
+           + live_sample_frames * map_spline_frame_ops(kx, ky))
+    ms, by = roofline_ms(n_bytes, f64_ops=ops)
+    return dict(ms=ms, bound_by=by, bytes=n_bytes, f64_ops=ops)
+
+
+#: map_smooth: per live sample the two oversampled-grid coordinates and
+#: their floors and fractions; per live sample and frame the bilinear sum.
+MAP_SMOOTH_SAMPLE_OPS = 6
+MAP_SMOOTH_FRAME_OPS = 11
+
+
+def map_smooth_bound(*, samples: int, valid_samples: int, live_samples: int,
+                     live_sample_frames: int, frames: int, grid_values: int,
+                     image_cells: int) -> dict:
+    """
+    The bound of one map_smooth launch: counts as for
+    :func:`map_spline_bound`, ``grid_values`` float64 values of the
+    oversampled grids that the live values read and ``image_cells`` cells
+    of the source's NaN grid that the NaN rule reads, both summed over the
+    frames. ``dict(ms, bound_by, bytes, f64_ops)``.
+    """
+    n_bytes = (map_sample_bytes(samples, valid_samples, frames)
+               + 8 * grid_values + image_cells)
+    ops = (live_samples * MAP_SMOOTH_SAMPLE_OPS
+           + live_sample_frames * MAP_SMOOTH_FRAME_OPS)
+    ms, by = roofline_ms(n_bytes, f64_ops=ops)
+    return dict(ms=ms, bound_by=by, bytes=n_bytes, f64_ops=ops)
+
+
+def _map_call_counts(x, y, valid, nan_grid, propagate_nan, inside=None):
+    """
+    What the function of one map kernel call must read, from its inputs:
+    ``(counts, live)``, with ``counts`` the keywords ``valid_samples``,
+    ``live_samples``, ``live_sample_frames`` and ``grid_cells`` of the
+    bounds (``grid_cells``: the NaN-grid cells that the NaN rule reads, the
+    floor/ceil neighbours of the valid samples inside the grid, in the
+    frames that hold a NaN), and ``live`` (F, S): the values computed.
+    """
+    n_frames = nan_grid.shape[0]
+    checked = valid.bool() if inside is None else valid.bool() & inside
+    counts = dict(valid_samples=int(valid.bool().sum()), grid_cells=0)
+    live = checked[None].expand(n_frames, -1)
+    if propagate_nan:
+        ny, nx = nan_grid.shape[-2:]
+        checked = checked & ~outside_grid(x, y, ny, nx)
+        live = checked[None] & ~neighbour_nan(x, y, nan_grid)
+        x0 = torch.floor(x).long().clamp(0, nx - 1)
+        x1 = torch.ceil(x).long().clamp(0, nx - 1)
+        y0 = torch.floor(y).long().clamp(0, ny - 1)
+        y1 = torch.ceil(y).long().clamp(0, ny - 1)
+        cells = torch.stack([y0 * nx + x0, y0 * nx + x1, y1 * nx + x0,
+                             y1 * nx + x1])
+        nan_frames = int(nan_grid.reshape(n_frames, -1).any(1).sum())
+        counts['grid_cells'] = nan_frames * _distinct(cells, checked, ny * nx)
+    counts['live_samples'] = int(live.any(dim=0).sum())
+    counts['live_sample_frames'] = int(live.sum())
+    return counts, live
+
+
+def _distinct(indices, mask, size: int) -> int:
+    """Distinct values (all below ``size``) of ``indices`` (n, S) at ``mask``."""
+    hit = torch.zeros(size, dtype=torch.bool, device=indices.device)
+    hit[indices[:, mask].reshape(-1)] = True
+    return int(hit.sum())
+
+
+def spline_call_bound(args, kw) -> dict:
+    """
+    :func:`map_spline_bound` of one ``map_spline(*args, **kw)`` call,
+    counted from its inputs: the coefficients are those that each frame's
+    live values weight.
+    """
+    x, y, valid, ty, tx, coeffs, nan_grid = args
+    kx, ky = kw['kx'], kw['ky']
+    counts, live = _map_call_counts(x, y, valid, nan_grid,
+                                    kw['propagate_nan'])
+    n_frames, n_cy, n_cx = coeffs.shape
+    _, iy0 = _basis(ty, ky, y)
+    _, ix0 = _basis(tx, kx, x)
+    support = torch.stack([(iy0 + a) * n_cx + ix0 + b
+                           for a in range(ky + 1) for b in range(kx + 1)])
+    touched = sum(_distinct(support, live[f], n_cy * n_cx)
+                  for f in range(n_frames))
+    return map_spline_bound(
+        samples=x.numel(), frames=n_frames, coefficients=touched,
+        knots=ty.numel() + tx.numel(), kx=kx, ky=ky, **counts,
+    )
+
+
+def smooth_call_bound(args, kw) -> dict:
+    """
+    :func:`map_smooth_bound` of one ``map_smooth(*args, **kw)`` call,
+    counted from its inputs: the grid values are the corners that each
+    frame's live values read.
+    """
+    x, y, valid, grid, nan_img = args
+    n_frames, n_ys, n_xs = grid.shape
+    yb = (y - kw['iy0']) / kw['y_step']
+    xb = (x - kw['ix0']) / kw['x_step']
+    inside = (yb >= 0) & (yb <= n_ys - 1) & (xb >= 0) & (xb <= n_xs - 1)
+    counts, live = _map_call_counts(x, y, valid, nan_img,
+                                    kw['propagate_nan'], inside)
+    corner = (torch.floor(yb).clamp(0, n_ys - 2).long() * n_xs
+              + torch.floor(xb).clamp(0, n_xs - 2).long())
+    corners = torch.stack([corner, corner + 1, corner + n_xs,
+                           corner + n_xs + 1])
+    touched = sum(_distinct(corners, live[f], n_ys * n_xs)
+                  for f in range(n_frames))
+    return map_smooth_bound(
+        samples=x.numel(), frames=n_frames, grid_values=touched,
+        image_cells=counts.pop('grid_cells'), **counts,
+    )
 
 
 def dsk_pairs_bound(n_values: int = 6 * 8192) -> tuple[float, str]:

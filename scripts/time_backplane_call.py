@@ -11,34 +11,44 @@ the card, as a caller pays for it: one call followed by a synchronise (the
 median of 20), and 50 calls back to back with one synchronise at the end
 (per call), each in two turns, beside the card's name and power limit.
 
-It uses only API that every version of the port has, so ``--tree`` can
-import the package from another checkout of the repository (for example
-an older commit unpacked with ``git archive``) to compare two versions on
-one card. Without ``--tree`` it times the checkout it lies in.
+The timers and the frame come from this checkout
+(``planetmapper_tpu_torch/testing/timing.py``, shared with
+``chip_smoke.py``); the package comes from ``--tree`` (default: this
+checkout), and only API that every version of the port has is called, so
+that another checkout of the repository (for example an older commit
+unpacked with ``git archive``) is timed the same way on one card.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import subprocess
 import sys
 import tempfile
-import time
 from pathlib import Path
 
-SIZE = 2048
-DISC = (1024.0, 1024.0, 819.2, 12.3)  # chip_smoke.py's frame
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def own_timing():
+    """This checkout's ``testing/timing.py`` (numpy and torch only),
+    loaded by path so that the package itself may come from ``--tree``."""
+    path = ROOT / 'planetmapper_tpu_torch' / 'testing' / 'timing.py'
+    spec = importlib.util.spec_from_file_location('timing', path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    parser.add_argument('--tree', type=Path,
-                        default=Path(__file__).resolve().parents[1],
+    parser.add_argument('--tree', type=Path, default=ROOT,
                         help='checkout whose planetmapper_tpu_torch to time')
     tree = parser.parse_args().tree.resolve()
+    timing = own_timing()
     sys.path.insert(0, str(tree))
 
-    import numpy as np
     import torch
 
     import planetmapper_tpu_torch as pt
@@ -57,34 +67,22 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix='synthetic_kernels_') as kdir:
         write_synthetic_kernels(kdir, seed=0)
         pt.set_kernel_path(kdir)
-        body = pt.BodyXY('Jupiter', observer='EARTH', utc='2005-01-01T00:00:00',
-                         sz=SIZE, device=torch.device('cuda'))
-        body.set_disc_params(*DISC)
+        body = pt.BodyXY('Jupiter', observer='EARTH', utc=timing.UTC,
+                         sz=timing.SIZE, device=torch.device('cuda'))
+        body.set_disc_params(*timing.DISC)
 
         def call():
             pipeline.compute_backplanes(body, as_numpy=False)
 
-        call()  # builds and loads the kernel
-        one, back = [], []
-        for _ in range(2):
-            samples = []
-            for _ in range(20):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                call()
-                torch.cuda.synchronize()
-                samples.append((time.perf_counter() - t0) * 1e3)
-            one.append(float(np.median(samples)))
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(50):
-                call()
-            torch.cuda.synchronize()
-            back.append((time.perf_counter() - t0) * 1e3 / 50)
+        # the first call builds and loads the kernel
+        one = timing.in_turns({'call': (call, 20)}, timing.host_clock_ms)
+        back = timing.in_turns({'call': (call, 50)}, timing.back_to_back_ms)
         pt.clear_kernels()
+    size = timing.SIZE
     print(f'{card} | {tree.name}: compute_backplanes(as_numpy=False) at '
-          f'{SIZE}x{SIZE}, ms per call (host clock, two turns): one '
-          f'synchronised call {one}; back to back {back}', flush=True)
+          f'{size}x{size}, ms per call (host clock, two turns): one '
+          f'synchronised call {one["call"]}; back to back {back["call"]}',
+          flush=True)
     return 0
 
 

@@ -205,7 +205,8 @@ def _assert_within_one_ulp(got, ref):
     assert np.all(np.abs(got[finite] - ref[finite]) <= ulp)
 
 
-@pytest.mark.parametrize('kxy', [(1, 1), (2, 2), (3, 3), (3, 1)])
+@pytest.mark.parametrize('kxy', [(1, 1), (2, 2), (3, 3), (3, 1), (4, 4),
+                                 (5, 1), (1, 5)])
 @pytest.mark.parametrize('nan', [False, True])
 @pytest.mark.parametrize('n, frames', [(150, 1), (150, 3), (700, 2)])
 def test_map_spline_matches_plain_version(device, kxy, nan, n, frames):
@@ -219,8 +220,39 @@ def test_map_spline_matches_plain_version(device, kxy, nan, n, frames):
     for i in range(frames):
         cleaned[i], nans[i] = interp_device._infill_device(img[i])
     coeffs = ainv_y @ (cleaned @ ainv_x.T)
+    # the main path's uniform-knot path, and the search path on the same
+    # knots
+    for uniform in (interp_device._grid_uniform_knots(n, n, kx, ky), None):
+        for propagate_nan in (True, False):
+            args = (samples.x, samples.y, samples.valid, ty, tx, coeffs,
+                    nans)
+            kw = dict(kx=kx, ky=ky, propagate_nan=propagate_nan)
+            before = msp.launch_count()
+            got = msp.map_spline(*args, uniform=uniform, **kw)
+            torch.cuda.synchronize()
+            assert msp.launch_count() == before + 1
+            _assert_within_one_ulp(got, msp.map_spline_plain(*args, **kw))
+
+
+@pytest.mark.parametrize('kxy', [(3, 3), (1, 1), (5, 1)])
+def test_map_spline_fitpack_knots_match_plain_version(device, kxy):
+    # spline_smoothing > 0: FITPACK's adaptive knots and no descriptor,
+    # the kernel's search path
+    ky, kx = kxy
+    n = 150
+    _, samples = _map_case(n, 1, False, 5, device)
+    yy, xx = np.mgrid[0:n, 0:n]
+    host = np.sin(xx / 17.0) * np.cos(yy / 23.0) + 0.01 * \
+        np.random.default_rng(5).normal(size=(n, n))
+    host[37:41, 50:53] = np.nan
+    ty, tx, c = interp_device._fitpack_coeffs(host, kx, ky, 1.0, False)
+    assert msp.uniform_knots(ty, ky) is None or \
+        msp.uniform_knots(tx, kx) is None
+    args = (samples.x, samples.y, samples.valid, f64(ty, device),
+            f64(tx, device),
+            f64(c.reshape(1, len(ty) - ky - 1, len(tx) - kx - 1), device),
+            torch.from_numpy(np.isnan(host)[None]).to(device))
     for propagate_nan in (True, False):
-        args = (samples.x, samples.y, samples.valid, ty, tx, coeffs, nans)
         kw = dict(kx=kx, ky=ky, propagate_nan=propagate_nan)
         before = msp.launch_count()
         got = msp.map_spline(*args, **kw)
@@ -258,7 +290,8 @@ def test_map_img_launches_map_kernels(kernel_path, device):
         bodies[torch.device(where).type] = body
     img = np.random.default_rng(0).normal(size=(150, 150))
     img[40:44, 50:53] = np.nan
-    for interpolation, lib in (('cubic', msp), ((3, 1), msp),
+    for interpolation, lib in (('cubic', msp), ((3, 1), msp), (4, msp),
+                               (5, msp), ((5, 1), msp), ((1, 5), msp),
                                ('smooth', msk)):
         lib.reset_launch_count()
         got = bodies['cuda'].map_img(img, interpolation=interpolation,
@@ -267,3 +300,64 @@ def test_map_img_launches_map_kernels(kernel_path, device):
         ref = bodies['cpu'].map_img(img, interpolation=interpolation,
                                     degree_interval=2)
         _assert_within_one_ulp(got, ref)
+
+
+def test_host_branch_s0_knots_take_the_uniform_path(device, monkeypatch):
+    # a source larger than the device-solve limit (the limit lowered here):
+    # the host FITPACK branch at s=0 describes its unit-spaced knots
+    n, kx, ky = 150, 3, 1
+    img, samples = _map_case(n, 1, True, 11, device)
+    seen = []
+    wrapper = interp_device.map_spline
+
+    def recorded(*args, **kw):
+        seen.append(kw['uniform'])
+        return wrapper(*args, **kw)
+
+    monkeypatch.setattr(interp_device, 'map_spline', recorded)
+    monkeypatch.setattr(interp_device, '_DEVICE_SOLVE_MAX', n - 1)
+    kw = dict(interpolation=(ky, kx), warn_nan=False, propagate_nan=True,
+              spline_smoothing=0.0)
+    before = msp.launch_count()
+    got = interp_device.spline_interpolation_device(img[0], samples, **kw)
+    torch.cuda.synchronize()
+    assert msp.launch_count() == before + 1
+    assert seen[0] == interp_device._grid_uniform_knots(n, n, kx, ky)
+    assert None not in seen[0]
+    host = interp_device.MapSamples(samples.x.cpu(), samples.y.cpu(),
+                                    samples.valid.cpu(), samples.shape,
+                                    samples.limits)
+    ref = interp_device.spline_interpolation_device(img[0].cpu(), host, **kw)
+    _assert_within_one_ulp(got, ref)
+
+
+@pytest.mark.parametrize('n_ty', [2000, 5200])
+def test_map_spline_searches_knots_in_or_out_of_shared_memory(device, n_ty):
+    # knots without a descriptor: both axes staged in shared memory up to
+    # KNOT_STAGE_BYTES (2000 + 30 knots), read from global memory above it
+    # (5200 + 30)
+    kx, ky, n = 3, 3, 150
+    rng = np.random.default_rng(n_ty)
+
+    def clamped(n_t, k):
+        inner = np.sort(rng.uniform(0.0, n - 1.0, n_t - 2 * (k + 1)))
+        return np.concatenate([[0.0] * (k + 1), inner, [n - 1.0] * (k + 1)])
+
+    ty, tx = clamped(n_ty, ky), clamped(30, kx)
+    staged = 8 * (n_ty + 30) <= msp.KNOT_STAGE_BYTES
+    ay, ax, _ = msp.launch_plan(n_ty, 30)
+    assert (ay.staged, ax.staged) == (staged, staged)
+    _, samples = _map_case(n, 1, False, 9, device)
+    coeffs = rng.normal(size=(1, n_ty - ky - 1, 30 - kx - 1))
+    nans = np.zeros((1, n, n), dtype=bool)
+    nans[0, 60:63, 70:72] = True
+    args = (samples.x, samples.y, samples.valid, f64(ty, device),
+            f64(tx, device), f64(coeffs, device),
+            torch.from_numpy(nans).to(device))
+    for propagate_nan in (True, False):
+        kw = dict(kx=kx, ky=ky, propagate_nan=propagate_nan)
+        before = msp.launch_count()
+        got = msp.map_spline(*args, **kw)
+        torch.cuda.synchronize()
+        assert msp.launch_count() == before + 1
+        _assert_within_one_ulp(got, msp.map_spline_plain(*args, **kw))

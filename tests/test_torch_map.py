@@ -9,7 +9,12 @@ SPICE kernels (Jupiter from the Earth on 2005-01-01, a 150x150 frame):
 - the plain versions of the two map kernels against the JAX package's TPU
   kernels run in interpret mode, one map tile each;
 - the NaN infill against the host implementation (median of an even count
-  of finite pixels).
+  of finite pixels);
+- the spline kernel's uniform-knot path, transcribed from
+  ``csrc/map_spline.cu`` into numpy (its interval by the 1.5 * 2^52 shift,
+  its cardinal polynomials from the integer recurrence), against the plain
+  version's basis, the knot descriptors the device path hands the
+  kernel, and the interval its search finds on other knots.
 
 Inputs come from a numpy seed and pass to both packages as numpy arrays.
 The kernels themselves against their plain versions on the card are
@@ -17,6 +22,9 @@ The kernels themselves against their plain versions on the card are
 """
 
 from __future__ import annotations
+
+import math
+from fractions import Fraction
 
 import jax
 import jax.numpy as jnp
@@ -192,7 +200,7 @@ def test_grid_spline_solver_matches_jax(ny, nx, kx, ky):
 # (c) Whole-body map_img
 # ---------------------------------------------------------------------------
 
-MODES = ['nearest', 1, 2, 3, (3, 1), 'smooth']
+MODES = ['nearest', 1, 2, 3, (3, 1), 4, (5, 1), (1, 5), 'smooth']
 
 
 @pytest.mark.parametrize('interpolation', MODES)
@@ -400,3 +408,314 @@ def test_infill_matches_host(case):
     j_cleaned, _ = j_idev._infill_device(jnp, jnp.asarray(img))
     np.testing.assert_allclose(cleaned.numpy(), np.asarray(j_cleaned),
                                rtol=0, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# (f) The spline kernel's uniform-knot path
+# ---------------------------------------------------------------------------
+
+def _cardinal_polys(k: int) -> list[list[int]]:
+    """
+    ``cardinal_polys`` of ``csrc/map_spline.cu`` transcribed: k! times the
+    k+1 basis polynomials (coefficients of x^0..x^k, x = u - t[i]) on a
+    uniform interval, by P_d[j] = (x + d - j) P_{d-1}[j-1] + (1 + j - x)
+    P_{d-1}[j] in integers.
+    """
+    p = [[1]]
+    for d in range(1, k + 1):
+        q = [[0] * (d + 1) for _ in range(d + 1)]
+        for j in range(d + 1):
+            for m in range(d + 1):
+                v = 0
+                if j >= 1:
+                    prev = p[j - 1] + [0] * (d + 1 - len(p[j - 1]))
+                    v += (d - j) * prev[m] + (prev[m - 1] if m else 0)
+                if j < d:
+                    prev = p[j] + [0] * (d + 1 - len(p[j]))
+                    v += (1 + j) * prev[m] - (prev[m - 1] if m else 0)
+                q[j][m] = v
+        p = q
+    return p
+
+
+def _de_boor_cox_polys(k: int) -> list[list[Fraction]]:
+    """
+    The k+1 basis polynomials of de Boor-Cox (the plain version's
+    recurrence) on unit-spaced knots, in exact rational arithmetic.
+    """
+    def mul(a, b):
+        out = [Fraction(0)] * (len(a) + len(b) - 1)
+        for i, p in enumerate(a):
+            for j, q in enumerate(b):
+                out[i + j] += p * q
+        return out
+
+    def add(a, b):
+        n = max(len(a), len(b))
+        a = a + [Fraction(0)] * (n - len(a))
+        b = b + [Fraction(0)] * (n - len(b))
+        return [p + q for p, q in zip(a, b)]
+
+    n = [[Fraction(1)]]
+    for d in range(1, k + 1):
+        # term_j = (u - t[i+1-d+j]) / (t[i+1+j] - t[i+1-d+j]), x = u - t[i]
+        terms = [[Fraction(d - 1 - j, d), Fraction(1, d)] for j in range(d)]
+        rest = [[1 - t[0], -t[1]] for t in terms]  # 1 - term_j
+        new = [mul(n[0], rest[0])]
+        for j in range(1, d):
+            new.append(add(mul(n[j - 1], terms[j - 1]), mul(n[j], rest[j])))
+        new.append(mul(n[d - 1], terms[d - 1]))
+        n = new
+    return [p + [Fraction(0)] * (k + 1 - len(p)) for p in n]
+
+
+@pytest.mark.parametrize('k', [1, 2, 3, 4, 5])
+def test_cardinal_polynomials_of_the_kernel_are_de_boor_cox(k):
+    exact = _de_boor_cox_polys(k)
+    polys = _cardinal_polys(k)
+    for j in range(k + 1):
+        assert [Fraction(c, math.factorial(k)) for c in polys[j]] == exact[j]
+        # the mirror image the kernel evaluates the rows below k/2 by
+        x = np.linspace(0.0, 1.0, 11)
+        row = np.polynomial.Polynomial([float(c) for c in exact[j]])
+        mirror = np.polynomial.Polynomial([float(c) for c in exact[k - j]])
+        np.testing.assert_allclose(row(x), mirror(1.0 - x), rtol=0,
+                                   atol=1e-14)
+
+
+#: 1.5 * 2^52 and the largest |u| of the kernel's uniform path
+_SHIFT = 6755399441055744.0
+_MAX_UNIFORM = 2.0**30
+
+
+def _uniform_interval(u: np.ndarray, origin: float):
+    """``uniform_interval`` of ``csrc/map_spline.cu``: (i, t_i)."""
+    m = (u - origin) + _SHIFT
+    i = (m.view(np.uint64) & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(
+        np.int32).astype(np.int64)  # the low word of m
+    t_i = origin + (m - _SHIFT)
+    down = u < t_i
+    return np.where(down, i - 1, i), np.where(down, t_i - 1.0, t_i)
+
+
+def _kernel_axis(t: np.ndarray, k: int, desc, u: np.ndarray):
+    """
+    numpy transcription of ``axis_basis`` in ``csrc/map_spline.cu`` for a
+    uniform axis: the interval of the unclamped coordinate by the shift,
+    the cardinal basis (coefficients / k!, Horner, mirror rows in 1 - x)
+    on [lo, hi]; elsewhere ``span_basis``: the clamp into the span, the
+    interval by the shift, the clip, and de Boor-Cox. Returns (first
+    coefficient index, (k+1, n) basis).
+    """
+    n_t = t.shape[0]
+    n_c = n_t - k - 1
+    polys = _cardinal_polys(k)
+    coeffs = [[c / math.factorial(k) for c in row] for row in polys]
+    i, t_i = _uniform_interval(u, desc.origin)
+    cardinal = (np.abs(u) < _MAX_UNIFORM) & (i >= desc.lo) & (i <= desc.hi)
+    x = u - t_i
+    n = np.empty((k + 1, u.shape[0]))
+    for j in range(k + 1):
+        row, v = (j, x) if j >= k - j else (k - j, 1.0 - x)
+        h = np.full_like(v, coeffs[row][k])
+        for m in range(k - 1, -1, -1):
+            h = h * v + coeffs[row][m]  # a fused multiply-add in the kernel
+        n[j] = h
+    first = i - k
+    span = ~cardinal
+    if span.any():
+        us = np.minimum(np.maximum(u[span], t[k]), t[n_t - k - 1])
+        ie = np.clip(_uniform_interval(us, desc.origin)[0], k, n_c - 1)
+        b = [np.ones_like(us)]
+        for d in range(1, k + 1):
+            terms = []
+            for j in range(d):
+                left = t[ie + 1 - d + j]
+                denom = t[ie + 1 + j] - left
+                terms.append((us - left) / np.where(denom == 0.0, 1.0, denom))
+            new = [b[0] * (1.0 - terms[0])]
+            for j in range(1, d):
+                new.append(b[j - 1] * terms[j - 1] + b[j] * (1.0 - terms[j]))
+            new.append(b[d - 1] * terms[d - 1])
+            b = new
+        n[:, span] = np.stack(b)
+        first[span] = ie - k
+    return first, n, cardinal
+
+
+@pytest.mark.parametrize('size', [20, 150])
+@pytest.mark.parametrize('k', [1, 2, 3, 4, 5])
+def test_uniform_knot_path_matches_plain_basis(k, size):
+    t = t_idev._grid_spline_solver(size, size, k, k)[1]
+    desc = map_spline_kernel.uniform_knots(t, k)
+    assert desc is not None and desc.lo <= desc.hi
+    u = np.concatenate([
+        t, np.nextafter(t, -np.inf), np.nextafter(t, np.inf),  # every knot
+        [0.0, size - 1.0, -0.0, -1e-300, -3.0, size + 2.0, 1e300, -3e9],
+        np.linspace(-3.0, size + 2.0, 20_001),  # a dense grid and outside
+    ])
+    first, basis, cardinal = _kernel_axis(t, k, desc, u)
+    ref, ref_first = map_spline_kernel._basis(torch.from_numpy(t), k,
+                                              torch.from_numpy(u))
+    np.testing.assert_array_equal(first, ref_first.numpy())
+    # the cardinal polynomials against the divided differences: values in
+    # [0, 1], a few float64 ulps of 1 apart
+    np.testing.assert_allclose(basis, torch.stack(ref).numpy(), rtol=0,
+                               atol=4 * np.finfo(np.float64).eps)
+    assert cardinal.mean() > (0.1 if size == 20 else 0.85)
+    assert not cardinal[(u < 0.0) | (u > size - 1.0)].any()
+
+
+@pytest.mark.parametrize('ny, nx, kx, ky', [
+    (21, 17, 1, 1), (30, 26, 2, 2), (12, 40, 3, 3), (25, 19, 1, 3),
+    (40, 33, 4, 5), (13, 150, 5, 4), (2048, 7, 3, 1),
+])
+def test_grid_uniform_knots_describe_the_solver_knots(ny, nx, kx, ky):
+    ty, tx, _, _ = t_idev._grid_spline_solver(ny, nx, kx, ky)
+    descs = t_idev._grid_uniform_knots(ny, nx, kx, ky)
+    for t, k, desc in ((ty, ky, descs[0]), (tx, kx, descs[1])):
+        n_t = t.shape[0]
+        n_c = n_t - k - 1
+        if n_c <= k + 1:  # no interior knot: the kernel searches
+            assert desc is None
+            continue
+        assert desc is not None
+        # t[j] == origin + j exactly on the interior, spacing exactly 1
+        j = np.arange(k + 1, n_c)
+        np.testing.assert_array_equal(t[j], desc.origin + j)
+        assert desc.origin * 2 == int(desc.origin * 2)
+        for i in range(k, n_c):
+            support = np.arange(i - k + 1, i + k + 1)
+            on_line = bool((t[support] == desc.origin + support).all())
+            assert (desc.lo <= i <= desc.hi) == on_line, i
+        # the k intervals at each end take de Boor-Cox, none for k = 1
+        if n_c >= 3 * k + 1:
+            assert (desc.lo, desc.hi) == ((1, n_c - 1) if k == 1 else
+                                          (2 * k, n_c - 1 - k))
+
+
+def test_uniform_knots_refuses_other_knots():
+    t = np.array([0.0] * 4 + [2.0, 3.5, 5.0, 6.0] + [7.0] * 4)
+    assert map_spline_kernel.uniform_knots(t, 3) is None
+    assert map_spline_kernel.uniform_knots(np.array([0.0] * 4 + [3.0] * 4),
+                                           3) is None
+    # a source a FITPACK spline with smoothing fits: adaptive knots
+    import scipy.interpolate
+    img = np.add.outer(np.arange(30.0), np.arange(26.0)) ** 2 / 100.0
+    ty, _ = scipy.interpolate.RectBivariateSpline(
+        np.arange(30), np.arange(26), img, kx=3, ky=3, s=5.0,
+    ).get_knots()
+    assert len(ty) < 34 and map_spline_kernel.uniform_knots(ty, 3) is None
+
+
+def _kernel_search_first(t: np.ndarray, k: int, u: np.ndarray) -> np.ndarray:
+    """
+    numpy transcription of ``span_basis`` in ``csrc/map_spline.cu`` for
+    knots without a descriptor: u clamped into the span, #{t <= u} by
+    bisection, the interval clipped to [k, n_c - 1]. Returns the first
+    coefficient index.
+    """
+    n_t = t.shape[0]
+    uc = np.minimum(np.maximum(u, t[k]), t[n_t - k - 1])
+    lo = np.zeros(u.shape, dtype=np.int64)
+    hi = np.full(u.shape, n_t)
+    while (lo < hi).any():
+        mid = (lo + hi) >> 1
+        searching = lo < hi
+        below = t[np.minimum(mid, n_t - 1)] <= uc
+        lo = np.where(searching & below, mid + 1, lo)
+        hi = np.where(searching & ~below, mid, hi)
+    return np.clip(lo - 1, k, n_t - k - 2) - k
+
+
+@pytest.mark.parametrize('k', [1, 3, 5])
+def test_knot_search_matches_plain_interval(k):
+    import scipy.interpolate
+    rng = np.random.default_rng(k)
+    img = np.add.outer(np.arange(40.0), np.arange(33.0)) ** 2 / 100.0
+    img += rng.normal(scale=0.5, size=img.shape)
+    fitted = scipy.interpolate.RectBivariateSpline(
+        np.arange(40), np.arange(33), img, kx=k, ky=k, s=40.0,
+    ).get_knots()
+    # FITPACK's adaptive knots, and clamped vectors of odd and even
+    # lengths with repeated interior knots
+    vectors = list(fitted)
+    for n_t in (15, 16, 17, 64):
+        inner = np.sort(rng.integers(1, 9, size=n_t - 2 * (k + 1))) * 1.5
+        vectors.append(np.concatenate([[0.0] * (k + 1), inner,
+                                       [14.0] * (k + 1)]))
+    for t in vectors:
+        if t.shape[0] < 2 * (k + 1):
+            continue
+        u = np.concatenate([
+            t, np.nextafter(t, -np.inf), np.nextafter(t, np.inf),
+            np.linspace(t[0] - 3.0, t[-1] + 3.0, 2001), [-1e300, 1e300],
+        ])  # finite: the wrapper's x and y are 0 where not valid
+        _, ref_first = map_spline_kernel._basis(torch.from_numpy(t), k,
+                                                torch.from_numpy(u))
+        np.testing.assert_array_equal(_kernel_search_first(t, k, u),
+                                      ref_first.numpy())
+
+
+@pytest.mark.parametrize('kxy, smoothing', [
+    ((3, 3), 0.0), ((1, 5), 0.0), ((3, 3), 2.0),
+])
+def test_host_branch_describes_its_knots(monkeypatch, kxy, smoothing):
+    # sources larger than _DEVICE_SOLVE_MAX take the host FITPACK branch:
+    # at s=0 its knots are the unit-spaced grid knots and reach the kernel
+    # described, as from the device solve, so both take its arithmetic path
+    ky, kx = kxy
+    n = 30
+    img = torch.from_numpy(_image(True)[:n, :n].copy())
+    rng = np.random.default_rng(3)
+    x_map = rng.uniform(-1.0, n, (12, 16))
+    y_map = rng.uniform(-1.0, n, (12, 16))
+    x_map[0, :3] = np.nan
+    samples = t_idev._device_xy(x_map, y_map, torch.device('cpu'))
+    seen = []
+    wrapper = t_idev.map_spline
+
+    def recorded(*args, **kw):
+        seen.append((args, kw))
+        return wrapper(*args, **kw)
+
+    monkeypatch.setattr(t_idev, 'map_spline', recorded)
+    kw = dict(interpolation=kxy, warn_nan=False, propagate_nan=True,
+              spline_smoothing=smoothing)
+    monkeypatch.setattr(t_idev, '_DEVICE_SOLVE_MAX', n - 1)
+    got = t_idev.spline_interpolation_device(img, samples, **kw)
+    (args, call_kw), = seen
+    ty, tx = args[3].numpy(), args[4].numpy()
+    assert call_kw['uniform'] == (map_spline_kernel.uniform_knots(ty, ky),
+                                  map_spline_kernel.uniform_knots(tx, kx))
+    if smoothing:
+        return
+    assert call_kw['uniform'] == t_idev._grid_uniform_knots(n, n, kx, ky)
+    assert None not in call_kw['uniform']
+    monkeypatch.setattr(t_idev, '_DEVICE_SOLVE_MAX', n)
+    ref = t_idev.spline_interpolation_device(img, samples, **kw).numpy()
+    assert seen[1][1]['uniform'] == call_kw['uniform']
+    got = got.numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    assert np.isfinite(got).sum() > 100
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+
+
+def test_launch_plan_stages_searched_knots_that_fit():
+    desc = t_idev._grid_uniform_knots(150, 150, 3, 3)
+    plan = map_spline_kernel.launch_plan
+    ay, ax, shared = plan(154, 154, desc)
+    assert (ay.uniform, ay.staged, ax.uniform, ax.staged, shared) == (
+        1, 0, 1, 0, 0)
+    assert (ay.origin, ay.lo, ay.hi) == (desc[0].origin, desc[0].lo,
+                                         desc[0].hi)
+    ay, ax, shared = plan(154, 40, (desc[0], None))
+    assert (ay.staged, ax.uniform, ax.staged, shared) == (0, 0, 1, 8 * 40)
+    # searched knots up to 40 KB for both axes (2054 each at the 2048-px
+    # device-solve limit) are staged; more are read from global memory
+    ay, ax, shared = plan(2054, 2054)
+    assert (ay.staged, ax.staged, shared) == (1, 1, 8 * 4108)
+    ay, ax, shared = plan(5000, 200)
+    assert (ay.uniform, ay.staged, ax.uniform, ax.staged, shared) == (
+        0, 0, 0, 0, 0)
+    assert 8 * 5200 > map_spline_kernel.KNOT_STAGE_BYTES >= 8 * 4108

@@ -14,13 +14,16 @@ synthetic SPICE kernels (Jupiter from the Earth on 2005-01-01):
   launches nothing;
 - a BodyXY without ``device=`` needs a card, and LON-CENTRIC lies in
   [0, 360) on a CPU body at the default precision, as in the JAX package;
-- the kernel's host scene packing and its bound's operation count.
+- the kernel's host scene packing and its bound's operation count, and
+  the map kernels' bounds.
 
 The kernel itself against its plain version on the card is
 ``tests/test_torch_cuda.py``.
 """
 
 from __future__ import annotations
+
+import math
 
 import jax
 import numpy as np
@@ -34,7 +37,7 @@ from planetmapper_tpu.kernels import pool as j_pool
 from planetmapper_tpu_torch import pipeline as t_pipeline
 from planetmapper_tpu_torch._device import f64, resolve_device
 from planetmapper_tpu_torch.kernels import pool as t_pool
-from planetmapper_tpu_torch.ops import backplanes_kernel
+from planetmapper_tpu_torch.ops import backplanes_kernel, interp_device
 from planetmapper_tpu_torch.testing import bounds, compare
 from planetmapper_tpu_torch.testing.synthetic_kernels import (
     AU_KM,
@@ -547,3 +550,151 @@ def test_backplane_bound_counts_the_function(nx, ny, n_disc):
         bounds.backplane_bound(nx, ny, nx * ny + 1)
     assert bounds.dsk_pairs_bound() == (4 * 6 * 8192 / 3.35e12 * 1e3,
                                         'bytes')
+
+
+#: The 720x1440 map of chip_smoke.py and its three timed map_spline calls:
+#: (source side, kx = ky, frames), about half the samples on the disc
+MAP_SAMPLES = 720 * 1440
+
+
+@pytest.mark.parametrize('n, k, frames', [
+    (150, 1, 1), (150, 3, 1), (1024, 3, 1), (150, 3, 16), (150, 5, 1),
+])
+def test_map_bounds_count_the_function(n, k, frames):
+    valid = MAP_SAMPLES // 2
+    live = valid - 1000
+    disc = 4 * n * n // 5  # the coefficients and cells under the disc
+    kw = dict(samples=MAP_SAMPLES, valid_samples=valid, live_samples=live,
+              live_sample_frames=live * frames, frames=frames,
+              coefficients=frames * disc, grid_cells=disc,
+              knots=2 * (n + k + 1), kx=k, ky=k)
+    got = bounds.map_spline_bound(**kw)
+    # pinned: per live sample and axis the cardinal basis in Horner form
+    # and 6 operations around it; per live sample and frame the sum
+    assert bounds.map_spline_axis_ops(1) == 10
+    assert bounds.map_spline_axis_ops(3) == 30
+    assert bounds.map_spline_frame_ops(1, 1) == 12
+    assert bounds.map_spline_frame_ops(3, 1) == 20
+    assert bounds.map_spline_frame_ops(1, 3) == 24
+    # 1 B of validity per sample, x and y of the valid ones, every value
+    # out, a flag per frame, the coefficients and cells read, the knots
+    n_bytes = (MAP_SAMPLES + 16 * valid + 4 * frames * MAP_SAMPLES + frames
+               + 8 * frames * disc + disc + 16 * (n + k + 1))
+    ops = live * (2 * (6 + 2 * k * (k + 1)) + frames * 2 * (k + 1) * (k + 2))
+    assert got['bytes'] == n_bytes and got['f64_ops'] == ops
+    t_bytes, t_ops = n_bytes / 3.35e12, ops / 34e12
+    assert got['ms'] == pytest.approx(max(t_bytes, t_ops) * 1e3, rel=1e-12)
+    assert got['bound_by'] == ('bytes' if t_bytes >= t_ops else 'operations')
+    if frames == 1 and k <= 3:  # chip_smoke's timed calls
+        assert got['bound_by'] == 'bytes'
+    # a sample that is not valid costs its validity and its values only
+    fewer = bounds.map_spline_bound(**dict(kw, valid_samples=valid - 1))
+    assert got['bytes'] - fewer['bytes'] == 16
+    smooth = bounds.map_smooth_bound(
+        samples=MAP_SAMPLES, valid_samples=valid, live_samples=live,
+        live_sample_frames=live * frames, frames=frames,
+        grid_values=frames * 611 * 641, image_cells=disc,
+    )
+    assert smooth['bytes'] == (MAP_SAMPLES + 16 * valid + 4 * frames
+                               * MAP_SAMPLES + frames + 8 * frames * 611 * 641
+                               + disc)
+    assert smooth['f64_ops'] == live * (6 + 11 * frames)
+    assert smooth['bound_by'] == 'bytes'
+
+
+def _map_call(seed, n=12, frames=2, n_samples=60):
+    """Samples over and around an n x n source, a NaN in frame 1 only."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-2.0, n + 1.0, n_samples)
+    y = rng.uniform(-2.0, n + 1.0, n_samples)
+    x[:10] = np.round(x[:10])  # on pixel centres: floor == ceil
+    valid = rng.uniform(size=n_samples) < 0.8
+    x[~valid] = y[~valid] = 0.0
+    nan_grid = np.zeros((frames, n, n), dtype=bool)
+    nan_grid[1, 5, 6] = True
+    return x, y, valid, nan_grid
+
+
+def _expected_reads(x, y, valid, nan_grid, propagate_nan, inside):
+    """Brute force: the valid samples, each frame's live samples, and the
+    NaN-grid cells the NaN rule reads."""
+    frames, ny, nx = nan_grid.shape
+    checked = valid & inside
+    live = np.repeat(checked[None], frames, axis=0)
+    cells = 0
+    if propagate_nan:
+        checked &= (x >= 0) & (y >= 0) & (x <= nx - 1) & (y <= ny - 1)
+        near = set()
+        for s in np.flatnonzero(checked):
+            for r in {math.floor(y[s]), math.ceil(y[s])}:
+                for c in {math.floor(x[s]), math.ceil(x[s])}:
+                    near.add((r, c))
+                    live[:, s] &= ~nan_grid[:, r, c]
+            live[:, s] &= checked[s]
+        live &= checked[None]
+        cells = len(near) * int(nan_grid.reshape(frames, -1).any(1).sum())
+    return int(valid.sum()), live, cells
+
+
+@pytest.mark.parametrize('propagate_nan', [True, False])
+@pytest.mark.parametrize('k', [1, 3])
+def test_spline_call_bound_counts_what_is_read(k, propagate_nan):
+    n = 12
+    x, y, valid, nan_grid = _map_call(k, n, n_samples=40)
+    t, _, _, _ = interp_device._grid_spline_solver(n, n, k, k)
+    n_c = t.shape[0] - k - 1
+    args = tuple(torch.from_numpy(a) for a in (
+        x, y, valid, t, t, np.zeros((2, n_c, n_c)), nan_grid))
+    got = bounds.spline_call_bound(
+        args, dict(kx=k, ky=k, propagate_nan=propagate_nan))
+    n_valid, live, cells = _expected_reads(
+        x, y, valid, nan_grid, propagate_nan, np.ones_like(valid))
+
+    def first(u):  # the first coefficient each sample weights
+        u = np.clip(u, t[k], t[-k - 1])
+        return np.clip(np.searchsorted(t, u, side='right') - 1, k,
+                       n_c - 1) - k
+
+    ix, iy = first(x), first(y)
+    coefficients = sum(
+        len({(iy[s] + a, ix[s] + b) for s in np.flatnonzero(live[f])
+             for a in range(k + 1) for b in range(k + 1)})
+        for f in range(2))
+    want = bounds.map_spline_bound(
+        samples=x.size, valid_samples=n_valid,
+        live_samples=int(live.any(0).sum()),
+        live_sample_frames=int(live.sum()), frames=2,
+        coefficients=coefficients, grid_cells=cells, knots=2 * t.size,
+        kx=k, ky=k)
+    assert got == want
+    assert 0 < coefficients < 2 * n_c * n_c
+    assert (cells > 0) == propagate_nan
+
+
+@pytest.mark.parametrize('propagate_nan', [True, False])
+def test_smooth_call_bound_counts_what_is_read(propagate_nan):
+    x, y, valid, nan_grid = _map_call(7)
+    kw = dict(iy0=1.0, ix0=-1.0, y_step=0.5, x_step=0.5,
+              propagate_nan=propagate_nan)
+    n_ys, n_xs = 17, 23
+    yb = (y - kw['iy0']) / kw['y_step']
+    xb = (x - kw['ix0']) / kw['x_step']
+    inside = (yb >= 0) & (yb <= n_ys - 1) & (xb >= 0) & (xb <= n_xs - 1)
+    args = tuple(torch.from_numpy(a) for a in (
+        x, y, valid, np.zeros((2, n_ys, n_xs)), nan_grid))
+    got = bounds.smooth_call_bound(args, kw)
+    n_valid, live, cells = _expected_reads(
+        x, y, valid, nan_grid, propagate_nan, inside)
+    iy = np.clip(np.floor(yb), 0, n_ys - 2).astype(int)
+    ix = np.clip(np.floor(xb), 0, n_xs - 2).astype(int)
+    values = sum(
+        len({(iy[s] + a, ix[s] + b) for s in np.flatnonzero(live[f])
+             for a in (0, 1) for b in (0, 1)})
+        for f in range(2))
+    want = bounds.map_smooth_bound(
+        samples=x.size, valid_samples=n_valid,
+        live_samples=int(live.any(0).sum()),
+        live_sample_frames=int(live.sum()), frames=2, grid_values=values,
+        image_cells=cells)
+    assert got == want
+    assert 0 < values < 2 * n_ys * n_xs
