@@ -3,7 +3,7 @@ Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the port's three kernels (``planetmapper_tpu_torch/csrc/*.cu``) with
+Builds the port's four kernels (``planetmapper_tpu_torch/csrc/*.cu``) with
 nvcc, one process each, all at once. Then, on Jupiter seen from the Earth
 on 2005-01-01 (synthetic SPICE kernels written at run time):
 
@@ -12,15 +12,18 @@ on 2005-01-01 (synthetic SPICE kernels written at run time):
   on the card: at the full frame, and at a ragged, a row-offset, an
   un-gated, a triaxial and a plane-subset case; times both at 2048x2048
   on the card, and the main path's call by the host clock.
-- map: drives ``BodyXY.map_img`` onto the 720x1440 0.25-degree map of the
-  JAX package's map benchmark (bench.py:160-293), from a 150x150 frame in
-  every mode (spline degree 5 included) and from a 1024x1024 frame in
-  'linear', 'cubic' and degree 4, frames and cubes, with and without a NaN
-  block; holds every output of the two map kernels against their plain
+- map: computes each body's x/y maps on the card (timed, its device
+  checked, held against a CPU body's) and drives ``BodyXY.map_img`` onto
+  the 720x1440 0.25-degree map of the JAX package's map benchmark
+  (bench.py:160-293), from a 150x150 frame in every mode (spline degree 5
+  included) and from a 1024x1024 frame in 'linear', 'cubic' and degree 4,
+  frames and cubes, with and without a NaN block; holds every output of
+  the three map kernels (spline, PCHIP, smooth) against their plain
   versions on the same inputs, and small maps against the host scipy
   reference; times the kernels with a cold L2 (after a read of a buffer
   larger than it) and back to back (warm), their plain versions,
-  ``grid_sample`` as a yardstick and blocked ``map_img`` calls.
+  ``grid_sample`` and ``torch.sum`` as yardsticks and blocked ``map_img``
+  calls.
 
 Prints the card's name and power limit, one JSON line describing each
 kernel, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -48,6 +51,7 @@ from planetmapper_tpu_torch.ops import cuda_build, interp, interp_device
 from planetmapper_tpu_torch.ops import map_smooth_kernel as msk
 from planetmapper_tpu_torch.ops import map_spline_kernel as msp
 from planetmapper_tpu_torch.ops import pchip_device
+from planetmapper_tpu_torch.ops import pchip_kernel as pk
 from planetmapper_tpu_torch.testing import bounds, compare
 from planetmapper_tpu_torch.testing.synthetic_kernels import (
     AU_KM,
@@ -68,7 +72,9 @@ from planetmapper_tpu_torch.testing.timing import (
     in_turns,
     l2_flush,
     map_images,
+    smooth_launch_buffers,
     spline_launch_buffers,
+    sum_yardstick,
 )
 
 RAGGED = (1000, 700, (503.3, 341.7, 300.0, 12.3))  # nx, ny, disc
@@ -161,7 +167,7 @@ def check_against_plain(label, got, ref, disc, row0=0.0) -> dict:
 
 
 def build_phase() -> None:
-    libraries = [bk.LIBRARY, msp.LIBRARY, msk.LIBRARY]
+    libraries = [bk.LIBRARY, msp.LIBRARY, msk.LIBRARY, pk.LIBRARY]
     t0 = time.perf_counter()
     cuda_build.build_all(libraries)
     log(f'[build] {len(libraries)} nvcc builds in parallel + load '
@@ -186,6 +192,10 @@ def build_phase() -> None:
         f'{occ["registers"]} registers, {occ["local_bytes"]} bytes of local '
         f'memory per thread, {occ["blocks_per_sm"]} resident blocks of 256 '
         'threads per SM')
+    smooth = msk.occupancy()
+    log(f'[build] map_smooth: {smooth["registers"]} registers, '
+        f'{smooth["local_bytes"]} bytes of local memory per thread, '
+        f'{smooth["blocks_per_sm"]} resident blocks of 256 threads per SM')
     return occ
 
 
@@ -397,7 +407,7 @@ def timing_phase(body, args, card: str) -> dict[str, float]:
 
 class KernelCalls:
     """
-    Records every call of the two map kernel wrappers made by ``map_img``
+    Records every call of the three map kernel wrappers made by ``map_img``
     (their inputs and outputs), so that each output can be held against
     the plain version on the same inputs. Wraps the names the device
     modules call; the wrappers themselves, and their launch counts, are
@@ -409,7 +419,8 @@ class KernelCalls:
 
     @contextlib.contextmanager
     def recording(self, label):
-        originals = (interp_device.map_spline, pchip_device.map_smooth)
+        originals = (interp_device.map_spline, pchip_device.map_smooth,
+                     pchip_device.pchip_axis)
 
         def wrap(kind, fn):
             def recorded(*args, **kwargs):
@@ -420,10 +431,12 @@ class KernelCalls:
 
         interp_device.map_spline = wrap('spline', originals[0])
         pchip_device.map_smooth = wrap('smooth', originals[1])
+        pchip_device.pchip_axis = wrap('pchip', originals[2])
         try:
             yield
         finally:
-            interp_device.map_spline, pchip_device.map_smooth = originals
+            (interp_device.map_spline, pchip_device.map_smooth,
+             pchip_device.pchip_axis) = originals
 
 
 def map_runs():
@@ -443,7 +456,24 @@ def map_runs():
             for size, mode, key in runs]
 
 
+def compare_pchip_with_plain(label, args, kwargs, out) -> float:
+    """The PCHIP kernel against its plain version on the same inputs: the
+    same float64 values bit for bit (both round every operation alike)."""
+    ref = pk.pchip_axis_plain(*args, **kwargs)
+    flips = int((torch.isnan(out) != torch.isnan(ref)).sum())
+    both = ~torch.isnan(ref)
+    err = float((out[both] - ref[both]).abs().max()) if both.any() else 0.0
+    log(f'[map] {label}: pchip kernel (axis {kwargs["axis"]}, '
+        f'{tuple(out.shape)}) vs plain: mask flips {flips}, max_abs_err '
+        f'{err:.3e} (bar 0: bit for bit), {int(both.sum())} finite values')
+    if out.dtype != torch.float64 or flips or err != 0.0:
+        raise SmokeFailure(f'{label}: pchip kernel differs from plain')
+    return err
+
+
 def compare_with_plain(label, kind, size, args, kwargs, out) -> float:
+    if kind == 'pchip':
+        return compare_pchip_with_plain(label, args, kwargs, out)
     plain_fn = msp.map_spline_plain if kind == 'spline' else \
         msk.map_smooth_plain
     ref = plain_fn(*args, **kwargs).cpu().numpy()
@@ -502,6 +532,38 @@ def small_map_check(device) -> None:
             f'mask, max_abs_err {err:.3e}')
 
 
+def xy_against_cpu_body(body, size, disc) -> None:
+    """The x/y, illumination and RA/Dec maps of a card body against a CPU
+    body's on a 180x360 map (bulk: it runs on the card), flips counted."""
+    cpu = pt.BodyXY('Jupiter', observer='EARTH', utc=UTC, sz=size,
+                    device='cpu')
+    cpu.set_disc_params(*disc)
+    kw = dict(degree_interval=1)
+    report = {}
+    # the bars of tests/test_torch_cuda.py::test_cuda_body_map_chain_...:
+    # x/y to 8 ulps of an RA between 256 and 512 deg, in pixels
+    ra_ulp_px = 2.0**-44 * 3600.0 / body.get_plate_scale_arcsec()
+    bars = {'_illumf_map': 1e-8, '_radec_map': 1e-9, '_xy_map': 8 * ra_ulp_px}
+    for name, bar in bars.items():
+        got = getattr(body, name)(**kw)
+        if got.device.type != body.device.type:
+            raise SmokeFailure(f'{name} of the 180x360 map on {got.device}')
+        a, b = got.cpu().numpy(), getattr(cpu, name)(**kw).numpy()
+        flips = int((np.isfinite(a) != np.isfinite(b)).sum())
+        if name == '_illumf_map':
+            flips += int((a[..., 3:] != b[..., 3:]).sum())
+            a, b = a[..., :3], b[..., :3]
+        both = np.isfinite(a) & np.isfinite(b)
+        err = float(np.max(np.abs(a[both] - b[both])))
+        report[name] = (flips, err)
+        if flips > a[..., 0].size // 10**4 or err > bar:
+            raise SmokeFailure(f'{name}: card vs CPU body: {flips} mask '
+                               f'flips, max_abs_err {err:.3e} (bar {bar})')
+    log(f'[map] {size}^2 body, 180x360 map, card vs CPU body (mask flips, '
+        f'max_abs_err): {json.dumps(report)}; bars {json.dumps(bars)} (deg, '
+        'deg, px)')
+
+
 def map_phase(device):
     """map_img main path: run, count launches, check against plain."""
     bodies, images = {}, {}
@@ -510,13 +572,27 @@ def map_phase(device):
         body = pt.BodyXY('Jupiter', observer='EARTH', utc=UTC, sz=size,
                          device=device)
         body.set_disc_params(*disc)
+        built = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         samples = body._get_map_samples(**MAP_KW)
-        log(f'[map] {size}^2 body x/y maps {samples.shape} '
-            f'({float(samples.valid.float().mean()):.4f} valid) '
-            f'{time.perf_counter() - t0:.2f} s (CPU float64, then copied '
-            f'to the card)')
+        torch.cuda.synchronize()
+        xy_ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - live) / 2**20
+        where = {body._xy_map(**MAP_KW).device.type, samples.x.device.type}
+        log(f'[map] {size}^2 body: BodyXY {built:.2f} s; x/y maps '
+            f'{samples.shape} ({float(samples.valid.float().mean()):.4f} '
+            f'valid) {xy_ms:.1f} ms on {"/".join(sorted(where))} (lonlat -> '
+            'targvec -> illumination -> obsvec -> RA/Dec -> x/y in float64, '
+            'MapSamples and limits; host clock, synchronised), peak device '
+            f'memory of the chain {peak:.1f} MiB above what was allocated')
+        if where != {device.type}:
+            raise SmokeFailure(f'the x/y maps ran on {where}, not {device}')
         if samples.shape != MAP_SHAPE:
             raise SmokeFailure(f'map shape {samples.shape}')
+        xy_against_cpu_body(body, size, disc)
         bodies[size] = body
         frame, with_nan, cube = map_images(size, size)
         images[size] = dict(frame=frame, with_nan=with_nan, cube=cube)
@@ -528,6 +604,7 @@ def map_phase(device):
     torch.cuda.reset_peak_memory_stats()
     msp.reset_launch_count()
     msk.reset_launch_count()
+    pk.reset_launch_count()
     t0 = time.perf_counter()
     for size, label, mode, key in runs:
         with calls.recording(label):
@@ -537,7 +614,8 @@ def map_phase(device):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = {'map_spline': msp.launch_count(),
-                'map_smooth': msk.launch_count()}
+                'map_smooth': msk.launch_count(),
+                'pchip_axis': pk.launch_count()}
     peak = torch.cuda.max_memory_allocated()
     log(f'[map] {len(runs)} map_img calls {elapsed:.2f} s (first calls), '
         f'kernel launches {launches}, peak device memory '
@@ -545,6 +623,8 @@ def map_phase(device):
     expected = {
         'map_spline': sum(m not in ('nearest', 'smooth') for *_, m, _ in runs),
         'map_smooth': sum(m == 'smooth' for *_, m, _ in runs),
+        # one launch per axis, for frames and cubes alike
+        'pchip_axis': 2 * sum(m == 'smooth' for *_, m, _ in runs),
     }
     if launches != expected:
         raise SmokeFailure(f'map_img launched {launches}, expected {expected}')
@@ -560,7 +640,7 @@ def map_phase(device):
         # half of the 0.25-deg map is on the visible hemisphere
         if not 0.4 < frac < 0.6:
             raise SmokeFailure(f'{label}: finite fraction {frac:.4f}')
-    errors = {'spline': 0.0, 'smooth': 0.0}
+    errors = {'spline': 0.0, 'smooth': 0.0, 'pchip': 0.0}
     for label, kind, args, kwargs, out in calls.calls:
         size = int(label.split('^')[0])
         err = compare_with_plain(label, kind, size, args, kwargs, out)
@@ -600,17 +680,109 @@ def normalised_grid(u, v, n_u, n_v):
     return g.reshape(1, *MAP_SHAPE, 2)
 
 
+def cube_pchip(by_label):
+    """Both pchip launches of the 150^2 16-frame smooth cube, on its
+    recorded inputs (new outputs)."""
+    rows_args, _ = by_label[('150^2 smooth cube', 'pchip', -1)]
+    cols_args, _ = by_label[('150^2 smooth cube', 'pchip', -2)]
+    box, n_xs, kx_rep = rows_args
+    rows_in, n_ys, ky_rep = cols_args
+    device = box.device
+    xs_rows = torch.linspace(0.0, box.shape[-1] - 1.0, n_xs,
+                             dtype=torch.float64, device=device)
+    xs_cols = torch.linspace(0.0, rows_in.shape[-2] - 1.0, n_ys,
+                             dtype=torch.float64, device=device)
+    rows_out = torch.empty_like(rows_in)
+    grid = torch.empty((box.shape[0], n_ys, n_xs), dtype=torch.float64,
+                       device=device)
+
+    def launches():
+        pk.launch(box, xs_rows, rows_out, k_rep=kx_rep, axis=-1)
+        pk.launch(rows_out, xs_cols, grid, k_rep=ky_rep, axis=-2)
+    return launches
+
+
+def pchip_timing(by_label, smooth_args, smooth_kw, smooth_t, flush, card):
+    """
+    The PCHIP oversampling of the 150^2 smooth frame (its two launches,
+    rows then columns, on the recorded inputs) cold and warm, its plain
+    version, its bound; the whole smooth stage (the two launches and
+    map_smooth) against its bound; cold torch.sum yardsticks over the
+    sampler's buffers, the sampler's counted bytes and the stage's.
+    """
+    label = '150^2 smooth frame'
+    rows_args, rows_kw = by_label[(label, 'pchip', -1)]
+    cols_args, cols_kw = by_label[(label, 'pchip', -2)]
+    box, n_xs, kx_rep = rows_args
+    rows_in, n_ys, ky_rep = cols_args
+    device = box.device
+    xs_rows = torch.linspace(0.0, box.shape[-1] - 1.0, n_xs,
+                             dtype=torch.float64, device=device)
+    xs_cols = torch.linspace(0.0, rows_in.shape[-2] - 1.0, n_ys,
+                             dtype=torch.float64, device=device)
+    rows_out = torch.empty_like(rows_in)
+    grid = torch.empty((box.shape[0], n_ys, n_xs), dtype=torch.float64,
+                       device=device)
+
+    def kernel():
+        pk.launch(box, xs_rows, rows_out, k_rep=kx_rep, axis=-1)
+        pk.launch(rows_out, xs_cols, grid, k_rep=ky_rep, axis=-2)
+
+    def plain():
+        pk.pchip_axis_plain(*rows_args, **rows_kw)
+        pk.pchip_axis_plain(*cols_args, **cols_kw)
+
+    t = time_pair(f'{card} | pchip_axis x2 (rows, columns) 150^2 smooth '
+                  f'frame: box {tuple(box.shape)} to grid '
+                  f'{tuple(grid.shape)}', kernel, plain, None, flush)
+    passes = in_turns({
+        'rows': (lambda: pk.launch(box, xs_rows, rows_out, k_rep=kx_rep,
+                                   axis=-1), 200),
+        'columns': (lambda: pk.launch(rows_out, xs_cols, grid, k_rep=ky_rep,
+                                      axis=-2), 200),
+        '16-frame cube, both': (cube_pchip(by_label), 50),
+    }, cuda_time_ms)
+    log(f'[map-time] {card} | pchip_axis launches back to back (ms per call, '
+        'two turns): ' + json.dumps(passes))
+    bound = bounds.pchip_call_bound(box, ky_rep, kx_rep)
+    t['bound'], t['bound_by'] = bound['ms'], bound['bound_by']
+    stage = bounds.smooth_stage_bound(box, ky_rep, kx_rep, smooth_args,
+                                      smooth_kw)
+    sampler_buffers = sum(b.numel() * b.element_size()
+                          for b in smooth_launch_buffers(smooth_args))
+    sizes = {
+        "map_smooth's buffers": sampler_buffers,
+        "map_smooth's counted bytes": bounds.smooth_call_bound(
+            smooth_args, smooth_kw)['bytes'],
+        "the smooth stage's counted bytes": stage['bytes'],
+    }
+    yard = in_turns({k: (sum_yardstick(n, device), 50)
+                     for k, n in sizes.items()},
+                    lambda fn, n: cold_time_ms(fn, n, flush))
+    log(f'[map-time] {card} | torch.sum yardsticks, one launch after the L2 '
+        'flush (ms, median of 50, two turns): ' + json.dumps(
+            {f'{k} ({n / 1e6:.2f} MB)': yard[k] for k, n in sizes.items()}))
+    stage_ms = t['kernel'] + smooth_t['kernel']
+    log(f'[map-time] {card} | the smooth stage of the 150^2 frame on the '
+        f'card, cold: pchip {t["kernel"] * 1e3:.2f} us + map_smooth '
+        f'{smooth_t["kernel"] * 1e3:.2f} us = {stage_ms * 1e3:.2f} us '
+        f'against its bound {stage["ms"] * 1e3:.2f} us ({stage["bound_by"]}, '
+        f'{stage["bytes"] / 1e6:.2f} MB, {stage["f64_ops"]} operations): '
+        f'{stage["ms"] / stage_ms:.1%}')
+    return t
+
+
 def map_timing_phase(bodies, images, calls, card):
     """Kernels, plain versions, yardsticks; cubes per frame; blocked calls."""
     spline_occupancy(calls)
-    by_label = {(label, kind): (args, kwargs)
+    by_label = {(label, kind, kwargs.get('axis')): (args, kwargs)
                 for label, kind, args, kwargs, _ in calls.calls}
     results = {}
     grid_sample = torch.nn.functional.grid_sample
     flush = l2_flush(calls.calls[0][4].device)
     for label in ('150^2 linear frame', '150^2 cubic frame',
                   '1024^2 cubic with_nan'):
-        args, kw = by_label[(label, 'spline')]
+        args, kw = by_label[(label, 'spline', None)]
         x, y, valid, ty, tx, coeffs, nan_grid = args
         prepared = spline_launch_buffers(args)
         library = None
@@ -630,13 +802,9 @@ def map_timing_phase(bodies, images, calls, card):
         bound = bounds.spline_call_bound(args, kw)
         t['bound'], t['bound_by'] = bound['ms'], bound['bound_by']
         results[label] = t
-    args, kw = by_label[('150^2 smooth frame', 'smooth')]
+    args, kw = by_label[('150^2 smooth frame', 'smooth', None)]
     x, y, valid, grid_os, nan_img = args
-    nan_u8 = nan_img.to(torch.uint8).contiguous()
-    prepared = (x, y, valid.to(torch.uint8), grid_os, nan_u8,
-                nan_u8.reshape(1, -1).any(1).to(torch.uint8),
-                torch.empty((1, x.numel()), dtype=torch.float32,
-                            device=x.device))
+    prepared = smooth_launch_buffers(args)
     n_ys, n_xs = grid_os.shape[1:]
     coords = normalised_grid((x - kw['ix0']) / kw['x_step'],
                              (y - kw['iy0']) / kw['y_step'], n_xs, n_ys)
@@ -653,8 +821,11 @@ def map_timing_phase(bodies, images, calls, card):
     bound = bounds.smooth_call_bound(args, kw)
     t['bound'], t['bound_by'] = bound['ms'], bound['bound_by']
     results['150^2 smooth frame'] = t
+    results['150^2 smooth frame: pchip'] = pchip_timing(by_label, args, kw,
+                                                        t, flush, card)
     log(f'[map-time] {card} | grid_sample yardstick: float64 in and out, '
-        'without the NaN rules; cubic has no one-call counterpart (none)')
+        'without the NaN rules; cubic and the PCHIP oversampling have no '
+        'one-call counterpart (none)')
     for label, t in results.items():
         log(f'[map-time] {card} | {label}: bound {t["bound"] * 1e3:.2f} us '
             f'({t["bound_by"]}); kernel {t["kernel"] * 1e3:.2f} us cold, '
@@ -744,13 +915,16 @@ def main() -> int:
     )
     spline_t = map_times['150^2 linear frame']
     smooth_t = map_times['150^2 smooth frame']
+    pchip_t = map_times['150^2 smooth frame: pchip']
     log(f'[done] {time.perf_counter() - t_start:.1f} s; max_abs_err: '
         f'backplanes26 the largest angle error [deg] of the {SIZE}x{SIZE} '
         'main path, the map kernels the largest value error of every '
         'map_img call; ms, plain_ms, library_ms, bound_ms: backplanes26 at '
-        f'{SIZE}x{SIZE}, map_spline the 150^2 linear frame and map_smooth '
-        'the 150^2 smooth frame onto the 720x1440 map; the map kernels\' ms '
-        'and library_ms with a cold L2, their plain_ms back to back')
+        f'{SIZE}x{SIZE}, map_spline the 150^2 linear frame, map_smooth '
+        'the 150^2 smooth frame onto the 720x1440 map and pchip_axis its '
+        'two launches (rows, columns; bound: the box to the grid); the map '
+        'kernels\' ms and library_ms with a cold L2, their plain_ms back to '
+        'back')
     print(json.dumps({'kernels': [
         dict(
             name='backplanes26',
@@ -791,6 +965,21 @@ def main() -> int:
             bound_ms=smooth_t['bound'],
             bound_by=smooth_t['bound_by'],
             library_ms=smooth_t['library'],
+        ),
+        dict(
+            name='pchip_axis',
+            route='cuda',
+            source='planetmapper_tpu_torch/csrc/pchip.cu',
+            # the XLA oversampling in front of the TPU smooth sampler (no
+            # pallas_call of its own)
+            replaces='planetmapper_tpu/ops/pchip_device.py:89',
+            launches=map_launches['pchip_axis'],
+            max_abs_err=map_errors['pchip'],
+            ms=pchip_t['kernel'],
+            plain_ms=pchip_t['plain'],
+            bound_ms=pchip_t['bound'],
+            bound_by=pchip_t['bound_by'],
+            library_ms=pchip_t['library'],
         ),
     ]}))
     print(f'card: {card}')

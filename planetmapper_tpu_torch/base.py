@@ -19,8 +19,10 @@ from collections.abc import Collection, Sequence
 from typing import Any, Callable, TypeVar
 
 import numpy as np
+import torch
 
 from . import progress
+from ._device import f64
 from .core.ephemeris import (
     Ephemeris,
     InsufficientDataError,
@@ -384,10 +386,14 @@ class SpiceBase:
 
     @staticmethod
     def _radian_pair2degrees(radians0, radians1):
+        if isinstance(radians0, torch.Tensor):
+            return torch.rad2deg(radians0), torch.rad2deg(radians1)
         return np.rad2deg(radians0), np.rad2deg(radians1)
 
     @staticmethod
     def _degree_pair2radians(degrees0, degrees1):
+        if isinstance(degrees0, torch.Tensor):
+            return torch.deg2rad(degrees0), torch.deg2rad(degrees1)
         return np.deg2rad(degrees0), np.deg2rad(degrees1)
 
     @staticmethod
@@ -562,22 +568,24 @@ class BodyBase(SpiceBase):
     def _get_default_init_kwargs(cls) -> dict[str, Any]:
         return dict(**super()._get_default_init_kwargs())
 
-    def _obsvec2radec_radians(self, obsvec: np.ndarray):
-        """Observer-frame rectangular vector(s) to RA/Dec in radians."""
-        obsvec = np.asarray(obsvec, dtype=float)
-        if obsvec.ndim == 1 and not (
-            math.isfinite(obsvec[0])
-            and math.isfinite(obsvec[1])
-            and math.isfinite(obsvec[2])
-        ):
+    def _obsvec2radec_radians(self, obsvec):
+        """
+        Observer-frame rectangular vector(s) to RA/Dec in radians: a float64
+        tensor in, tensors on its device out; numpy in, numpy out (floats
+        for one vector, NaN for a non-finite one).
+        """
+        tensor = isinstance(obsvec, torch.Tensor)
+        v = obsvec if tensor else f64(obsvec)
+        if not tensor and v.ndim == 1 and not torch.isfinite(v).all():
             return np.nan, np.nan
-        ra = np.mod(np.arctan2(obsvec[..., 1], obsvec[..., 0]), 2 * np.pi)
-        norm = np.linalg.norm(obsvec, axis=-1)
-        with np.errstate(invalid='ignore'):
-            dec = np.arcsin(np.clip(obsvec[..., 2] / norm, -1.0, 1.0))
-        if obsvec.ndim == 1:
-            return float(ra), float(dec)
-        return ra, dec
+        ra = torch.remainder(torch.atan2(v[..., 1], v[..., 0]), 2 * np.pi)
+        norm = torch.sqrt(torch.sum(v * v, dim=-1))
+        dec = torch.asin(torch.clamp(v[..., 2] / norm, -1.0, 1.0))
+        if tensor:
+            return ra, dec
+        if v.ndim == 1:
+            return ra.item(), dec.item()
+        return ra.numpy(), dec.numpy()
 
     def _obsvec2radec(self, obsvec: np.ndarray):
         return self._radian_pair2degrees(*self._obsvec2radec_radians(obsvec))

@@ -11,8 +11,14 @@ surface-altitude adjustment of the map getters. The other transforms and
 the limb, terminator, ring, local-solar-time, state, occultation and
 plotting methods are listed in ROADMAP.md.
 
-Scene tensors are float64 on the CPU (:data:`._device.SCENE_DEVICE`); public
-methods take and return floats or numpy arrays like the JAX package.
+Public methods take and return floats or numpy arrays like the JAX
+package, on float64 CPU tensors inside. The transforms of the map chain
+(:meth:`Body._lonlat2targvec_radians`, :meth:`Body._targvec2obsvec`,
+:meth:`Body._illumf_from_targvec_radians`, ``_obsvec2radec_radians``, ...)
+have one implementation on float64 tensors: numbers and numpy arrays go in
+as CPU tensors and come back as numpy, and tensors come back as tensors on
+their device, so that a :class:`BodyXY` keeps its map grids on its own
+device (``_device.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import os
 from typing import Any
 
 import numpy as np
+import torch
 
 from . import data_loader
 from ._device import f64
@@ -42,29 +49,36 @@ from .core.frames import BodyFrameModel
 from .core.scene import SceneEngine
 
 
-def _host_unit_from_radec(ra, dec):
+def _unit_from_radec(ra: torch.Tensor, dec: torch.Tensor) -> torch.Tensor:
     """
-    Unit vector(s) from RA/Dec radians, in numpy float64. The scalar API's
-    coordinate transforms must invert each other exactly, so every host-side
+    Unit vector(s) from RA/Dec radians, float64 tensors on their device. The
+    coordinate transforms must invert each other exactly, so every
     radec/rect conversion goes through this pair.
     """
-    with np.errstate(invalid='ignore'):  # NaN in == NaN out, silently
-        cos_dec = np.cos(dec)
-        return np.stack(
-            [np.cos(ra) * cos_dec, np.sin(ra) * cos_dec, np.sin(dec)],
-            axis=-1,
-        )
+    cos_dec = torch.cos(dec)
+    return torch.stack(
+        [torch.cos(ra) * cos_dec, torch.sin(ra) * cos_dec, torch.sin(dec)],
+        dim=-1,
+    )
 
 
-def _host_radec_from_unit(v):
-    """Inverse of :func:`_host_unit_from_radec`: ``(r, ra, dec)`` radians."""
-    r = np.linalg.norm(v, axis=-1)
-    ra = np.mod(np.arctan2(v[..., 1], v[..., 0]), 2.0 * np.pi)
-    with np.errstate(invalid='ignore'):
-        dec = np.arcsin(
-            np.clip(v[..., 2] / np.where(r > 0, r, 1.0), -1.0, 1.0)
-        )
+def _radec_from_unit(v: torch.Tensor):
+    """Inverse of :func:`_unit_from_radec`: ``(r, ra, dec)`` radians."""
+    r = torch.sqrt(torch.sum(v * v, dim=-1))
+    ra = torch.remainder(torch.atan2(v[..., 1], v[..., 0]), 2.0 * np.pi)
+    dec = torch.asin(
+        torch.clamp(v[..., 2] / torch.where(r > 0, r, 1.0), -1.0, 1.0)
+    )
     return r, ra, dec
+
+
+def _matvec_rows(m: np.ndarray, v: torch.Tensor) -> torch.Tensor:
+    """``v @ m.T`` for a host matrix ``m``, written out elementwise (no
+    matrix-product kernel: the same roundings on every device)."""
+    return torch.stack([
+        sum(float(m[i, j]) * v[..., j] for j in range(m.shape[1]))
+        for i in range(m.shape[0])
+    ], dim=-1)
 
 
 def lst_quantization_enabled() -> bool:
@@ -380,24 +394,32 @@ class Body(BodyBase):
     # ------------------------------------------------------------------
     def _lonlat2targvec_radians(
         self, lon, lat, *, alt: float, not_visible_nan: bool
-    ) -> np.ndarray:
-        """Planetographic radians -> body-fixed vectors (pgrrec equivalent)."""
-        lon = np.asarray(lon, dtype=float)
-        lat = np.asarray(lat, dtype=float)
+    ):
+        """
+        Planetographic radians -> body-fixed vectors (pgrrec equivalent).
+        Float64 tensors in: a tensor on their device out; numbers or numpy
+        arrays in: numpy out.
+        """
+        tensor = isinstance(lon, torch.Tensor)
+        if not tensor:
+            lon, lat = f64(lon), f64(lat)
         lon_e = -lon if self.positive_longitude_direction == 'W' else lon
         targvec = geom.geodetic_to_rect(
-            lon_e, lat, np.asarray(alt, dtype=float),
-            self.r_eq, self.flattening,
-        ).numpy()
-        bad = ~(np.isfinite(lon) & np.isfinite(lat) & np.isfinite(alt))
-        if np.any(bad):
-            targvec = np.where(np.asarray(bad)[..., None], np.nan, targvec)
+            lon_e, lat, alt, self.r_eq, self.flattening
+        )
+        bad = ~(torch.isfinite(lon) & torch.isfinite(lat))
+        if not math.isfinite(alt):
+            bad = torch.ones_like(bad)
+        targvec = torch.where(bad[..., None], math.nan, targvec)
         if not_visible_nan:
-            visible = self._test_if_targvec_visible_batch(
-                targvec, on_surface=(alt == 0.0)
+            visible = torch.as_tensor(
+                self._test_if_targvec_visible_batch(
+                    targvec, on_surface=(alt == 0.0)
+                ),
+                device=targvec.device,
             )
-            targvec = np.where(np.asarray(visible)[..., None], targvec, np.nan)
-        return targvec
+            targvec = torch.where(visible[..., None], targvec, math.nan)
+        return targvec if tensor else targvec.numpy()
 
     def _targvec2lonlat_radians(self, targvec):
         """Body-fixed vectors -> planetographic radians (recpgr equivalent)."""
@@ -430,8 +452,11 @@ class Body(BodyBase):
     def _targvec2obsvec(self, targvec: np.ndarray) -> np.ndarray:
         """
         Body-fixed -> observer-frame vectors with per-point light-time
-        retargeting (reference body.py:917-948).
+        retargeting (reference body.py:917-948). A float64 tensor in: a
+        tensor on its device out.
         """
+        if isinstance(targvec, torch.Tensor):
+            return self._engine.targvec2obsvec(targvec, self._sub_consts())
         return self._engine.targvec2obsvec(
             np.asarray(targvec, dtype=float), self._sub_consts()
         ).numpy()
@@ -442,14 +467,15 @@ class Body(BodyBase):
             np.asarray(obsvec, dtype=float), self._sub_consts()
         ).numpy()
 
-    def _radec2obsvec_norm_radians(self, ra, dec) -> np.ndarray:
-        ra = np.asarray(ra, dtype=float)
-        dec = np.asarray(dec, dtype=float)
-        out = _host_unit_from_radec(ra, dec)
-        bad = ~(np.isfinite(ra) & np.isfinite(dec))
-        if np.any(bad):
-            out = np.where(np.asarray(bad)[..., None], np.nan, out)
-        return out
+    def _radec2obsvec_norm_radians(self, ra, dec):
+        """RA/Dec radians -> unit observer-frame vectors (tensors or numpy,
+        as :meth:`_lonlat2targvec_radians`)."""
+        tensor = isinstance(ra, torch.Tensor)
+        if not tensor:
+            ra, dec = f64(ra), f64(dec)
+        bad = ~(torch.isfinite(ra) & torch.isfinite(dec))
+        out = torch.where(bad[..., None], math.nan, _unit_from_radec(ra, dec))
+        return out if tensor else out.numpy()
 
     def _radec2obsvec_norm(self, ra, dec) -> np.ndarray:
         return self._radec2obsvec_norm_radians(
@@ -500,27 +526,31 @@ class Body(BodyBase):
         origin_obsvec = self._radec2obsvec_norm_radians(
             *self._degree_pair2radians(origin_ra, origin_dec)
         )
-        _, ra_angle, _ = _host_radec_from_unit(np.asarray(origin_obsvec))
+        _, ra_angle, _ = _radec_from_unit(f64(origin_obsvec))
         ra_matrix = _spice_rotate(float(ra_angle), 3)
-        _, _, dec_angle = _host_radec_from_unit(ra_matrix @ origin_obsvec)
+        _, _, dec_angle = _radec_from_unit(f64(ra_matrix @ origin_obsvec))
         dec_matrix = _spice_rotate(-float(dec_angle), 2)
         rotation_matrix = _spice_rotate(np.deg2rad(coordinate_rotation), 1)
         return rotation_matrix @ dec_matrix @ ra_matrix
 
     def _obsvec2angular(self, obsvec, **angular_kwargs):
-        obsvec = np.asarray(obsvec, dtype=float)
+        """Observer-frame vectors -> angular coordinates [arcsec] (tensors,
+        numpy arrays or, for one vector, floats, as they came)."""
         m = self._get_obsvec2angular_matrix(**angular_kwargs)
-        vec = obsvec @ m.T
-        _r, x_rad, y_rad = _host_radec_from_unit(vec)
-        x = np.mod(-np.rad2deg(np.asarray(x_rad)), 360.0)
-        x = np.where(x > 180.0, x - 360.0, x)
-        y = np.rad2deg(np.asarray(y_rad))
-        bad = ~np.all(np.isfinite(obsvec), axis=-1)
-        x = np.where(bad, np.nan, x)
-        y = np.where(bad, np.nan, y)
+        tensor = isinstance(obsvec, torch.Tensor)
+        v = obsvec if tensor else f64(obsvec)
+        _r, x_rad, y_rad = _radec_from_unit(_matvec_rows(m, v))
+        x = torch.remainder(-torch.rad2deg(x_rad), 360.0)
+        x = torch.where(x > 180.0, x - 360.0, x)
+        y = torch.rad2deg(y_rad)
+        bad = ~torch.isfinite(v).all(dim=-1)
+        x = torch.where(bad, math.nan, x) * 3600.0
+        y = torch.where(bad, math.nan, y) * 3600.0
+        if tensor:
+            return x, y
         if x.ndim == 0:
-            return float(x) * 3600.0, float(y) * 3600.0
-        return x * 3600.0, y * 3600.0
+            return float(x), float(y)
+        return x.numpy(), y.numpy()
 
     def radec2angular(
         self, ra: FloatOrArray, dec: FloatOrArray, *,
@@ -559,30 +589,37 @@ class Body(BodyBase):
     # Illumination and visibility
     # ------------------------------------------------------------------
     def _illumf_from_targvec_radians(self, targvec):
-        targvec = np.asarray(targvec, dtype=float)
-        scalar = targvec.ndim == 1
-        if scalar and not np.all(np.isfinite(targvec)):
+        """
+        (phase, incidence, emission, visible, lit) of body-fixed vectors.
+        A float64 tensor in: tensors on the device the scene call ran on
+        (``_device.scene_device``); numpy in: numpy out, or numbers for one
+        vector.
+        """
+        tensor = isinstance(targvec, torch.Tensor)
+        v = targvec if tensor else f64(targvec)
+        if not tensor and v.ndim == 1 and not torch.isfinite(v).all():
             return np.nan, np.nan, np.nan, False, False
-        phase, incdnc, emissn, visibl, lit = (
-            v.numpy() for v in self._engine.illumf(self.et, self.radii, targvec)
+        phase, incdnc, emissn, visibl, lit = self._engine.illumf(
+            self.et, self.radii, v
         )
-        if scalar:
-            return (
-                float(phase), float(incdnc), float(emissn),
-                bool(visibl), bool(lit),
-            )
-        bad = ~np.all(np.isfinite(targvec), axis=-1)
-        phase = np.where(bad, np.nan, phase)
-        incdnc = np.where(bad, np.nan, incdnc)
-        emissn = np.where(bad, np.nan, emissn)
-        visibl = np.where(bad, False, visibl)
-        lit = np.where(bad, False, lit)
-        return phase, incdnc, emissn, visibl, lit
+        good = torch.isfinite(v).all(dim=-1).to(phase.device)
+        out = (
+            torch.where(good, phase, math.nan),
+            torch.where(good, incdnc, math.nan),
+            torch.where(good, emissn, math.nan),
+            visibl & good,
+            lit & good,
+        )
+        if tensor:
+            return out
+        if v.ndim == 1:
+            return tuple(t.item() for t in out)
+        return tuple(t.numpy() for t in out)
 
     def _test_if_targvec_visible_batch(self, targvec, *, on_surface: bool):
-        targvec = np.asarray(targvec, dtype=float)
         if on_surface:
             return self._illumf_from_targvec_radians(targvec)[3]
+        targvec = np.asarray(targvec, dtype=float)
         # Off-surface: search for an intercept between the observer->point
         # ray and the surface; if found, the point is visible only when it
         # is in front of the intercept (reference body.py:2131-2150).

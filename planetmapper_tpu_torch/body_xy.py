@@ -12,22 +12,23 @@ the matplotlib transforms are listed in ROADMAP.md.
 
 Each BodyXY carries the device its pixel pipeline and its map reprojection
 run on (``device=``; cuda by default, which raises without a card, and cpu
-only when asked for with ``device='cpu'``). The map
-coordinates are computed like the rest of the scene layer, in float64 on
-CPU tensors, and returned as numpy arrays.
+only when asked for with ``device='cpu'``). The map coordinates (lonlat ->
+targvec -> illumination -> obsvec -> RA/Dec -> x/y) are float64 tensors on
+that device for a map of more than ``_device.BULK_ELEMENTS`` samples (on
+the CPU for a smaller one), cached there; ``get_x_map``/``get_y_map`` copy
+them out as numpy arrays, ``map_img`` reads them where they are.
 """
 
 from __future__ import annotations
 
 import datetime
 import math
-import warnings
 from typing import Any, Literal
 
 import numpy as np
 import torch
 
-from ._device import resolve_device
+from ._device import f64, resolve_device, scene_device
 from .base import (
     _as_readonly_view,
     _cache_clearable_result,
@@ -139,20 +140,15 @@ class BodyXY(Body):
     def _get_angular2xy_matrix(self) -> np.ndarray:
         return np.linalg.inv(self._get_xy2angular_matrix())
 
-    def _obsvec2xy(self, obsvec: np.ndarray):
+    def _obsvec2xy(self, obsvec):
+        """Observer-frame vectors -> image pixels (tensors, numpy arrays or,
+        for one vector, floats, as :meth:`_obsvec2angular` gives them)."""
         angular_x, angular_y = self._obsvec2angular(obsvec)
-        ang1 = np.stack(
-            np.broadcast_arrays(
-                np.asarray(angular_x, dtype=float),
-                np.asarray(angular_y, dtype=float),
-                np.ones_like(np.asarray(angular_x, dtype=float)),
-            ),
-            axis=-1,
+        m = self._get_angular2xy_matrix()
+        return tuple(
+            float(m[i, 0]) * angular_x + float(m[i, 1]) * angular_y
+            + float(m[i, 2]) for i in range(2)
         )
-        v = ang1 @ self._get_angular2xy_matrix().T
-        if v.ndim == 1:
-            return float(v[0]), float(v[1])
-        return v[..., 0], v[..., 1]
 
     def radec2xy(self, ra, dec):
         """RA/Dec -> image pixel coordinates."""
@@ -536,7 +532,9 @@ class BodyXY(Body):
         shape = (n0, n1) if nz is None else (n0, n1, nz)
         return np.full(shape, np.nan)
 
-    # -- maps (numpy, from float64 CPU tensors) -------------------------
+    # -- maps: float64 tensors where _device.scene_device puts the map (this
+    # body's device for more than BULK_ELEMENTS samples, else the CPU),
+    # cached there; get_x_map and get_y_map copy them out ---------------
     @_cache_stable_result
     @_adjust_surface_altitude_decorator
     @_return_readonly_array
@@ -550,74 +548,62 @@ class BodyXY(Body):
     @_cache_stable_result
     @progress_decorator
     @_adjust_surface_altitude_decorator
-    def _get_targvec_map(self, **map_kwargs) -> np.ndarray:
+    def _targvec_map(self, **map_kwargs) -> torch.Tensor:
         lonlats = self._get_lonlat_map(**map_kwargs)
-        return np.asarray(
-            self._lonlat2targvec_radians(
-                np.deg2rad(lonlats[..., 0]),
-                np.deg2rad(lonlats[..., 1]),
-                alt=0.0,
-                not_visible_nan=False,
-            )
+        device = scene_device(lonlats[..., 0].size, self.device)
+        lon, lat = f64(np.deg2rad(lonlats), device).unbind(-1)
+        return self._lonlat2targvec_radians(
+            lon, lat, alt=0.0, not_visible_nan=False
         )
 
     @_cache_stable_result
     @progress_decorator
     @_adjust_surface_altitude_decorator
-    @_return_readonly_array
-    def _get_illumf_map(self, **map_kwargs) -> np.ndarray:
-        targvec = self._get_targvec_map(**map_kwargs)
+    def _illumf_map(self, **map_kwargs) -> torch.Tensor:
+        """Phase, incidence, emission [deg], visible and lit (0 or 1)."""
         phase, incdnc, emissn, visibl, lit = self._illumf_from_targvec_radians(
-            targvec
+            self._targvec_map(**map_kwargs)
         )
-        return np.stack(
-            [
-                np.rad2deg(np.asarray(phase)),
-                np.rad2deg(np.asarray(incdnc)),
-                np.rad2deg(np.asarray(emissn)),
-                np.asarray(visibl, dtype=float),
-                np.asarray(lit, dtype=float),
-            ],
-            axis=-1,
-        )
+        return torch.stack([
+            torch.rad2deg(phase), torch.rad2deg(incdnc), torch.rad2deg(emissn),
+            visibl.to(torch.float64), lit.to(torch.float64),
+        ], dim=-1)
 
     @_cache_stable_result
     @_adjust_surface_altitude_decorator
-    def _get_obsvec_map(self, **map_kwargs) -> np.ndarray:
-        targvec = self._get_targvec_map(**map_kwargs)
-        return np.asarray(self._targvec2obsvec(targvec))
+    def _obsvec_map(self, **map_kwargs) -> torch.Tensor:
+        return self._targvec2obsvec(self._targvec_map(**map_kwargs))
 
     @_cache_stable_result
     @progress_decorator
     @_adjust_surface_altitude_decorator
-    @_return_readonly_array
-    def _get_radec_map(self, **map_kwargs) -> np.ndarray:
-        visible = self._get_illumf_map(**map_kwargs)[:, :, 3] > 0
-        ra, dec = self._obsvec2radec_radians(self._get_obsvec_map(**map_kwargs))
-        ra = np.where(visible, np.asarray(ra), np.nan)
-        dec = np.where(visible, np.asarray(dec), np.nan)
-        return np.rad2deg(np.stack([ra, dec], axis=-1))
+    def _radec_map(self, **map_kwargs) -> torch.Tensor:
+        visible = self._illumf_map(**map_kwargs)[..., 3] > 0
+        ra, dec = self._obsvec2radec_radians(self._obsvec_map(**map_kwargs))
+        return torch.rad2deg(torch.stack([
+            torch.where(visible, ra, math.nan),
+            torch.where(visible, dec, math.nan),
+        ], dim=-1))
 
     @_cache_clearable_alt_dependent_result
     @progress_decorator
     @_adjust_surface_altitude_decorator
+    def _xy_map(self, **map_kwargs) -> torch.Tensor:
+        radec_map = self._radec_map(**map_kwargs)
+        finite = torch.isfinite(radec_map[..., 0])
+        x, y = self._radec2xy(
+            torch.where(finite, radec_map[..., 0], 0.0),
+            torch.where(finite, radec_map[..., 1], 0.0),
+        )
+        ok = finite & self._xy_in_image_frame(x, y)
+        return torch.stack([torch.where(ok, x, math.nan),
+                            torch.where(ok, y, math.nan)], dim=-1)
+
+    @_cache_clearable_alt_dependent_result
     @_return_readonly_array
     def _get_xy_map(self, **map_kwargs) -> np.ndarray:
-        radec_map = np.asarray(self._get_radec_map(**map_kwargs))
-        ra = radec_map[..., 0]
-        dec = radec_map[..., 1]
-        finite = np.isfinite(ra)
-        with warnings.catch_warnings():
-            warnings.filterwarnings('ignore', 'invalid value encountered')
-            x, y = self.radec2xy(
-                np.where(finite, ra, 0.0), np.where(finite, dec, 0.0)
-            )
-            x = np.asarray(x)
-            y = np.asarray(y)
-            ok = finite & self._xy_in_image_frame(x, y)
-        x = np.where(ok, x, np.nan)
-        y = np.where(ok, y, np.nan)
-        return np.stack([x, y], axis=-1)
+        """The x/y maps copied to the host once per map and disc."""
+        return self._xy_map(**map_kwargs).cpu().numpy()
 
     def get_x_map(self, **map_kwargs) -> np.ndarray:
         """Map of x pixel coordinates of each location."""
@@ -630,13 +616,11 @@ class BodyXY(Body):
     @_cache_clearable_alt_dependent_result
     def _get_map_samples(self, **map_kwargs):
         """The x/y maps' :class:`..ops.interp_device.MapSamples` on this
-        body's device (copied once per map and disc)."""
+        body's device (made once per map and disc, from the device maps)."""
         from .ops.interp_device import _device_xy
 
-        return _device_xy(
-            self.get_x_map(**map_kwargs), self.get_y_map(**map_kwargs),
-            self.device,
-        )
+        xy_map = self._xy_map(**map_kwargs)
+        return _device_xy(xy_map[..., 0], xy_map[..., 1], self.device)
 
     # ------------------------------------------------------------------
     # Mapping (reprojection of observed images)

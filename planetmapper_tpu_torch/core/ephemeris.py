@@ -8,9 +8,9 @@ kernels cover which body at which epoch) happens when a scene is built;
 state *evaluation* is float64 PyTorch code, batched over leading axes and
 differentiable in time with ``torch.func``.
 
-These are scalar-sized programs, so they run on CPU tensors
-(:data:`.._device.SCENE_DEVICE`): on a GPU each step would cost a kernel
-launch for a handful of numbers.
+Evaluation runs on the device of its time argument: CPU tensors for the
+scalar-sized calls, the card for the per-point light-time loops of a bulk
+scene call (:func:`.._device.call_device`).
 
 Conventions match SPICE:
 

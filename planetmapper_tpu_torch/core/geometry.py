@@ -46,11 +46,12 @@ def geodetic_to_rect(lon_e, lat, alt, re, f):
     a spheroid with equatorial radius ``re`` and flattening ``f`` to
     body-fixed rectangular coordinates.
     """
-    lon_e, lat, alt = torch.broadcast_tensors(
-        torch.as_tensor(lon_e, dtype=torch.float64),
-        torch.as_tensor(lat, dtype=torch.float64),
-        torch.as_tensor(alt, dtype=torch.float64),
-    )
+    device = next((a.device for a in (lon_e, lat, alt)
+                   if isinstance(a, torch.Tensor)), None)
+    lon_e, lat, alt = torch.broadcast_tensors(*(
+        torch.as_tensor(a, dtype=torch.float64, device=device)
+        for a in (lon_e, lat, alt)
+    ))
     e2 = f * (2.0 - f)
     sin_lat = torch.sin(lat)
     cos_lat = torch.cos(lat)

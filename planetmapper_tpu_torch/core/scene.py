@@ -8,9 +8,11 @@ body.py:2833, ``et2lst`` body.py:2369, and the per-point ``pxfrm2``
 light-time retargeting at body.py:917-1006) with batched tensor functions
 over arrays of points.
 
-Scene work is scalar-sized, so it runs on CPU tensors
-(:data:`.._device.SCENE_DEVICE`); the per-pixel backplane pipeline is the
-part that runs on the GPU (:mod:`..pipeline`).
+Each public batched function runs where :func:`.._device.call_device`
+puts it: a bulk call (a map or pixel grid, any argument above
+:data:`.._device.BULK_ELEMENTS` elements) in float64 on the device of its
+tensor arguments, a scalar-sized call on CPU tensors. The scene constants
+are scalar and stay on the CPU.
 
 Internally everything works in:
 
@@ -28,7 +30,7 @@ import math
 import numpy as np
 import torch
 
-from .._device import f64
+from .._device import call_device, f64
 from . import geometry as geom
 from .ephemeris import (
     CLIGHT,
@@ -45,8 +47,8 @@ def _matvec(m, v):
     return torch.einsum('...ij,...j->...i', m, v)
 
 
-def _sub_tensors(sub: dict) -> dict:
-    return {k: f64(v) for k, v in sub.items()}
+def _sub_tensors(sub: dict, device: torch.device) -> dict:
+    return {k: f64(v, device) for k, v in sub.items()}
 
 
 class SceneEngine:
@@ -179,7 +181,7 @@ class SceneEngine:
             n_iter = 1
 
         # Light time observer -> surface point
-        lt = torch.zeros(targvec.shape[:-1], dtype=torch.float64)
+        lt = targvec.new_zeros(targvec.shape[:-1])
         srfvec_j2000 = None
         tau = None
         for _ in range(n_iter):
@@ -200,7 +202,7 @@ class SceneEngine:
             point_ssb = self._pos_t(tau)[
                 ..., :3
             ] + self.frame_model.rotate_bodyfixed_to_j2000(tau, targvec)
-            lt_s = torch.zeros(targvec.shape[:-1], dtype=torch.float64)
+            lt_s = targvec.new_zeros(targvec.shape[:-1])
             sun_dir_j2000 = None
             for _ in range(n_iter):
                 sun_pos = self._pos_s(tau - self._tau_scale * lt_s)[..., :3]
@@ -244,7 +246,7 @@ class SceneEngine:
             )
             return targ[..., :3] + off, targ[..., 3:] + doff
 
-        lt = torch.zeros(targvec.shape[:-1], dtype=torch.float64)
+        lt = targvec.new_zeros(targvec.shape[:-1])
         for _ in range(n_iter):
             tau = et - self._tau_scale * lt
             p_pos, p_vel = point_state_ssb(tau)
@@ -420,26 +422,38 @@ class SceneEngine:
         return dict(subsol_targvec=spoint, subsol_et=tau)
 
     # ------------------------------------------------------------------
-    # Public batched functions (numpy or tensor in, CPU tensors out)
+    # Public batched functions (numbers, numpy arrays or tensors in;
+    # float64 tensors on the call's device out, see call_device)
     # ------------------------------------------------------------------
     def sincpt(self, et, radii, obsvec_norm, lt0):
+        device = call_device(obsvec_norm, lt0)
         return self._sincpt_core(
-            f64(et), f64(np.asarray(radii)), f64(obsvec_norm), f64(lt0)
+            f64(et, device), f64(np.asarray(radii), device),
+            f64(obsvec_norm, device), f64(lt0, device),
         )
 
     def illumf(self, et, radii, targvec):
+        device = call_device(targvec)
         return self._illumf_core(
-            f64(et), f64(np.asarray(radii)), f64(targvec)
+            f64(et, device), f64(np.asarray(radii), device),
+            f64(targvec, device),
         )
 
     def spkcpt(self, et, targvec):
-        return self._spkcpt_core(f64(et), f64(targvec))
+        device = call_device(et, targvec)
+        return self._spkcpt_core(f64(et, device), f64(targvec, device))
 
     def targvec2obsvec(self, targvec, sub):
-        return self._targvec2obsvec_core(f64(targvec), _sub_tensors(sub))
+        device = call_device(targvec)
+        return self._targvec2obsvec_core(
+            f64(targvec, device), _sub_tensors(sub, device)
+        )
 
     def obsvec2targvec(self, obsvec, sub):
-        return self._obsvec2targvec_core(f64(obsvec), _sub_tensors(sub))
+        device = call_device(obsvec)
+        return self._obsvec2targvec_core(
+            f64(obsvec, device), _sub_tensors(sub, device)
+        )
 
     # -- local solar time --------------------------------------------------
     def solar_longitude(self, et):

@@ -47,14 +47,17 @@ def find_nvcc() -> str:
 class CudaLibrary:
     """
     One kernel library: ``csrc/<source>`` built into ``build/lib<name>-<hash>
-    .so``. ``configure(lib)`` declares the C functions' types and checks the
-    library against the wrapper (raising on a mismatch).
+    .so`` with :data:`NVCC_FLAGS` and its own ``flags``. ``configure(lib)``
+    declares the C functions' types and checks the library against the
+    wrapper (raising on a mismatch).
     """
 
     def __init__(self, name: str, source: str,
-                 configure: Callable[[ctypes.CDLL], None]) -> None:
+                 configure: Callable[[ctypes.CDLL], None],
+                 flags: tuple[str, ...] = ()) -> None:
         self.name = name
         self.source = CSRC / source
+        self.flags = NVCC_FLAGS + tuple(flags)
         self._configure = configure
         self._lib: ctypes.CDLL | None = None
         self.launches = 0
@@ -76,7 +79,7 @@ class CudaLibrary:
     def build(self) -> Path:
         """Compile the source unless built for this exact source and flags."""
         digest = hashlib.sha256(
-            self.source.read_bytes() + ' '.join(NVCC_FLAGS).encode()
+            self.source.read_bytes() + ' '.join(self.flags).encode()
         ).hexdigest()[:16]
         lib = BUILD_DIR / f'lib{self.name}-{digest}.so'
         log = BUILD_DIR / f'lib{self.name}-{digest}.ptxas.txt'
@@ -86,7 +89,7 @@ class CudaLibrary:
             tmp = lib.with_name(f'{lib.name}.{os.getpid()}.tmp')
             t0 = time.perf_counter()
             proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(self.source)],
+                [nvcc, *self.flags, '-o', str(tmp), str(self.source)],
                 capture_output=True, text=True, check=False,
             )
             self.build_seconds = time.perf_counter() - t0

@@ -27,6 +27,7 @@ the grid of pixel centres; non-finite pixels are infilled with 3x3 means
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -45,8 +46,8 @@ class MapSamples:
     """
     The map sample coordinates on a device: float64 ``x``, ``y`` flattened
     in map order (0 where not ``valid``), the map ``shape``, and the
-    ``limits`` ``(nanmin x, nanmax x, nanmin y, nanmax y)`` of the host
-    maps (None when no sample is valid).
+    ``limits`` ``(nanmin x, nanmax x, nanmin y, nanmax y)`` of the maps
+    (None when no sample is valid).
     """
 
     x: torch.Tensor
@@ -56,24 +57,26 @@ class MapSamples:
     limits: tuple[float, float, float, float] | None
 
 
-def _device_xy(x_map: np.ndarray, y_map: np.ndarray,
-               device: torch.device) -> MapSamples:
-    """:class:`MapSamples` of host x/y maps, copied once to ``device``."""
-    x_map = np.asarray(x_map, dtype=np.float64)
-    y_map = np.asarray(y_map, dtype=np.float64)
-    valid = np.isfinite(x_map) & np.isfinite(y_map)
-    limits = None
-    if valid.any():
-        limits = (
-            float(np.nanmin(x_map)), float(np.nanmax(x_map)),
-            float(np.nanmin(y_map)), float(np.nanmax(y_map)),
-        )
+def _device_xy(x_map, y_map, device: torch.device) -> MapSamples:
+    """
+    :class:`MapSamples` of x/y maps (numpy arrays, or float64 tensors on any
+    device), on ``device``; no host copy of tensors already there. The
+    limits cost one synchronising copy of 4 values.
+    """
+    x_map = torch.as_tensor(x_map, dtype=torch.float64, device=device)
+    y_map = torch.as_tensor(y_map, dtype=torch.float64, device=device)
+    valid = torch.isfinite(x_map) & torch.isfinite(y_map)
+    x = torch.where(valid, x_map, 0.0)
+    y = torch.where(valid, y_map, 0.0)
+    inf = torch.full_like(x, torch.inf)
+    limits = torch.stack([
+        torch.where(valid, x, inf).min(), torch.where(valid, x, -inf).max(),
+        torch.where(valid, y, inf).min(), torch.where(valid, y, -inf).max(),
+    ]).tolist() if valid.numel() else [torch.inf]
     return MapSamples(
-        x=torch.from_numpy(np.where(valid, x_map, 0.0).ravel()).to(device),
-        y=torch.from_numpy(np.where(valid, y_map, 0.0).ravel()).to(device),
-        valid=torch.from_numpy(valid.ravel()).to(device),
+        x=x.ravel(), y=y.ravel(), valid=valid.ravel(),
         shape=tuple(x_map.shape),
-        limits=limits,
+        limits=tuple(limits) if math.isfinite(limits[0]) else None,
     )
 
 

@@ -17,11 +17,12 @@ launch; a build or launch fault raises. Only CPU tensors take
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from .cuda_build import CudaLibrary, check_launch
-from .map_spline_kernel import neighbour_nan, outside_grid
+from .map_spline_kernel import _aligned, neighbour_nan, outside_grid
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -29,6 +30,8 @@ _D = ctypes.c_double
 
 
 def _configure(lib) -> None:
+    lib.map_smooth_occupancy.restype = _I
+    lib.map_smooth_occupancy.argtypes = [_P, _P, _P]
     lib.map_smooth_launch.restype = _I
     lib.map_smooth_launch.argtypes = [
         _P, _P, _P, _P, _I, _I, _D, _D, _D, _D, _P, _P, _I, _I, _I, _P,
@@ -41,6 +44,16 @@ load_library = LIBRARY.load
 launch_count = LIBRARY.launch_count
 reset_launch_count = LIBRARY.reset_launch_count
 ptxas_log = LIBRARY.ptxas_log
+
+
+def occupancy() -> dict[str, int]:
+    """Registers and local bytes per thread, resident blocks of 256 per SM."""
+    lib = load_library()
+    values = [ctypes.c_int() for _ in range(3)]
+    check_launch(lib.map_smooth_occupancy(*map(ctypes.byref, values)),
+                 'map smooth occupancy')
+    return dict(zip(('registers', 'local_bytes', 'blocks_per_sm'),
+                    (v.value for v in values)))
 
 
 def map_smooth_plain(x, y, valid, grid, nan_img, *, iy0: float, ix0: float,
@@ -107,7 +120,7 @@ def map_smooth(x, y, valid, grid, nan_img, *, iy0: float, ix0: float,
                       device=device)
     nan_u8 = nan_img.to(torch.uint8).contiguous()
     launch(
-        x.contiguous(), y.contiguous(), valid.to(torch.uint8).contiguous(),
+        _aligned(x), _aligned(y), valid.to(torch.uint8).contiguous(),
         grid.contiguous(), nan_u8,
         nan_u8.reshape(nan_u8.shape[0], -1).any(dim=1).to(torch.uint8),
         out, propagate_nan=propagate_nan, **kw,
@@ -119,10 +132,14 @@ def launch(x, y, valid, grid, nan_img, any_nan, out, *, iy0: float,
            ix0: float, y_step: float, x_step: float,
            propagate_nan: bool) -> None:
     """
-    Launch the kernel on prepared contiguous CUDA buffers (``valid``,
-    ``nan_img`` and the per-frame ``any_nan`` as uint8, ``out`` (F, S)
-    float32) on the current stream, and count the launch.
+    Launch the kernel on prepared contiguous CUDA buffers (``x``, ``y``
+    16-byte aligned, ``valid``, ``nan_img`` and the per-frame ``any_nan`` as
+    uint8, ``out`` (F, S) float32; each frame of ``grid`` and ``nan_img``
+    below 2^31 values) on the current stream, and count the launch.
     """
+    frame = max(math.prod(grid.shape[1:]), math.prod(nan_img.shape[1:]))
+    if frame >= 2**31:  # the kernel's offsets in a frame are 32-bit
+        raise ValueError('a grid or an image of 2^31 values or more')
     buffers = (x, y, valid, grid, nan_img, any_nan, out)
     if any(t.device.type != 'cuda' or not t.is_contiguous() for t in buffers):
         raise ValueError('the map smooth kernel takes contiguous CUDA tensors')
@@ -131,6 +148,8 @@ def launch(x, y, valid, grid, nan_img, any_nan, out, *, iy0: float,
     n_frames, n_samples = out.shape
     if out.dtype != torch.float32 or n_samples != x.shape[0]:
         raise ValueError('out must be (F, S) float32')
+    if x.data_ptr() % 16 or y.data_ptr() % 16 or out.data_ptr() % 8:
+        raise ValueError('x and y must be 16-byte aligned, out 8-byte')
     if n_frames * n_samples == 0:
         return
     lib = load_library()

@@ -253,10 +253,10 @@ class SaveMapProgressHookCLI(_SaveProgressHookCLI):
 
 
 MAP_SAVE_WEIGHTS: dict[str, float] = {
-    '_get_targvec_map': 10,
+    '_targvec_map': 10,
     '_get_lonlat_centric_map': 1,
-    '_get_radec_map': 1,
-    '_get_illumf_map': 5,
+    '_radec_map': 1,
+    '_illumf_map': 5,
     '_get_state_maps': 3,
     '_get_limb_coordinate_maps': 2,
     '_get_ring_plane_coordinate_maps': 5,

@@ -3,7 +3,8 @@ Least times ("bounds") of the port's kernels on one H100 SXM, counted from
 the work of the function each kernel computes, not from the kernel's own
 instructions. The counts are plain numbers; the map kernels' are taken
 from one call's inputs (:func:`spline_call_bound`, :func:`smooth_call_bound`,
-tensors on any device).
+:func:`pchip_call_bound`, :func:`smooth_stage_bound`; tensors on any
+device).
 
 A bound is the larger of two times: the bytes the function must move (each
 input read once, each output written once) over the card's memory rate,
@@ -20,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.map_spline_kernel import _basis, neighbour_nan, outside_grid
+from ..ops.pchip_kernel import _pchip_axis
 
 #: H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bandwidth, and FP64 and
 #: FP32 outside the tensor cores, where scalar arithmetic runs.
@@ -316,12 +318,9 @@ def spline_call_bound(args, kw) -> dict:
     )
 
 
-def smooth_call_bound(args, kw) -> dict:
-    """
-    :func:`map_smooth_bound` of one ``map_smooth(*args, **kw)`` call,
-    counted from its inputs: the grid values are the corners that each
-    frame's live values read.
-    """
+def _smooth_call_counts(args, kw) -> dict:
+    """The keywords of :func:`map_smooth_bound` for one ``map_smooth(*args,
+    **kw)`` call, counted from its inputs (see :func:`smooth_call_bound`)."""
     x, y, valid, grid, nan_img = args
     n_frames, n_ys, n_xs = grid.shape
     yb = (y - kw['iy0']) / kw['y_step']
@@ -335,10 +334,100 @@ def smooth_call_bound(args, kw) -> dict:
                            corner + n_xs + 1])
     touched = sum(_distinct(corners, live[f], n_ys * n_xs)
                   for f in range(n_frames))
-    return map_smooth_bound(
-        samples=x.numel(), frames=n_frames, grid_values=touched,
-        image_cells=counts.pop('grid_cells'), **counts,
-    )
+    return dict(samples=x.numel(), frames=n_frames, grid_values=touched,
+                image_cells=counts.pop('grid_cells'), **counts)
+
+
+def smooth_call_bound(args, kw) -> dict:
+    """
+    :func:`map_smooth_bound` of one ``map_smooth(*args, **kw)`` call,
+    counted from its inputs: the grid values are the corners that each
+    frame's live values read.
+    """
+    return map_smooth_bound(**_smooth_call_counts(args, kw))
+
+
+# ---------------------------------------------------------------------------
+# pchip: the PCHIP oversampling of the 'smooth' mode, and the smooth stage
+# ---------------------------------------------------------------------------
+#
+# The oversampling is counted as one function, the box in and the grid out:
+# the box's cells read once and the oversampled grid written once (the row
+# pass's intermediate need not leave the chip). Operations at the least
+# known work: per finite cell of a line with two finite cells or more, the
+# slope to its neighbour, its derivative (Fritsch-Carlson, or the edge
+# estimate) and its interval's cubic coefficients; per position evaluated
+# between two finite cells, the cubic in Horner form. Positions on a finite
+# cell are copies, and NaN positions cost their store only.
+
+#: Per finite cell: slope (3), derivative (13), interval coefficients (8).
+PCHIP_CELL_OPS = 24
+#: Per evaluated position: the local coordinate (2), 3 multiply-adds.
+PCHIP_POSITION_OPS = 8
+
+
+def pchip_bound(*, cells: int, grid_values: int, finite_cells: int,
+                evaluated: int) -> dict:
+    """
+    The bound of the oversampling of ``cells`` box cells into
+    ``grid_values`` grid values, ``finite_cells`` finite cells (summed over
+    both passes' lines that hold two or more) and ``evaluated`` positions
+    (both passes). ``dict(ms, bound_by, bytes, f64_ops)``.
+    """
+    n_bytes = 8 * cells + 8 * grid_values
+    ops = finite_cells * PCHIP_CELL_OPS + evaluated * PCHIP_POSITION_OPS
+    ms, by = roofline_ms(n_bytes, f64_ops=ops)
+    return dict(ms=ms, bound_by=by, bytes=n_bytes, f64_ops=ops)
+
+
+def _pchip_pass_counts(lines: torch.Tensor, out: torch.Tensor):
+    """``(finite cells, evaluated positions)`` of one pass over the lines
+    (..., n) with output ``out`` (..., n_eval): the finite cells of the
+    lines with two or more; the finite outputs that are not copies."""
+    finite = torch.isfinite(lines)
+    enough = finite.sum(dim=-1) >= 2
+    cells = int(finite.sum(dim=-1)[enough].sum())
+    return cells, int(torch.isfinite(out).sum()) - cells
+
+
+def pchip_call_bound(box: torch.Tensor, ky_rep: int, kx_rep: int) -> dict:
+    """
+    :func:`pchip_bound` of the oversampling of ``box`` (F, ny_b, nx_b)
+    float64 (rows by ``kx_rep``, then columns by ``ky_rep``; the two
+    pchip launches of one smooth call), counted from its values.
+    """
+    n_frames, ny_b, nx_b = box.shape
+    n_xs = (nx_b - 1) * kx_rep + 1
+    n_ys = (ny_b - 1) * ky_rep + 1
+    rows = _pchip_axis(box, n_xs, kx_rep)
+    grid = _pchip_axis(rows.transpose(-1, -2), n_ys, ky_rep)
+    row_cells, row_evaluated = _pchip_pass_counts(box, rows)
+    col_cells, col_evaluated = _pchip_pass_counts(rows.transpose(-1, -2), grid)
+    return pchip_bound(cells=box.numel(), grid_values=grid.numel(),
+                       finite_cells=row_cells + col_cells,
+                       evaluated=row_evaluated + col_evaluated)
+
+
+def smooth_stage_bound(box: torch.Tensor, ky_rep: int, kx_rep: int, args,
+                       kw) -> dict:
+    """
+    The bound of the whole 'smooth' stage of one ``map_img`` call, box to
+    map, at its least work: the box cells read once (the oversampled grids
+    never leave the chip), the validity of every sample and x and y of the
+    valid ones, the NaN cells of the image the NaN rule touches, every map
+    value written once; the oversampling's operations
+    (:func:`pchip_call_bound`) and the sampler's (:func:`smooth_call_bound`)
+    on the grids of ``box`` and the ``map_smooth(*args, **kw)`` call.
+    """
+    pchip = pchip_call_bound(box, ky_rep, kx_rep)
+    counts = _smooth_call_counts(args, kw)
+    sampler = map_smooth_bound(**counts)
+    n_bytes = (8 * box.numel() + counts['image_cells']
+               + map_sample_bytes(counts['samples'], counts['valid_samples'],
+                                  counts['frames']))
+    ops = pchip['f64_ops'] + sampler['f64_ops']
+    ms, by = roofline_ms(n_bytes, f64_ops=ops)
+    return dict(ms=ms, bound_by=by, bytes=n_bytes, f64_ops=ops)
 
 
 def dsk_pairs_bound(n_values: int = 6 * 8192) -> tuple[float, str]:

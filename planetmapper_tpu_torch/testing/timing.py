@@ -63,6 +63,26 @@ def spline_launch_buffers(args) -> tuple:
                         device=x.device))
 
 
+def smooth_launch_buffers(args) -> tuple:
+    """
+    The buffers of ``map_smooth_kernel.launch`` for the arguments ``(x, y,
+    valid, grid, nan_img)`` of one ``map_smooth`` call, as its wrapper
+    prepares them.
+    """
+    x, y, valid, grid, nan_img = args
+    nan_u8 = nan_img.to(torch.uint8).contiguous()
+    return (x, y, valid.to(torch.uint8), grid.contiguous(), nan_u8,
+            nan_u8.reshape(nan_u8.shape[0], -1).any(1).to(torch.uint8),
+            torch.empty((grid.shape[0], x.numel()), dtype=torch.float32,
+                        device=x.device))
+
+
+def sum_yardstick(n_bytes: int, device):
+    """A yardstick, not a kernel of the port: one library launch
+    (``torch.sum``) that reads ``n_bytes``."""
+    return torch.ones(max(int(n_bytes) // 4, 1), device=device).sum
+
+
 def l2_flush(device):
     """A call that evicts the L2: a read of :data:`FLUSH_BYTES`."""
     buffer = torch.ones(FLUSH_BYTES // 4, device=device)

@@ -1,6 +1,7 @@
 """
-The port's CUDA kernels (backplanes, map spline, map smooth) against their
-plain PyTorch versions, on the card. Every test here carries the ``cuda``
+The port's CUDA kernels (backplanes, map spline, PCHIP, map smooth)
+against their plain PyTorch versions, and a CUDA body's map chain against a
+CPU body's, on the card. Every test here carries the ``cuda``
 marker and skips without a CUDA device; on a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -24,6 +25,7 @@ from planetmapper_tpu_torch.ops import backplanes_kernel as bk
 from planetmapper_tpu_torch.ops import interp_device, pchip_device
 from planetmapper_tpu_torch.ops import map_smooth_kernel as msk
 from planetmapper_tpu_torch.ops import map_spline_kernel as msp
+from planetmapper_tpu_torch.ops import pchip_kernel as pk
 from planetmapper_tpu_torch.testing import compare
 from planetmapper_tpu_torch.testing.synthetic_kernels import (
     write_synthetic_kernels,
@@ -202,7 +204,30 @@ def _assert_within_one_ulp(got, ref):
     # may move a rounding by one float32 ulp (taken at no less than 1e-6,
     # where float64 rounding of O(1) terms is no longer below it)
     ulp = np.spacing(np.maximum(np.abs(ref[finite]), np.float32(1e-6)))
-    assert np.all(np.abs(got[finite] - ref[finite]) <= ulp)
+    err = np.abs(got[finite] - ref[finite]) / ulp
+    assert np.all(err <= 1), (float(err.max()), int((err > 1).sum()))
+
+
+def _assert_within_map_bar(got, ref):
+    """
+    A map from the card against a map from the CPU whose x/y maps were
+    computed on each device: the same NaN mask, and values within two
+    float32 ulps of the map's largest value (2^-22 of it; the port holds
+    its maps to one such ulp against the host scipy reference,
+    tests/test_torch_map.py F32_BAR). The x/y maps differ by a few ulps of
+    an RA (below 1e-8 px, test_cuda_body_map_chain_matches_cpu_body), which
+    moves a value by its gradient times that: far below the map's scale,
+    not below one ulp of a value near zero.
+    """
+    got = got.cpu().numpy()
+    ref = ref.cpu().numpy()
+    assert got.dtype == ref.dtype == np.float32
+    assert np.array_equal(np.isnan(got), np.isnan(ref))
+    finite = ~np.isnan(ref)
+    assert finite.sum() > 100
+    scale = max(float(np.abs(ref[finite]).max()), 1.0)
+    err = float(np.abs(got[finite] - ref[finite]).max())
+    assert err <= 2.0**-22 * scale, (err, scale)
 
 
 @pytest.mark.parametrize('kxy', [(1, 1), (2, 2), (3, 3), (3, 1), (4, 4),
@@ -261,16 +286,79 @@ def test_map_spline_fitpack_knots_match_plain_version(device, kxy):
         _assert_within_one_ulp(got, msp.map_spline_plain(*args, **kw))
 
 
+def _pchip_rows(n: int, lines: int, seed: int) -> np.ndarray:
+    """Lines of n cells: clean, NaN gaps (one across most of the line),
+    one finite cell, all NaN, inf, monotone, flat steps."""
+    rng = np.random.default_rng(seed)
+    rows = rng.normal(size=(lines, n)) * 10.0
+    rows[1::9, :][:, rng.uniform(size=n) < 0.3] = np.nan
+    rows[2::9, 3:n - 4] = np.nan
+    rows[3::9, :] = np.nan
+    rows[3::9, n // 2] = 1.5
+    rows[4::9, :] = np.nan
+    rows[5::9, :n // 3] = np.inf
+    rows[6::9] = np.cumsum(np.abs(rows[6::9]), axis=1)
+    rows[7::9] = np.repeat(rows[7::9, :(n + 2) // 3], 3, axis=1)[:, :n]
+    return rows
+
+
+def _assert_pchip_equal(got, ref):
+    # built with -fmad=false, the kernel rounds as the plain version does
+    got, ref = got.cpu().numpy(), ref.cpu().numpy()
+    assert got.shape == ref.shape and got.dtype == np.float64
+    assert np.array_equal(np.isnan(got), np.isnan(ref))
+    assert np.isfinite(ref).sum() > 10
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize('k_rep', [1, 2, 3, 4, 5])
+@pytest.mark.parametrize('axis', [-1, -2])
+def test_pchip_kernel_matches_plain_version(device, k_rep, axis):
+    # three frames of 41 lines; the lines along `axis` of a strided view
+    frames = np.stack([_pchip_rows(23, 41, 10 * k_rep + f) for f in range(3)])
+    if axis == -2:
+        frames = frames.transpose(0, 2, 1).copy()
+    values = f64(np.pad(frames, ((0, 0), (2, 1), (3, 2))), device)
+    view = values[:, 2:-1, 3:-2]
+    n = view.shape[axis]
+    n_eval = (n - 1) * k_rep + 1
+    before = pk.launch_count()
+    got = pk.pchip_axis(view, n_eval, k_rep, axis)
+    torch.cuda.synchronize()
+    assert pk.launch_count() == before + 1
+    _assert_pchip_equal(got, pk.pchip_axis_plain(view, n_eval, k_rep, axis))
+
+
+@pytest.mark.parametrize('n', [2, 5, 3000])
+def test_pchip_kernel_walks_long_lines_in_segments(device, n):
+    # 3000 cells: 16 segments of 188, NaN gaps across several of them; no
+    # line is held whole by a block
+    rows = _pchip_rows(n, 36, n)
+    if n > 100:
+        rows[0, 100:1500] = np.nan
+        rows[9, 5:2990] = np.nan
+        rows[10, :] = np.nan
+        rows[10, [7, 2999]] = 2.0
+    values = f64(rows[None], device)
+    for k_rep in (1, 5):
+        n_eval = (n - 1) * k_rep + 1
+        got = pk.pchip_axis(values, n_eval, k_rep, -1)
+        _assert_pchip_equal(got, pk.pchip_axis_plain(values, n_eval, k_rep,
+                                                     -1))
+
+
 @pytest.mark.parametrize('propagate_nan', [True, False])
-@pytest.mark.parametrize('nan, frames', [(False, 1), (True, 1), (True, 3)])
+@pytest.mark.parametrize('nan, frames', [(False, 1), (True, 1), (False, 3),
+                                         (True, 3), (True, 16)])
 def test_map_smooth_matches_plain_version(device, propagate_nan, nan, frames):
     n = 150
     img, samples = _map_case(n, frames, nan, 7 * frames, device)
     box = pchip_device.smooth_box(samples.limits, n, n)
     iy0, iy1, ix0, ix1 = box
-    grids = torch.stack([
+    grids = pchip_device.oversample_frames(img, box, 5, 5)
+    _assert_pchip_equal(grids, torch.stack([
         pchip_device.oversample(f, box, 5, 5) for f in img
-    ])
+    ]))
     args = (samples.x, samples.y, samples.valid, grids, torch.isnan(img))
     kw = dict(iy0=iy0, ix0=ix0, y_step=0.2, x_step=0.2,
               propagate_nan=propagate_nan)
@@ -281,25 +369,89 @@ def test_map_smooth_matches_plain_version(device, propagate_nan, nan, frames):
     _assert_within_one_ulp(got, msk.map_smooth_plain(*args, **kw))
 
 
-def test_map_img_launches_map_kernels(kernel_path, device):
+def _map_bodies(device):
+    """The 150^2 test body on the CPU and on the card."""
     bodies = {}
     for where in ('cpu', device):
         body = tpm.BodyXY('Jupiter', observer='EARTH',
                           utc='2005-01-01T00:00:00', sz=150, device=where)
         body.set_disc_params(75.0, 75.0, 60.0, 12.3)
         bodies[torch.device(where).type] = body
+    return bodies
+
+
+def test_map_img_launches_map_kernels(kernel_path, device):
+    bodies = _map_bodies(device)
     img = np.random.default_rng(0).normal(size=(150, 150))
     img[40:44, 50:53] = np.nan
-    for interpolation, lib in (('cubic', msp), ((3, 1), msp), (4, msp),
-                               (5, msp), ((5, 1), msp), ((1, 5), msp),
-                               ('smooth', msk)):
-        lib.reset_launch_count()
-        got = bodies['cuda'].map_img(img, interpolation=interpolation,
-                                     degree_interval=2)
-        assert got.device.type == 'cuda' and lib.launch_count() == 1
-        ref = bodies['cpu'].map_img(img, interpolation=interpolation,
-                                    degree_interval=2)
-        _assert_within_one_ulp(got, ref)
+    cube = np.stack([img, img[::-1], np.full_like(img, np.nan)])
+    for interpolation, libs in (('cubic', [msp]), ((3, 1), [msp]),
+                                (4, [msp]), (5, [msp]), ((5, 1), [msp]),
+                                ((1, 5), [msp]), ('smooth', [msk, pk])):
+        for source in (img, cube):
+            for lib in (msp, msk, pk):
+                lib.reset_launch_count()
+            got = bodies['cuda'].map_img(source, interpolation=interpolation,
+                                         degree_interval=2)
+            # one launch per kernel (the PCHIP kernel: one per axis),
+            # whatever the frame count
+            assert got.device.type == 'cuda'
+            assert [lib.launch_count() for lib in libs] == \
+                [2 if lib is pk else 1 for lib in libs]
+            ref = bodies['cpu'].map_img(source, interpolation=interpolation,
+                                        degree_interval=2)
+            # the x/y maps come from two devices (the kernels alone, on
+            # the same inputs, are held to one ulp of each value above)
+            _assert_within_map_bar(got, ref)
+
+
+def test_cuda_body_map_chain_matches_cpu_body(kernel_path, device):
+    bodies = _map_bodies(device)
+    kw = dict(degree_interval=0.5)  # 360 x 720 samples
+    # the same float64 chain on both devices; CUDA's transcendental
+    # functions and the order of its sums differ from the CPU's in the
+    # last ulps, which the strict NaN tests (visible: dot > 0; inside the
+    # frame: x > -0.5 ...) may turn into mask flips at grazing and edge
+    # samples: counted, and at most 1 in 10^4 samples
+    got = bodies['cuda']._xy_map(**kw)
+    assert got.device.type == 'cuda'
+    flips = {}
+    # bars: 1e-9 deg for RA/Dec; 1e-8 deg for the illumination angles, the
+    # port's f64 parity bar at grazing samples (1e-9 deg at well-conditioned
+    # ones, tests/test_torch_pipeline.py); 8 ulps of an RA between 256 and
+    # 512 deg for x/y, in pixels at the frame's plate scale (5.3e-9 px at
+    # 0.31 arcsec/px)
+    ra_ulp_px = 2.0**-44 * 3600.0 / bodies['cuda'].get_plate_scale_arcsec()
+    for name, bar in (('_illumf_map', 1e-8), ('_radec_map', 1e-9),
+                      ('_xy_map', 8 * ra_ulp_px)):
+        a = getattr(bodies['cuda'], name)(**kw).cpu().numpy()
+        b = getattr(bodies['cpu'], name)(**kw).numpy()
+        both = np.isfinite(a) & np.isfinite(b)
+        flips[name] = int((np.isfinite(a) != np.isfinite(b)).sum())
+        assert flips[name] <= a.size // 10**4, flips
+        assert both.sum() > a.size // 4
+        if name == '_illumf_map':  # the visible and lit flags
+            flag_flips = int((a[..., 3:] != b[..., 3:]).sum())
+            assert flag_flips <= a[..., 0].size // 10**4
+            a, b, both = a[..., :3], b[..., :3], both[..., :3]
+        np.testing.assert_allclose(a[both], b[both], rtol=0, atol=bar)
+    print('mask flips against the CPU body:', flips)
+
+
+def test_map_img_makes_no_host_copy_of_the_xy_maps(kernel_path, device):
+    body = _map_bodies(device)['cuda']
+    kw = dict(degree_interval=2)
+    body.map_img(np.ones((150, 150)), interpolation='smooth', **kw)
+    samples = body._get_map_samples(**kw)
+    assert {t.device.type for t in (samples.x, samples.y, samples.valid)} \
+        == {'cuda'}
+    # every cached map is a tensor on the card; the only host map is the
+    # lon/lat grid the chain starts from
+    cached = list(body._cache.items()) + list(body._stable_cache.items())
+    maps = [v for _, v in cached if isinstance(v, torch.Tensor)]
+    assert len(maps) == 5 and all(v.device.type == 'cuda' for v in maps)
+    assert [key[0] for key, v in cached
+            if isinstance(v, np.ndarray) and v.size > 9] == ['_get_lonlat_map']
 
 
 def test_host_branch_s0_knots_take_the_uniform_path(device, monkeypatch):

@@ -10,6 +10,11 @@ SPICE kernels (Jupiter from the Earth on 2005-01-01, a 150x150 frame):
   kernels run in interpret mode, one map tile each;
 - the NaN infill against the host implementation (median of an even count
   of finite pixels);
+- the 'smooth' stage's PCHIP oversampling: a cube at once equals frame by
+  frame, and the segment walk of ``csrc/pchip.cu``, transcribed into
+  Python, equals the plain version bit for bit;
+- the map chain of a body on another device (PyTorch's ``meta`` device)
+  keeps every map on that device;
 - the spline kernel's uniform-knot path, transcribed from
   ``csrc/map_spline.cu`` into numpy (its interval by the 1.5 * 2^52 shift,
   its cardinal polynomials from the integer recurrence), against the plain
@@ -42,7 +47,11 @@ from planetmapper_tpu.ops import pchip_device as j_pchip
 from planetmapper_tpu_torch.kernels import pool as t_pool
 from planetmapper_tpu_torch.ops import interp as t_interp
 from planetmapper_tpu_torch.ops import interp_device as t_idev
-from planetmapper_tpu_torch.ops import map_smooth_kernel, map_spline_kernel
+from planetmapper_tpu_torch.ops import (
+    map_smooth_kernel,
+    map_spline_kernel,
+    pchip_kernel,
+)
 from planetmapper_tpu_torch.ops import pchip_device as t_pchip
 from planetmapper_tpu_torch.testing.synthetic_kernels import (
     write_synthetic_kernels,
@@ -270,12 +279,112 @@ def test_map_img_smoothing_and_options(bodies):
 
 def test_map_img_on_cpu_launches_no_kernel(bodies):
     _, t_body = bodies
-    for lib in (map_spline_kernel, map_smooth_kernel):
+    libraries = (map_spline_kernel, map_smooth_kernel, pchip_kernel)
+    for lib in libraries:
         lib.reset_launch_count()
+    cube = np.stack([_image(True), _image(False, 1)])
     for interpolation in ('cubic', 'smooth'):
         t_body.map_img(_image(True), interpolation=interpolation, **MAP)
-    assert map_spline_kernel.launch_count() == 0
-    assert map_smooth_kernel.launch_count() == 0
+        t_body.map_img(cube, interpolation=interpolation, **MAP)
+    assert [lib.launch_count() for lib in libraries] == [0, 0, 0]
+
+
+def test_map_chain_stays_on_the_bodys_device(bodies):
+    # PyTorch's meta device stands in for the card: any step that made a
+    # CPU tensor or a host array inside the chain would fail to mix with it
+    _, t_body = bodies
+    body = tpm.BodyXY('Jupiter', observer='EARTH', utc=UTC, sz=SIZE,
+                      device='meta')
+    body.set_disc_params(*DISC)
+    bulk = dict(degree_interval=2)  # 90 x 180 samples, above BULK_ELEMENTS
+    assert 90 * 180 > tpm._device.BULK_ELEMENTS >= 36 * 72
+    for getter in ('_targvec_map', '_illumf_map', '_obsvec_map',
+                   '_radec_map', '_xy_map'):
+        got = getattr(body, getter)(**bulk)
+        assert got.device.type == 'meta' and got.dtype == torch.float64
+        # a small map takes the host, as a scalar scene call
+        assert getattr(body, getter)(**MAP).device.type == 'cpu'
+    assert body._xy_map(**bulk).shape == (90, 180, 2)
+    # the CPU body's maps are host tensors, copied out by the getters
+    assert t_body._xy_map(**bulk).device.type == 'cpu'
+    np.testing.assert_array_equal(t_body.get_x_map(**bulk),
+                                  t_body._xy_map(**bulk)[..., 0].numpy())
+    # one host copy per map and disc serves both getters
+    assert t_body._get_xy_map(**bulk) is t_body._get_xy_map(**bulk)
+
+
+def _transform_cases(t_body, rng):
+    """(transform, arguments) pairs of the map chain, on numpy arrays."""
+    lon = rng.uniform(0.0, 2 * np.pi, 7)
+    lat = rng.uniform(-1.4, 1.4, 7)
+    lat[3] = np.nan
+    targvec = t_body._lonlat2targvec_radians(lon, lat, alt=0.0,
+                                             not_visible_nan=False)
+    obsvec = t_body._targvec2obsvec(targvec)
+    ra, dec = t_body._obsvec2radec_radians(obsvec)
+    return {
+        'lonlat2targvec': (lambda a, b: t_body._lonlat2targvec_radians(
+            a, b, alt=0.0, not_visible_nan=True), (lon, lat)),
+        'illumf': (t_body._illumf_from_targvec_radians, (targvec,)),
+        'obsvec2radec': (t_body._obsvec2radec_radians, (obsvec,)),
+        'radec2obsvec': (t_body._radec2obsvec_norm_radians, (ra, dec)),
+        'obsvec2angular': (t_body._obsvec2angular, (obsvec,)),
+        'obsvec2xy': (t_body._obsvec2xy, (obsvec,)),
+    }
+
+
+@pytest.mark.parametrize('name', ['lonlat2targvec', 'illumf', 'obsvec2radec',
+                                  'radec2obsvec', 'obsvec2angular',
+                                  'obsvec2xy'])
+def test_transform_takes_numpy_and_tensors_alike(bodies, name):
+    # one implementation on tensors: numpy in gives numpy out with the
+    # tensor path's values, and one vector gives numbers
+    _, t_body = bodies
+    fn, args = _transform_cases(t_body, np.random.default_rng(3))[name]
+    got_np = fn(*args)
+    got_t = fn(*(torch.from_numpy(np.array(a)) for a in args))
+    listed = isinstance(got_np, tuple)
+    got_np, got_t = (got_np, got_t) if listed else ((got_np,), (got_t,))
+    for a, b in zip(got_np, got_t):
+        assert isinstance(a, np.ndarray) and isinstance(b, torch.Tensor)
+        np.testing.assert_array_equal(a, b.numpy())
+    one = fn(*(a[0] for a in args))
+    if listed:
+        assert all(isinstance(v, (float, bool)) for v in one)
+        for v, a in zip(one, got_np):
+            np.testing.assert_array_equal(v, a[0])
+    else:
+        np.testing.assert_array_equal(one, got_np[0][0])
+
+
+def test_one_non_finite_vector_gives_nan(bodies):
+    _, t_body = bodies
+    ra, dec = t_body._obsvec2radec_radians([np.inf, 1.0, 0.0])
+    assert math.isnan(ra) and math.isnan(dec)
+    *angles, visible, lit = t_body._illumf_from_targvec_radians(
+        [np.nan, 1.0, 0.0])
+    assert all(math.isnan(v) for v in angles)
+    assert (visible, lit) == (False, False)
+
+
+@pytest.mark.parametrize('big', ['grid', 'image'])
+def test_map_smooth_refuses_a_frame_of_2_31_values(big):
+    # the kernel's offsets in one frame are 32-bit; the shapes alone are
+    # checked, so tensors on the meta device stand in for the card's
+    side = 46341  # side**2 > 2**31
+    small = (2, 2)
+    meta = dict(device='meta')
+    grid = torch.empty((1, *((side, side) if big == 'grid' else small)),
+                       dtype=torch.float64, **meta)
+    nan_img = torch.empty((1, *((side, side) if big == 'image' else small)),
+                          dtype=torch.uint8, **meta)
+    xy = torch.empty(4, dtype=torch.float64, **meta)
+    with pytest.raises(ValueError, match='2.31'):
+        map_smooth_kernel.launch(
+            xy, xy, torch.empty(4, dtype=torch.uint8, **meta), grid, nan_img,
+            torch.empty(1, dtype=torch.uint8, **meta),
+            torch.empty((1, 4), **meta), iy0=0.0, ix0=0.0, y_step=1.0,
+            x_step=1.0, propagate_nan=True)
 
 
 # ---------------------------------------------------------------------------
@@ -383,6 +492,142 @@ def test_map_smooth_plain_matches_pallas_kernel(monkeypatch, propagate_nan):
     host = np.full(x_map.shape, np.nan)
     t_interp.smooth_interpolation(img, x_map, y_map, host, **kwargs)
     _assert_parity(got.numpy(), host, JAX_BAR)
+
+
+def _pchip_lines(n: int, seed: int) -> np.ndarray:
+    """Rows of n cells: clean, NaN gaps (one across most of the row), a
+    single finite cell, all NaN, inf, and monotone runs with flat steps."""
+    rng = np.random.default_rng(seed)
+    rows = rng.normal(size=(9, n)) * 10.0
+    rows[1, rng.uniform(size=n) < 0.3] = np.nan
+    rows[2, 3:n - 4] = np.nan
+    rows[3, :] = np.nan
+    rows[3, n // 2] = 1.5
+    rows[4, :] = np.nan
+    rows[5, :n // 3] = np.inf
+    rows[6] = np.cumsum(np.abs(rows[6]))
+    rows[7] = np.repeat(rng.normal(size=(n + 2) // 3), 3)[:n]
+    rows[8, [0, 1, n - 1]] = np.nan
+    return rows
+
+
+@pytest.mark.parametrize('k_rep', [1, 2, 3, 4, 5])
+def test_batched_oversampling_equals_per_frame(k_rep):
+    # 18 rows of the cases above per frame; the all-NaN and one-cell rows
+    # give the column pass NaN gaps, and a column of the box is NaN but one
+    cube = np.stack([np.vstack([_pchip_lines(21, s), _pchip_lines(21, s + 3)])
+                     for s in range(3)])
+    cube[:, :-2, 6] = np.nan
+    cube = torch.from_numpy(cube)
+    box = (1, 17, 1, 21)
+    got = t_pchip.oversample_frames(cube, box, k_rep, 6 - k_rep)
+    for frame, grid in zip(cube, got):
+        ref = t_pchip.oversample(frame, box, k_rep, 6 - k_rep)
+        assert torch.equal(torch.isnan(grid), torch.isnan(ref))
+        assert torch.equal(torch.nan_to_num(grid), torch.nan_to_num(ref))
+    assert torch.isnan(got).any() and torch.isfinite(got).any()
+
+
+def _sign(x: float) -> float:
+    return float(int(x > 0) - int(x < 0))
+
+
+def _edge(h0, d0, h1, d1):
+    d = ((2.0 * h0 + h1) * d0 - h0 * d1) / (h0 + h1)
+    over = _sign(d0) != _sign(d1) and abs(d) > 3.0 * abs(d0)
+    if _sign(d) != _sign(d0):
+        d = 0.0
+    return 3.0 * d0 if over else d
+
+
+_NONE = (-1, 0.0)
+
+
+def _derivative(pp, p, c, q, qq):
+    """``derivative`` of ``csrc/pchip.cu``: cells are (index, value)."""
+    h_prev = c[0] - p[0] if p[0] >= 0 else 1.0
+    d_prev = (c[1] - p[1]) / h_prev if p[0] >= 0 else 0.0
+    h_next = q[0] - c[0] if q[0] >= 0 else 1.0
+    d_next = (q[1] - c[1]) / h_next if q[0] >= 0 else 0.0
+    if p[0] >= 0 and q[0] >= 0:
+        if not d_prev * d_next > 0.0:
+            return 0.0
+        w1 = 2.0 * h_next + h_prev
+        w2 = h_next + 2.0 * h_prev
+        return (w1 + w2) / (w1 / d_prev + w2 / d_next)
+    if q[0] >= 0:
+        h = qq[0] - q[0] if qq[0] >= 0 else h_next
+        d = (qq[1] - q[1]) / h if qq[0] >= 0 else d_next
+        return _edge(h_next, d_next, h, d)
+    if p[0] >= 0:
+        h = p[0] - pp[0] if pp[0] >= 0 else h_prev
+        d = (p[1] - pp[1]) / h if pp[0] >= 0 else d_prev
+        return _edge(h_prev, d_prev, h, d)
+    return 0.0
+
+
+def _pchip_kernel_line(line, xs, k: int, n_warps: int) -> np.ndarray:
+    """
+    One line through ``pchip_axis_kernel`` of ``csrc/pchip.cu``,
+    transcribed: pass 1 (each warp's finite cells), then each warp's walk
+    of its owned positions with the window (pp, c0, c1, nn).
+    """
+    n, n_eval = len(line), len(xs)
+    seg = -(-n // n_warps)
+    spans = [(min(w * seg, n), min(w * seg + seg, n)) for w in range(n_warps)]
+    finite = [[(float(i), float(line[i])) for i in range(a, b)
+               if math.isfinite(line[i])] for a, b in spans]
+    out = np.full(n_eval, -1.0)  # every position must be written
+    for w, (a, b) in enumerate(spans):
+        e_end = min(b * k, n_eval)
+        if a >= b:
+            continue
+        before = [c for cells in finite[:w] for c in cells][-2:]
+        after = [c for cells in finite[w + 1:] for c in cells][:2]
+        stream = iter(before + finite[w] + after)
+        pp = c0 = c1 = nn = _NONE
+        for _ in range(3):
+            pp, c0, c1, nn = c0, c1, nn, next(stream, _NONE)
+        d0 = d1 = None
+        for e in range(a * k, e_end):
+            while c1[0] >= 0 and c1[0] * k < e:
+                pp, c0, c1, nn = c0, c1, nn, next(stream, _NONE)
+                d0, d1 = d1, None
+            if c0[0] >= 0 and c0[0] * k == e:  # NaN if the only finite cell
+                r = c0[1] if pp[0] >= 0 or c1[0] >= 0 else math.nan
+            elif c1[0] >= 0 and c1[0] * k == e:
+                r = c1[1]
+            elif c0[0] < 0 or c1[0] < 0 or c0[0] * k > e:
+                r = math.nan
+            else:
+                d0 = _derivative(_NONE, pp, c0, c1, nn) if d0 is None else d0
+                d1 = _derivative(pp, c0, c1, nn, _NONE) if d1 is None else d1
+                h = c1[0] - c0[0]
+                t = (float(xs[e]) - c0[0]) / h
+                t2 = t * t
+                t3 = t2 * t
+                r = (c0[1] * (2.0 * t3 - 3.0 * t2 + 1.0)
+                     + h * d0 * (t3 - 2.0 * t2 + t)
+                     + c1[1] * (-2.0 * t3 + 3.0 * t2) + h * d1 * (t3 - t2))
+            out[e] = r
+    return out
+
+
+@pytest.mark.parametrize('k_rep', [1, 2, 3, 4, 5])
+def test_pchip_kernel_walk_matches_plain_version(k_rep):
+    # the launch's segment count (21 for 41 cells: 2 cells a segment) and
+    # others: gaps cross segments, segments without a finite cell, one-cell
+    # segments
+    for n, seed in ((41, k_rep), (7, 10 + k_rep), (2, 20)):
+        rows = _pchip_lines(n, seed)
+        n_eval = (n - 1) * k_rep + 1
+        ref = pchip_kernel._pchip_axis(torch.from_numpy(rows), n_eval,
+                                       k_rep).numpy()
+        xs = torch.linspace(0.0, n - 1.0, n_eval, dtype=torch.float64)
+        for n_warps in sorted({-(-n // 2), 1, 3, min(n, 16)}):
+            got = np.stack([_pchip_kernel_line(r, xs.numpy(), k_rep, n_warps)
+                            for r in rows])
+            np.testing.assert_array_equal(got, ref)
 
 
 # ---------------------------------------------------------------------------

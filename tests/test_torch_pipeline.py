@@ -698,3 +698,67 @@ def test_smooth_call_bound_counts_what_is_read(propagate_nan):
         image_cells=cells)
     assert got == want
     assert 0 < values < 2 * n_ys * n_xs
+
+
+def _pass_counts(finite_lines, k):
+    """Brute force, one PCHIP pass: (finite cells, evaluated positions,
+    finite outputs per line) of lines given by their finiteness."""
+    cells = evaluated = 0
+    outputs = []
+    for line in finite_lines:
+        idx = np.flatnonzero(line)
+        out = np.zeros((len(line) - 1) * k + 1, dtype=bool)
+        if idx.size >= 2:
+            cells += idx.size
+            out[idx[0] * k:idx[-1] * k + 1] = True
+            evaluated += (idx[-1] - idx[0]) * k + 1 - idx.size
+        outputs.append(out)
+    return cells, evaluated, np.array(outputs)
+
+
+@pytest.mark.parametrize('ky, kx', [(1, 1), (5, 5), (2, 4), (3, 1)])
+def test_pchip_call_bound_counts_the_function(ky, kx):
+    rng = np.random.default_rng(ky * 10 + kx)
+    box = rng.normal(size=(2, 9, 12))
+    box[0, rng.uniform(size=(9, 12)) < 0.2] = np.nan
+    box[0, 3] = np.nan        # an all-NaN row
+    box[1, 5, 1:] = np.inf    # a row with one finite cell
+    box[1, :, 7] = np.nan     # a NaN column
+    got = bounds.pchip_call_bound(torch.from_numpy(box), ky, kx)
+    cells = evaluated = 0
+    for frame in np.isfinite(box):
+        c, e, rows = _pass_counts(frame, kx)
+        c2, e2, _ = _pass_counts(rows.T, ky)
+        cells, evaluated = cells + c + c2, evaluated + e + e2
+    n_grid = 2 * (8 * ky + 1) * (11 * kx + 1)
+    # the box read once and the grid written once; per finite cell 24 and
+    # per evaluated position 8 operations
+    assert (bounds.PCHIP_CELL_OPS, bounds.PCHIP_POSITION_OPS) == (24, 8)
+    assert got == bounds.pchip_bound(cells=box.size, grid_values=n_grid,
+                                     finite_cells=cells, evaluated=evaluated)
+    assert got['bytes'] == 8 * box.size + 8 * n_grid
+    assert got['f64_ops'] == 24 * cells + 8 * evaluated
+    assert got['bound_by'] == 'bytes' and 0 < evaluated
+
+
+def test_smooth_stage_bound_counts_box_to_map():
+    x, y, valid, nan_grid = _map_call(3)
+    rng = np.random.default_rng(3)
+    box = rng.normal(size=(2, 6, 8))
+    box[1, 2, 3] = np.nan
+    kw = dict(iy0=1.0, ix0=-1.0, y_step=0.5, x_step=0.5, propagate_nan=True)
+    grid = np.zeros((2, 11, 15))
+    args = tuple(torch.from_numpy(a) for a in (x, y, valid, grid, nan_grid))
+    box_t = torch.from_numpy(box)
+    got = bounds.smooth_stage_bound(box_t, 2, 2, args, kw)
+    pchip = bounds.pchip_call_bound(box_t, 2, 2)
+    sampler = bounds.smooth_call_bound(args, kw)
+    # the sampler's bytes without the grid values it reads: the grids stay
+    # on the chip, the box is read instead
+    yb, xb = (y - 1.0) / 0.5, (x + 1.0) / 0.5
+    inside = (yb >= 0) & (yb <= 10) & (xb >= 0) & (xb <= 14)
+    _, _, cells = _expected_reads(x, y, valid, nan_grid, True, inside)
+    assert got['bytes'] == (8 * box.size + x.size + 16 * int(valid.sum())
+                            + 4 * 2 * x.size + 2 + cells)
+    assert got['f64_ops'] == pchip['f64_ops'] + sampler['f64_ops']
+    assert got['bound_by'] == 'bytes'

@@ -6,7 +6,10 @@ SPICE kernels written by ``planetmapper_tpu_torch.testing``:
 - the synthetic kernels load with the JAX package's own readers and
   reproduce the analytic states they were written from;
 - SPK evaluators, apparent states (``spkezr``), IAU frame rotations and the
-  scene constants agree with the JAX float64 functions on identical inputs.
+  scene constants agree with the JAX float64 functions on identical inputs;
+- the rule that sends bulk scene calls to their inputs' device and keeps
+  scalar calls on the host (PyTorch's ``meta`` device stands in for the
+  card).
 
 Inputs come from a numpy seed and pass to both packages as numpy arrays.
 """
@@ -28,6 +31,7 @@ from planetmapper_tpu.core import frames as j_frames
 from planetmapper_tpu.core import scene as j_scene
 from planetmapper_tpu.kernels import pool as j_pool
 from planetmapper_tpu.kernels import spk as j_spk
+from planetmapper_tpu_torch import _device
 from planetmapper_tpu_torch.core import ephemeris as t_eph
 from planetmapper_tpu_torch.core import frames as t_frames
 from planetmapper_tpu_torch.core import scene as t_scene
@@ -354,3 +358,50 @@ def test_scene_tensors_stay_float64_on_cpu(kernel_files):
     state, lt = t_eph.get_ephemeris().spkezr(JUPITER, EARTH, ET_2005)
     assert state.dtype == torch.float64 and state.device.type == 'cpu'
     assert lt.dtype == torch.float64
+
+
+META = torch.device('meta')
+CPU = torch.device('cpu')
+
+
+@pytest.mark.parametrize('n_elements, device, want', [
+    (1, META, CPU), (4096, META, CPU), (4097, META, META),
+    (720 * 1440 * 3, META, META), (10**6, CPU, CPU),
+])
+def test_scene_device_routes_bulk_calls_only(n_elements, device, want):
+    # the JAX package's threshold (core/ephemeris.py _SMALL_CALL_ELEMENTS)
+    assert _device.BULK_ELEMENTS == j_eph._SMALL_CALL_ELEMENTS == 4096
+    assert _device.scene_device(n_elements, device) == want
+
+
+@pytest.mark.parametrize('args, want', [
+    ((np.zeros((5000, 3)),), CPU),                      # host arrays stay
+    ((1.0, torch.zeros((10, 3), device=META)), CPU),    # a scalar call
+    ((1.0, torch.zeros((2000, 3), device=META)), META),
+    ((np.zeros(3), torch.zeros(5000, device=META)), META),
+])
+def test_call_device_of_scene_arguments(args, want):
+    assert _device.call_device(*args) == want
+
+
+def test_bulk_scene_calls_run_on_their_inputs_device(kernel_files):
+    engine = t_scene.SceneEngine(
+        t_eph.get_ephemeris(), target_id=JUPITER, observer_id=EARTH,
+        illumination_source_id=SUN, radii=(71492.0, 71492.0, 66854.0),
+        frame_model=t_frames.BodyFrameModel.from_pool(t_pool.get_pool(),
+                                                      JUPITER),
+        abcorr='CN', et_ref=ET_2005,
+    )
+    radii = np.array([71492.0, 71492.0, 66854.0])
+    sub = {k: np.asarray(v) for k, v in engine.scene_constants(
+        ET_2005, radii).items() if k.startswith('subpoint_')}
+    # (a small meta tensor would be copied to the host, which meta cannot)
+    bulk = torch.zeros((3000, 3), dtype=torch.float64, device=META)
+    for targvec, want in ((bulk, META), (np.ones((3000, 3)), CPU)):
+        outs = [*engine.illumf(ET_2005, radii, targvec),
+                engine.targvec2obsvec(targvec, sub),
+                engine.obsvec2targvec(targvec, sub),
+                *engine.spkcpt(ET_2005, targvec),
+                *engine.sincpt(ET_2005, radii, targvec, 1.0)]
+        assert {t.device for t in outs} == {want}
+        assert all(t.dtype in (torch.float64, torch.bool) for t in outs)
