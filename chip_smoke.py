@@ -24,6 +24,12 @@ on 2005-01-01 (synthetic SPICE kernels written at run time):
   larger than it) and back to back (warm), their plain versions,
   ``grid_sample`` and ``torch.sum`` as yardsticks and blocked ``map_img``
   calls.
+- planes: times the 26 ``get_backplane_img`` calls on a fresh 2048x2048
+  body (the image chain on the card, float64) and holds them against the
+  same body's kernel 1 planes by the JAX package's fused-vs-per-plane
+  rule; times the 26 ``get_backplane_map`` calls on the 720x1440 map; and
+  holds a 256x256 card body's 26 image getters and its 26 180x360 map
+  getters against a CPU body's, each with its peak device memory.
 
 Prints the card's name and power limit, one JSON line describing each
 kernel, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -138,6 +144,14 @@ def device_inputs(body) -> tuple:
             pipeline.anchors_from_numpy(anchors, body.device))
 
 
+def centre_pixel(shape, disc, row0=0.0) -> dict[str, np.ndarray]:
+    """The pixel of a frame of ``shape`` (rows from ``row0``) whose ray
+    passes through the target centre, for each limb plane."""
+    yy, xx = np.mgrid[0:shape[0], 0:shape[1]]
+    centre = np.hypot(xx - disc[0], yy + row0 - disc[1]) < 0.5
+    return {name: centre for name in LIMB_PLANES}
+
+
 def check_against_plain(label, got, ref, disc, row0=0.0) -> dict:
     """
     The kernel's planes against the plain float64 version's, at the JAX
@@ -147,12 +161,9 @@ def check_against_plain(label, got, ref, disc, row0=0.0) -> dict:
     centre) is left out of the limb planes: its limb coordinates are
     undefined and both versions return rounding noise there.
     """
-    ny, nx = next(iter(got.values())).shape
-    yy, xx = np.mgrid[0:ny, 0:nx]
-    centre = np.hypot(xx - disc[0], yy + row0 - disc[1]) < 0.5
+    shape = next(iter(got.values())).shape
     reports = compare.compare_backplanes(
-        got, ref, float32_ulps=1,
-        exclude={name: centre for name in LIMB_PLANES},
+        got, ref, float32_ulps=1, exclude=centre_pixel(shape, disc, row0),
     )
     log(f'[{label}] per plane (max_abs_err, mask_flips, lst_bin_flips): '
         + json.dumps({
@@ -863,6 +874,160 @@ def map_timing_phase(bodies, images, calls, card):
     return results
 
 
+# ---------------------------------------------------------------------------
+# [planes]: the per-plane getters (get_backplane_img / get_backplane_map)
+# ---------------------------------------------------------------------------
+
+#: The card-against-CPU frame: the main path's scene, frame and disc
+#: scaled by 1/8; and a 180x360 map (both bulk: they run on the card)
+SMALL = SIZE // 8
+SMALL_DISC = (*(v / 8 for v in DISC[:3]), DISC[3])
+SMALL_MAP = dict(degree_interval=1)
+
+
+def time_getters(body, names, fetch) -> tuple[dict, dict, float]:
+    """
+    ``fetch(body, name)`` of every name in turn on the card, each
+    synchronised (host clock): the planes, ``{name: (ms, peak MiB)}`` with
+    each call's peak device memory above what was allocated before the
+    first, and the total ms.
+    """
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    out, times = {}, {}
+    t_all = time.perf_counter()
+    for name in names:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out[name] = fetch(body, name)
+        torch.cuda.synchronize()
+        times[name] = ((time.perf_counter() - t0) * 1e3,
+                       (torch.cuda.max_memory_allocated() - live) / 2**20)
+    return out, times, (time.perf_counter() - t_all) * 1e3
+
+
+def log_times(label, times, total, card) -> float:
+    peak = max(mib for _, mib in times.values())
+    log(f'[planes] {card} | {label}: {total:.1f} ms for all '
+        f'{len(times)} (host clock, each synchronised), peak device memory '
+        f'{peak:.1f} MiB above what was allocated before; per getter (ms, '
+        'peak MiB): ' + json.dumps(
+            {k: (round(ms, 2), round(mib, 1)) for k, (ms, mib) in
+             times.items()}))
+    return peak
+
+
+def planes_against_fused(planes, fused, size) -> dict:
+    """The JAX package's fused-vs-per-plane rule (testing/compare.py
+    compare_with_fused, tests/test_pipeline.py:26-81)."""
+    # the pixel whose ray passes through the target centre is left out of
+    # the limb planes, as in check_against_plain
+    reports = compare.compare_with_fused(planes, fused,
+                                         centre_pixel((size, size), DISC))
+    log(f'[planes] {size}x{size} get_backplane_img vs compute_backplanes '
+        '(kernel 1): per plane (largest excess over the bar, mask flips, '
+        'flips off the disc boundary, LST bin flips): ' + json.dumps({
+            k: (f'{r["max_excess"]:.3e}', r['flips'], r['off_boundary'],
+                r['lst_bin_flips']) for k, r in reports.items()}))
+    bad = compare.failures(reports)
+    if bad:
+        raise SmokeFailure(f'per-plane getters differ from kernel 1: {bad}')
+    return reports
+
+
+def planes_against_cpu(label, got, ref, tolerance, ill,
+                       exclude=None) -> dict:
+    """A card body's planes against a CPU body's (testing/compare.py
+    compare_per_plane)."""
+    reports = compare.compare_per_plane(got, ref, tolerance, ill, exclude)
+    log(f'[planes] {label}, card vs CPU body: per plane (max_abs_err where '
+        'well conditioned, max_abs_err, bar, mask flips, LST bin flips): '
+        + json.dumps({k: (f'{r["max_abs_err_conditioned"]:.3e}',
+                          f'{r["max_abs_err"]:.3e}', f'{r["bar"]:.1e}',
+                          r['mask_flips'], r['lst_bin_flips'])
+                      for k, r in reports.items()}))
+    bad = compare.failures(reports)
+    if bad:
+        raise SmokeFailure(f'{label}: card body differs from CPU body: {bad}')
+    return reports
+
+
+def card_and_cpu_bodies(device):
+    bodies = {}
+    for where in (device, torch.device('cpu')):
+        body = pt.BodyXY('Jupiter', observer='EARTH', utc=UTC, sz=SMALL,
+                         device=where)
+        body.set_disc_params(*SMALL_DISC)
+        bodies[where.type] = body
+    return bodies['cuda'], bodies['cpu']
+
+
+def planes_phase(device, card: str) -> dict:
+    """
+    The 26 image getters on a fresh 2048^2 card body (timed, peak memory)
+    against its kernel 1 planes; the 26 map getters on the 720x1440 map
+    (timed); a 256^2 card body's 26 image getters and 26 180x360 map
+    getters against a CPU body's.
+    """
+    names = list(bk.PLANE_ORDER)
+    body = pt.BodyXY('Jupiter', observer='EARTH', utc=UTC, sz=SIZE,
+                     device=device)
+    body.set_disc_params(*DISC)
+    if list(body.backplanes) != names:
+        raise SmokeFailure(f'registered backplanes {list(body.backplanes)}')
+    images, img_times, img_ms = time_getters(
+        body, names, lambda b, n: b.get_backplane_img(n))
+    img_peak = log_times(f'{SIZE}x{SIZE} get_backplane_img, fresh body',
+                         img_times, img_ms, card)
+    chain = {name: getattr(body, name)().device.type
+             for name in ('_get_targvec_img', '_get_illumination_gie_img',
+                          '_get_limb_coordinate_imgs')}
+    if set(chain.values()) != {device.type}:
+        raise SmokeFailure(f'the image chain ran on {chain}')
+    fused = pipeline.compute_backplanes(body)
+    reports = planes_against_fused(images, fused, SIZE)
+
+    maps, map_times, map_ms = time_getters(
+        body, names, lambda b, n: b.get_backplane_map(n, **MAP_KW))
+    map_peak = log_times(f'{MAP_SHAPE[0]}x{MAP_SHAPE[1]} get_backplane_map',
+                         map_times, map_ms, card)
+    if body._get_state_maps(**MAP_KW)[0].device.type != device.type:
+        raise SmokeFailure('the map chain did not run on the card')
+    if any(m.shape != MAP_SHAPE for m in maps.values()):
+        raise SmokeFailure('a map getter returned the wrong shape')
+    frac = float(np.isfinite(maps['RA']).mean())
+    if not 0.4 < frac < 0.6:  # the visible hemisphere
+        raise SmokeFailure(f'RA map finite fraction {frac:.4f}')
+
+    card_body, cpu_body = card_and_cpu_bodies(device)
+    ref = {n: cpu_body.get_backplane_img(n) for n in names}
+    yy, xx = np.mgrid[0:SMALL, 0:SMALL]
+    offset = np.hypot(xx - SMALL_DISC[0], yy - SMALL_DISC[1]) / SMALL_DISC[2]
+    small_img = planes_against_cpu(
+        f'{SMALL}x{SMALL} images',
+        {n: card_body.get_backplane_img(n) for n in names}, ref,
+        compare.per_plane_tolerance(cpu_body, angle=compare.F64_CARD_ANGLE,
+                                    pixel=0.0),
+        compare.per_plane_ill_conditioned(ref, offset),
+        centre_pixel((SMALL, SMALL), SMALL_DISC))
+    ref = {n: cpu_body.get_backplane_map(n, **SMALL_MAP) for n in names}
+    # the ray to a surface point at emission e passes R sin(e) from the
+    # centre of a sphere of radius R
+    emission_offset = np.abs(np.sin(np.radians(ref['EMISSION'])))
+    small_map = planes_against_cpu(
+        '180x360 maps',
+        {n: card_body.get_backplane_map(n, **SMALL_MAP) for n in names}, ref,
+        # x/y: 8 ulps of an RA between 256 and 512 deg in pixels, the bar
+        # of xy_against_cpu_body
+        compare.per_plane_tolerance(
+            cpu_body, angle=compare.F64_CARD_ANGLE,
+            pixel=8 * 2.0**-44 * 3600.0 / cpu_body.get_plate_scale_arcsec()),
+        compare.per_plane_ill_conditioned(ref, emission_offset))
+    return dict(img_ms=img_ms, img_peak=img_peak, map_ms=map_ms,
+                map_peak=map_peak, fused=reports, small_img=small_img,
+                small_map=small_map)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
@@ -905,6 +1070,15 @@ def main() -> int:
                 'and the recorded kernel inputs held for the comparisons '
                 'included)')
             log(f'[map] phase {time.perf_counter() - t_map:.1f} s')
+            t_planes = time.perf_counter()
+            planes = planes_phase(device, card_line())
+            log(f'[planes] {card} | all 26 get_backplane_img on a fresh '
+                f'{SIZE}x{SIZE} body {planes["img_ms"]:.1f} ms (peak '
+                f'{planes["img_peak"]:.1f} MiB) against kernel 1\'s '
+                f'{bp_times["kernel"]:.4f} ms for the same frame; all 26 '
+                f'get_backplane_map {planes["map_ms"]:.1f} ms (peak '
+                f'{planes["map_peak"]:.1f} MiB); phase '
+                f'{time.perf_counter() - t_planes:.1f} s')
             pt.clear_kernels()
     except SmokeFailure as exc:
         log(f'FAIL: {exc}')

@@ -1,15 +1,23 @@
 """
 planetmapper_tpu_torch: the PyTorch/CUDA port of planetmapper_tpu.
 
-This package mirrors ``planetmapper_tpu`` module for module. Scene geometry
-(SPICE kernels, ephemerides, frames, per-scene anchors) runs as float64
-PyTorch code on CPU tensors; the per-pixel backplane pipeline and the map
-reprojection run on the device chosen for each :class:`BodyXY` -
-hand-written CUDA kernels on an NVIDIA GPU (``csrc/*.cu``), or their plain
-PyTorch versions on CPU tensors.
+This package mirrors ``planetmapper_tpu`` module for module. Each
+:class:`BodyXY` carries the device it runs on: ``cuda`` by default (it
+raises without a card), the CPU only when built with ``device='cpu'``.
+The per-pixel backplane pipeline and the map reprojection run there, as
+hand-written CUDA kernels on an NVIDIA GPU (``csrc/*.cu``) or as their
+plain PyTorch versions on the CPU. Scene geometry (ephemerides, frames,
+light-time loops) is float64 PyTorch code routed by one rule
+(``_device.call_device``): a call with an argument of more than 4096
+elements - a frame's pixel rays, a map's samples - runs on its inputs'
+device, so a card body's per-plane images and maps stay on the card;
+smaller calls (the scalar API, the scene constants, the anchors) run on
+CPU tensors.
 
-Ported so far: ``Body``, ``BodyXY`` (disc parameters, the fused
-26-backplane pipeline, the map coordinates and ``map_img``), the
+Ported so far: ``Body`` (its point transforms and per-point physics),
+``BodyXY`` (disc parameters, the pixel transforms, the backplane registry
+with the 26 per-plane image and map getters, the fused 26-backplane
+pipeline, the map coordinates and ``map_img``), ``BasicBody``, the
 kernel-path functions and :mod:`.pipeline`. The rest of the JAX package's
 API is listed in ROADMAP.md.
 """
@@ -17,25 +25,60 @@ API is listed in ROADMAP.md.
 from __future__ import annotations
 
 from . import pipeline
-from .body import Body
-from .body_xy import BodyXY
-from .common import __version__
+from .base import BodyBase, SpiceBase
+from .basic_body import BasicBody
+from .body import AngularCoordinateKwargs, Body
+from .body_xy import Backplane, BackplaneNotFoundError, BodyXY, MapKwargs
+from .common import (
+    CITATION_BIBTEX,
+    CITATION_DOI,
+    CITATION_STRING,
+    __version__,
+)
 from .kernels.pool import (
     clear_kernels,
     get_kernel_path,
     load_kernels,
     prevent_kernel_loading,
     set_kernel_path,
+    sort_kernel_paths,
 )
 
 __all__ = [
-    'Body',
-    'BodyXY',
     'set_kernel_path',
     'get_kernel_path',
     'load_kernels',
     'clear_kernels',
     'prevent_kernel_loading',
+    'sort_kernel_paths',
+    'SpiceBase',
+    'BodyBase',
+    'Body',
+    'Backplane',
+    'BackplaneNotFoundError',
+    'BodyXY',
+    'BasicBody',
+    'AngularCoordinateKwargs',
+    'MapKwargs',
+    'base',
+    'data_loader',
     'pipeline',
+    'CITATION_STRING',
+    'CITATION_DOI',
+    'CITATION_BIBTEX',
     '__version__',
 ]
+
+#: The ported submodules, imported on first access (as in the JAX package)
+_SUBMODULES = {
+    'base', 'body', 'basic_body', 'body_xy', 'progress', 'data_loader',
+    'common', 'exceptions', 'pipeline', 'core', 'kernels', 'ops', 'testing',
+}
+
+
+def __getattr__(name: str):
+    if name in _SUBMODULES:
+        import importlib
+
+        return importlib.import_module(f'.{name}', __name__)
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from . import progress
-from ._device import f64
+from ._device import call_device, f64
 from .core.ephemeris import (
     Ephemeris,
     InsufficientDataError,
@@ -124,6 +124,43 @@ def _return_readonly_array(fn):
         return _as_readonly_view(fn(self, *args, **kwargs))
 
     return decorated
+
+
+def _on_tensors(fn):
+    """
+    Run a transform written on float64 tensors for every caller. With a
+    tensor among the arguments, they all go in on the device of the call
+    (``_device.call_device``: their own for a bulk call, the host for a
+    small one) and the results stay tensors there. Numbers and numpy arrays
+    go in as CPU tensors, and the results come back as numpy arrays, or as
+    numbers where a result is 0-d (one point).
+    """
+
+    @functools.wraps(fn)
+    def decorated(self, *args, **kwargs):
+        if any(isinstance(a, torch.Tensor) for a in args):
+            device = call_device(*args)
+            return fn(self, *(f64(a, device) for a in args), **kwargs)
+        return _host_values(fn(self, *(f64(a) for a in args), **kwargs))
+
+    return decorated
+
+
+def _host_values(out):
+    """CPU tensors (or a tuple of them) as numpy arrays, 0-d ones as numbers."""
+    if isinstance(out, tuple):
+        return tuple(_host_values(v) for v in out)
+    return out.item() if out.ndim == 0 else out.numpy()
+
+
+def _broadcast_to(a, shape: tuple[int, ...]):
+    """``a`` (a tensor, a number or an array) broadcast to ``shape``: a
+    tensor as a view on its own device, anything else as a float numpy
+    array."""
+    if isinstance(a, torch.Tensor):
+        return a.expand(shape)
+    return np.broadcast_arrays(np.asarray(a, dtype=float),
+                               np.empty(shape, dtype=bool))[0]
 
 
 def _replace_np_arr_args_with_tuples(args: tuple, kwargs: dict):
@@ -384,17 +421,13 @@ class SpiceBase:
         """Magnitude of a vector."""
         return (sum(v * v)) ** 0.5
 
-    @staticmethod
-    def _radian_pair2degrees(radians0, radians1):
-        if isinstance(radians0, torch.Tensor):
-            return torch.rad2deg(radians0), torch.rad2deg(radians1)
-        return np.rad2deg(radians0), np.rad2deg(radians1)
+    @_on_tensors
+    def _radian_pair2degrees(self, radians0, radians1):
+        return torch.rad2deg(radians0), torch.rad2deg(radians1)
 
-    @staticmethod
-    def _degree_pair2radians(degrees0, degrees1):
-        if isinstance(degrees0, torch.Tensor):
-            return torch.deg2rad(degrees0), torch.deg2rad(degrees1)
-        return np.deg2rad(degrees0), np.deg2rad(degrees1)
+    @_on_tensors
+    def _degree_pair2radians(self, degrees0, degrees1):
+        return torch.deg2rad(degrees0), torch.deg2rad(degrees1)
 
     @staticmethod
     def _rotation_matrix_radians(theta: float) -> np.ndarray:
@@ -426,17 +459,21 @@ class SpiceBase:
         Dispatch a two-argument transform over floats or broadcast arrays.
 
         Where the reference loops a scalar FFI call with ``np.nditer``
-        (base.py:718-759), here ``func`` is expected to handle batched numpy
+        (base.py:718-759), here ``func`` is expected to handle batched
         inputs natively (the underlying geometry is batched tensor code), so
-        arrays are simply broadcast and passed through in one call.
+        arrays are simply broadcast to one shape and passed through in one
+        call, each as it came: tensors where they are, the rest as numpy.
+        Where the call runs is left to ``func``'s transforms
+        (:func:`_on_tensors`).
         """
         numeric_types = (float, numbers.Number)
         if isinstance(arg1, numeric_types) and isinstance(arg2, numeric_types):
             return func(arg1, arg2, *args, **kwargs)
-        a1, a2 = np.broadcast_arrays(
-            np.asarray(arg1, dtype=float), np.asarray(arg2, dtype=float)
+        shape = np.broadcast_shapes(np.shape(arg1), np.shape(arg2))
+        return func(
+            _broadcast_to(arg1, shape), _broadcast_to(arg2, shape),
+            *args, **kwargs,
         )
-        return func(a1, a2, *args, **kwargs)
 
     # -- progress hooks ------------------------------------------------------
     def _set_progress_hook(self, progress_hook: progress.ProgressHook) -> None:
@@ -568,24 +605,20 @@ class BodyBase(SpiceBase):
     def _get_default_init_kwargs(cls) -> dict[str, Any]:
         return dict(**super()._get_default_init_kwargs())
 
+    @_on_tensors
     def _obsvec2radec_radians(self, obsvec):
         """
-        Observer-frame rectangular vector(s) to RA/Dec in radians: a float64
-        tensor in, tensors on its device out; numpy in, numpy out (floats
-        for one vector, NaN for a non-finite one).
+        Observer-frame rectangular vector(s) to RA/Dec in radians (NaN for
+        one non-finite vector).
         """
-        tensor = isinstance(obsvec, torch.Tensor)
-        v = obsvec if tensor else f64(obsvec)
-        if not tensor and v.ndim == 1 and not torch.isfinite(v).all():
-            return np.nan, np.nan
-        ra = torch.remainder(torch.atan2(v[..., 1], v[..., 0]), 2 * np.pi)
-        norm = torch.sqrt(torch.sum(v * v, dim=-1))
-        dec = torch.asin(torch.clamp(v[..., 2] / norm, -1.0, 1.0))
-        if tensor:
-            return ra, dec
-        if v.ndim == 1:
-            return ra.item(), dec.item()
-        return ra.numpy(), dec.numpy()
+        if obsvec.ndim == 1 and not bool(torch.isfinite(obsvec).all()):
+            nan = obsvec.new_tensor(math.nan)
+            return nan, nan
+        ra = torch.remainder(torch.atan2(obsvec[..., 1], obsvec[..., 0]),
+                             2 * np.pi)
+        norm = torch.sqrt(torch.sum(obsvec * obsvec, dim=-1))
+        dec = torch.asin(torch.clamp(obsvec[..., 2] / norm, -1.0, 1.0))
+        return ra, dec
 
     def _obsvec2radec(self, obsvec: np.ndarray):
         return self._radian_pair2degrees(*self._obsvec2radec_radians(obsvec))

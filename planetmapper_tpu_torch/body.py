@@ -1,24 +1,22 @@
 """
 Body: the geometry engine API (port of ``planetmapper_tpu.body``).
 
-This slice ports what a :class:`Body` needs to build its scene and to feed
-the fused backplane pipeline: the constructor (scene constants, sub-observer
-and sub-solar points, ring plane), the longitude-sign helper, the
-lonlat -> radec -> angular transforms that the pipeline anchors use
-(through :func:`Body.north_pole_angle`), the angular <-> km matrices, the
-illumination and visibility functions the map coordinates use, and the
-surface-altitude adjustment of the map getters. The other transforms and
-the limb, terminator, ring, local-solar-time, state, occultation and
-plotting methods are listed in ROADMAP.md.
+Ported: the constructor (scene constants, sub-observer and sub-solar
+points, ring plane), the transforms between lonlat (planetographic and
+planetocentric), radec, km, angular and the internal targvec/obsvec
+vectors, the illumination angles, azimuth, visibility and illumination
+tests of points, the limb coordinates of rays, local solar time,
+ring-plane coordinates, the states, radial velocities and distances of
+points, and the surface-altitude adjustment. Other bodies, limb and
+terminator curves, named rings, lon/lat grids, occultation,
+``get_description`` and plotting are listed in ROADMAP.md.
 
-Public methods take and return floats or numpy arrays like the JAX
-package, on float64 CPU tensors inside. The transforms of the map chain
-(:meth:`Body._lonlat2targvec_radians`, :meth:`Body._targvec2obsvec`,
-:meth:`Body._illumf_from_targvec_radians`, ``_obsvec2radec_radians``, ...)
-have one implementation on float64 tensors: numbers and numpy arrays go in
-as CPU tensors and come back as numpy, and tensors come back as tensors on
-their device, so that a :class:`BodyXY` keeps its map grids on its own
-device (``_device.py``).
+Every transform takes numbers, numpy arrays or float64 tensors
+(:func:`.base._on_tensors`). Tensors come back as tensors, on the device
+the routing rule of ``_device.py`` gives the call: a bulk call (a map or a
+pixel grid) runs on its inputs' device, which keeps a :class:`BodyXY`'s
+images and maps on the body's device. Numbers and numpy arrays come back
+as numpy arrays, or as numbers for one point.
 """
 
 from __future__ import annotations
@@ -27,7 +25,7 @@ import datetime
 import functools
 import math
 import os
-from typing import Any
+from typing import Any, TypedDict
 
 import numpy as np
 import torch
@@ -40,6 +38,7 @@ from .base import (
     NotFoundError,
     SpiceError,
     _cache_stable_result,
+    _on_tensors,
     _replace_np_arr_args_with_tuples,
     get_pool,
 )
@@ -47,6 +46,14 @@ from .core import geometry as geom
 from .core.ephemeris import InsufficientDataError
 from .core.frames import BodyFrameModel
 from .core.scene import SceneEngine
+
+
+class AngularCoordinateKwargs(TypedDict, total=False):
+    """Customisation of the relative angular coordinate system."""
+
+    origin_ra: float | None
+    origin_dec: float | None
+    coordinate_rotation: float
 
 
 def _unit_from_radec(ra: torch.Tensor, dec: torch.Tensor) -> torch.Tensor:
@@ -203,7 +210,7 @@ class Body(BodyBase):
     """
     An astronomical body observed at a specific time (port of
     ``planetmapper_tpu.Body``; parity with the reference's ``Body``,
-    body.py:275). Transforms accept floats or numpy arrays.
+    body.py:275). Transforms accept floats, numpy arrays or tensors.
     """
 
     def __init__(
@@ -392,17 +399,11 @@ class Body(BodyBase):
     # ------------------------------------------------------------------
     # Core coordinate transformations (all built to/from obsvec)
     # ------------------------------------------------------------------
+    @_on_tensors
     def _lonlat2targvec_radians(
         self, lon, lat, *, alt: float, not_visible_nan: bool
     ):
-        """
-        Planetographic radians -> body-fixed vectors (pgrrec equivalent).
-        Float64 tensors in: a tensor on their device out; numbers or numpy
-        arrays in: numpy out.
-        """
-        tensor = isinstance(lon, torch.Tensor)
-        if not tensor:
-            lon, lat = f64(lon), f64(lat)
+        """Planetographic radians -> body-fixed vectors (pgrrec equivalent)."""
         lon_e = -lon if self.positive_longitude_direction == 'W' else lon
         targvec = geom.geodetic_to_rect(
             lon_e, lat, alt, self.r_eq, self.flattening
@@ -412,33 +413,23 @@ class Body(BodyBase):
             bad = torch.ones_like(bad)
         targvec = torch.where(bad[..., None], math.nan, targvec)
         if not_visible_nan:
-            visible = torch.as_tensor(
-                self._test_if_targvec_visible_batch(
-                    targvec, on_surface=(alt == 0.0)
-                ),
-                device=targvec.device,
+            visible = self._test_if_targvec_visible_batch(
+                targvec, on_surface=(alt == 0.0)
             )
             targvec = torch.where(visible[..., None], targvec, math.nan)
-        return targvec if tensor else targvec.numpy()
+        return targvec
 
+    @_on_tensors
     def _targvec2lonlat_radians(self, targvec):
         """Body-fixed vectors -> planetographic radians (recpgr equivalent)."""
-        targvec = np.asarray(targvec, dtype=float)
         lon_e, lat, _alt = geom.rect_to_geodetic(
-            f64(targvec), self.r_eq, self.flattening
+            targvec, self.r_eq, self.flattening
         )
-        lon_e = lon_e.numpy()
-        lat = lat.numpy()
         if self.positive_longitude_direction == 'W':
-            lon = np.mod(-lon_e, 2 * np.pi)
-        else:
-            lon = np.mod(lon_e, 2 * np.pi)
-        bad = ~np.all(np.isfinite(targvec), axis=-1)
-        lon = np.where(bad, np.nan, lon)
-        lat = np.where(bad, np.nan, lat)
-        if lon.ndim == 0:
-            return float(lon), float(lat)
-        return lon, lat
+            lon_e = -lon_e
+        bad = ~torch.isfinite(targvec).all(dim=-1)
+        return (torch.where(bad, math.nan, torch.remainder(lon_e, 2 * np.pi)),
+                torch.where(bad, math.nan, lat))
 
     def _sub_consts(self) -> dict:
         return {
@@ -449,69 +440,146 @@ class Body(BodyBase):
             'subpoint_et': self._subpoint_et,
         }
 
-    def _targvec2obsvec(self, targvec: np.ndarray) -> np.ndarray:
+    @_on_tensors
+    def _targvec2obsvec(self, targvec):
         """
         Body-fixed -> observer-frame vectors with per-point light-time
-        retargeting (reference body.py:917-948). A float64 tensor in: a
-        tensor on its device out.
+        retargeting (reference body.py:917-948).
         """
-        if isinstance(targvec, torch.Tensor):
-            return self._engine.targvec2obsvec(targvec, self._sub_consts())
-        return self._engine.targvec2obsvec(
-            np.asarray(targvec, dtype=float), self._sub_consts()
-        ).numpy()
+        return self._engine.targvec2obsvec(targvec, self._sub_consts())
 
-    def _obsvec2targvec(self, obsvec: np.ndarray) -> np.ndarray:
+    @_on_tensors
+    def _obsvec2targvec(self, obsvec):
         """Observer-frame -> body-fixed vectors (reference body.py:972-1006)."""
-        return self._engine.obsvec2targvec(
-            np.asarray(obsvec, dtype=float), self._sub_consts()
-        ).numpy()
+        return self._engine.obsvec2targvec(obsvec, self._sub_consts())
 
+    @_on_tensors
+    def _rayvec2obsvec(self, rayvec, et):
+        """Target-frame ray at epoch ``et`` -> observer frame vector."""
+        m = self._engine.frame_model.bodyfixed_to_j2000_matrix(float(et))
+        return _matvec_rows(m.numpy(), rayvec)
+
+    @_on_tensors
     def _radec2obsvec_norm_radians(self, ra, dec):
-        """RA/Dec radians -> unit observer-frame vectors (tensors or numpy,
-        as :meth:`_lonlat2targvec_radians`)."""
-        tensor = isinstance(ra, torch.Tensor)
-        if not tensor:
-            ra, dec = f64(ra), f64(dec)
+        """RA/Dec radians -> unit observer-frame vectors."""
         bad = ~(torch.isfinite(ra) & torch.isfinite(dec))
-        out = torch.where(bad[..., None], math.nan, _unit_from_radec(ra, dec))
-        return out if tensor else out.numpy()
+        return torch.where(bad[..., None], math.nan, _unit_from_radec(ra, dec))
 
-    def _radec2obsvec_norm(self, ra, dec) -> np.ndarray:
+    def _radec2obsvec_norm(self, ra, dec):
         return self._radec2obsvec_norm_radians(
             *self._degree_pair2radians(ra, dec)
         )
 
+    @_on_tensors
+    def _obsvec_norm2targvec(self, obsvec_norm):
+        """
+        Surface intercepts of rays from the observer (sincpt equivalent).
+        One ray raises NotFoundError when it misses; batched rays give NaN
+        rows.
+        """
+        targvec, _trgepc, found = self._engine.sincpt(
+            self.et, self.radii, obsvec_norm, self.target_light_time
+        )
+        if obsvec_norm.ndim == 1 and not bool(found):
+            raise NotFoundError(
+                'No intercept found between the ray and the target body'
+            )
+        return targvec
+
+    # Useful composite transforms --------------------------------------------
     def _lonlat2obsvec(
         self, lon, lat, *, alt: float, not_visible_nan: bool,
-    ) -> np.ndarray:
+        planetocentric: bool,
+    ):
+        if planetocentric:
+            lon, lat = self.centric2graphic_lonlat(lon, lat, alt=alt)
         return self._targvec2obsvec(
             self._lonlat2targvec_radians(
-                *self._degree_pair2radians(
-                    np.asarray(lon, dtype=float), np.asarray(lat, dtype=float)
-                ),
+                *self._degree_pair2radians(lon, lat),
                 alt=alt,
                 not_visible_nan=not_visible_nan,
             ),
         )
 
+    @_on_tensors
+    def _obsvec_norm2lonlat(
+        self, obsvec_norm, *, not_found_nan: bool, alt: float,
+        planetocentric: bool,
+    ):
+        with _AdjustedSurfaceAltitude(self, alt):
+            if obsvec_norm.ndim == 1 and not not_found_nan:
+                targvec = self._obsvec_norm2targvec(obsvec_norm)  # may raise
+            else:
+                targvec = self._engine.sincpt(
+                    self.et, self.radii, obsvec_norm, self.target_light_time
+                )[0]
+            lon, lat = self._radian_pair2degrees(
+                *self._targvec2lonlat_radians(targvec)
+            )
+            if planetocentric:
+                lon, lat = self.graphic2centric_lonlat(lon, lat, alt=alt)
+            return lon, lat
+
     # Public transforms ------------------------------------------------------
     def lonlat2radec(
         self, lon: FloatOrArray, lat: FloatOrArray, *, alt: float = 0.0,
-        not_visible_nan: bool = True,
+        not_visible_nan: bool = True, planetocentric: bool = False,
     ) -> tuple[FloatOrArray, FloatOrArray]:
         """Planetographic lonlat -> RA/Dec for the observer."""
         return self._maybe_transform_as_arrays(
             self._lonlat2radec, lon, lat, alt=alt,
-            not_visible_nan=not_visible_nan,
+            not_visible_nan=not_visible_nan, planetocentric=planetocentric,
         )
 
-    def _lonlat2radec(self, lon, lat, *, alt, not_visible_nan):
+    def _lonlat2radec(self, lon, lat, *, alt, not_visible_nan, planetocentric):
         return self._obsvec2radec(
             self._lonlat2obsvec(
                 lon, lat, alt=alt, not_visible_nan=not_visible_nan,
+                planetocentric=planetocentric,
             )
         )
+
+    def radec2lonlat(
+        self, ra: FloatOrArray, dec: FloatOrArray, *,
+        not_found_nan: bool = True, alt: float = 0.0,
+        planetocentric: bool = False,
+    ) -> tuple[FloatOrArray, FloatOrArray]:
+        """RA/Dec -> planetographic lonlat (NaN where missing the disc)."""
+        return self._maybe_transform_as_arrays(
+            self._radec2lonlat, ra, dec, not_found_nan=not_found_nan,
+            alt=alt, planetocentric=planetocentric,
+        )
+
+    def _radec2lonlat(self, ra, dec, *, not_found_nan, alt, planetocentric):
+        return self._obsvec_norm2lonlat(
+            self._radec2obsvec_norm(ra, dec),
+            not_found_nan=not_found_nan, alt=alt,
+            planetocentric=planetocentric,
+        )
+
+    def lonlat2targvec(
+        self, lon, lat, *, alt: float = 0.0, not_visible_nan: bool = False,
+        planetocentric: bool = False,
+    ):
+        """Planetographic lonlat -> body-fixed rectangular vector."""
+        if planetocentric:
+            lon, lat = self.centric2graphic_lonlat(lon, lat, alt=alt)
+        return self._lonlat2targvec_radians(
+            *self._degree_pair2radians(lon, lat),
+            alt=alt, not_visible_nan=not_visible_nan,
+        )
+
+    def targvec2lonlat(
+        self, targvec, *, alt: float = 0.0, planetocentric: bool = False,
+    ):
+        """Body-fixed rectangular vector -> planetographic lonlat."""
+        with _AdjustedSurfaceAltitude(self, alt):
+            lon, lat = self._radian_pair2degrees(
+                *self._targvec2lonlat_radians(targvec)
+            )
+            if planetocentric:
+                lon, lat = self.graphic2centric_lonlat(lon, lat)
+            return lon, lat
 
     # Angular coordinates ----------------------------------------------------
     @_cache_stable_result
@@ -533,24 +601,27 @@ class Body(BodyBase):
         rotation_matrix = _spice_rotate(np.deg2rad(coordinate_rotation), 1)
         return rotation_matrix @ dec_matrix @ ra_matrix
 
+    @_on_tensors
     def _obsvec2angular(self, obsvec, **angular_kwargs):
-        """Observer-frame vectors -> angular coordinates [arcsec] (tensors,
-        numpy arrays or, for one vector, floats, as they came)."""
+        """Observer-frame vectors -> angular coordinates [arcsec]."""
         m = self._get_obsvec2angular_matrix(**angular_kwargs)
-        tensor = isinstance(obsvec, torch.Tensor)
-        v = obsvec if tensor else f64(obsvec)
-        _r, x_rad, y_rad = _radec_from_unit(_matvec_rows(m, v))
+        _r, x_rad, y_rad = _radec_from_unit(_matvec_rows(m, obsvec))
         x = torch.remainder(-torch.rad2deg(x_rad), 360.0)
         x = torch.where(x > 180.0, x - 360.0, x)
         y = torch.rad2deg(y_rad)
-        bad = ~torch.isfinite(v).all(dim=-1)
-        x = torch.where(bad, math.nan, x) * 3600.0
-        y = torch.where(bad, math.nan, y) * 3600.0
-        if tensor:
-            return x, y
-        if x.ndim == 0:
-            return float(x), float(y)
-        return x.numpy(), y.numpy()
+        bad = ~torch.isfinite(obsvec).all(dim=-1)
+        return (torch.where(bad, math.nan, x) * 3600.0,
+                torch.where(bad, math.nan, y) * 3600.0)
+
+    @_on_tensors
+    def _angular2obsvec_norm(self, angular_x, angular_y, **angular_kwargs):
+        """Angular coordinates [arcsec] -> unit observer-frame vectors."""
+        vec = _unit_from_radec(
+            -torch.deg2rad(angular_x / 3600.0),
+            torch.deg2rad(angular_y / 3600.0),
+        )
+        m = self._get_obsvec2angular_matrix(**angular_kwargs)
+        return _matvec_rows(m.T, vec)  # (M^T @ v)^T = v @ M
 
     def radec2angular(
         self, ra: FloatOrArray, dec: FloatOrArray, *,
@@ -566,6 +637,66 @@ class Body(BodyBase):
     def _radec2angular(self, ra, dec, **angular_kwargs):
         return self._obsvec2angular(
             self._radec2obsvec_norm(ra, dec), **angular_kwargs
+        )
+
+    def angular2radec(
+        self, angular_x: FloatOrArray, angular_y: FloatOrArray,
+        **angular_kwargs,
+    ) -> tuple[FloatOrArray, FloatOrArray]:
+        """Relative angular coordinates -> RA/Dec."""
+        return self._maybe_transform_as_arrays(
+            self._angular2radec, angular_x, angular_y, **angular_kwargs
+        )
+
+    def _angular2radec(self, angular_x, angular_y, **angular_kwargs):
+        return self._obsvec2radec(
+            self._angular2obsvec_norm(angular_x, angular_y, **angular_kwargs)
+        )
+
+    def angular2lonlat(
+        self, angular_x: FloatOrArray, angular_y: FloatOrArray, *,
+        not_found_nan: bool = True, alt: float = 0.0,
+        planetocentric: bool = False, **angular_kwargs,
+    ) -> tuple[FloatOrArray, FloatOrArray]:
+        """Relative angular coordinates -> planetographic lonlat."""
+        return self._maybe_transform_as_arrays(
+            self._angular2lonlat, angular_x, angular_y,
+            not_found_nan=not_found_nan, alt=alt,
+            planetocentric=planetocentric, **angular_kwargs,
+        )
+
+    def _angular2lonlat(
+        self, angular_x, angular_y, *, not_found_nan, alt, planetocentric,
+        **angular_kwargs,
+    ):
+        return self._obsvec_norm2lonlat(
+            self._angular2obsvec_norm(angular_x, angular_y, **angular_kwargs),
+            not_found_nan=not_found_nan, alt=alt,
+            planetocentric=planetocentric,
+        )
+
+    def lonlat2angular(
+        self, lon: FloatOrArray, lat: FloatOrArray, *, alt: float = 0.0,
+        not_visible_nan: bool = True, planetocentric: bool = False,
+        **angular_kwargs,
+    ) -> tuple[FloatOrArray, FloatOrArray]:
+        """Planetographic lonlat -> relative angular coordinates."""
+        return self._maybe_transform_as_arrays(
+            self._lonlat2angular, lon, lat, alt=alt,
+            not_visible_nan=not_visible_nan, planetocentric=planetocentric,
+            **angular_kwargs,
+        )
+
+    def _lonlat2angular(
+        self, lon, lat, *, alt, not_visible_nan, planetocentric,
+        **angular_kwargs,
+    ):
+        return self._obsvec2angular(
+            self._lonlat2obsvec(
+                lon, lat, alt=alt, not_visible_nan=not_visible_nan,
+                planetocentric=planetocentric,
+            ),
+            **angular_kwargs,
         )
 
     # km <-> angular ---------------------------------------------------------
@@ -585,61 +716,421 @@ class Body(BodyBase):
             )
         return self._matrix_angular2km
 
+    @_on_tensors
+    def _km2obsvec_norm(self, km_x, km_y):
+        km = torch.stack(torch.broadcast_tensors(km_x, km_y), dim=-1)
+        ang = _matvec_rows(self._get_km2angular_matrix(), km)
+        return self._angular2obsvec_norm(ang[..., 0], ang[..., 1])
+
+    @_on_tensors
+    def _obsvec2km(self, obsvec):
+        ang = torch.stack(self._obsvec2angular(obsvec), dim=-1)
+        return _matvec_rows(self._get_angular2km_matrix(), ang).unbind(-1)
+
+    def km2radec(
+        self, km_x: FloatOrArray, km_y: FloatOrArray
+    ) -> tuple[FloatOrArray, FloatOrArray]:
+        """Target-plane km -> RA/Dec."""
+        return self._maybe_transform_as_arrays(self._km2radec, km_x, km_y)
+
+    def _km2radec(self, km_x, km_y):
+        return self._obsvec2radec(self._km2obsvec_norm(km_x, km_y))
+
+    def radec2km(
+        self, ra: FloatOrArray, dec: FloatOrArray
+    ) -> tuple[FloatOrArray, FloatOrArray]:
+        """RA/Dec -> target-plane km."""
+        return self._maybe_transform_as_arrays(self._radec2km, ra, dec)
+
+    def _radec2km(self, ra, dec):
+        return self._obsvec2km(self._radec2obsvec_norm(ra, dec))
+
+    def km2lonlat(
+        self, km_x: FloatOrArray, km_y: FloatOrArray, *,
+        not_found_nan: bool = True, alt: float = 0.0,
+        planetocentric: bool = False,
+    ) -> tuple[FloatOrArray, FloatOrArray]:
+        """Target-plane km -> planetographic lonlat."""
+        return self._maybe_transform_as_arrays(
+            self._km2lonlat, km_x, km_y, not_found_nan=not_found_nan,
+            alt=alt, planetocentric=planetocentric,
+        )
+
+    def _km2lonlat(self, km_x, km_y, *, not_found_nan, alt, planetocentric):
+        return self._obsvec_norm2lonlat(
+            self._km2obsvec_norm(km_x, km_y), not_found_nan=not_found_nan,
+            alt=alt, planetocentric=planetocentric,
+        )
+
+    def lonlat2km(
+        self, lon: FloatOrArray, lat: FloatOrArray, *, alt: float = 0.0,
+        not_visible_nan: bool = True, planetocentric: bool = False,
+    ) -> tuple[FloatOrArray, FloatOrArray]:
+        """Planetographic lonlat -> target-plane km."""
+        return self._maybe_transform_as_arrays(
+            self._lonlat2km, lon, lat, alt=alt,
+            not_visible_nan=not_visible_nan, planetocentric=planetocentric,
+        )
+
+    def _lonlat2km(self, lon, lat, *, alt, not_visible_nan, planetocentric):
+        return self._obsvec2km(
+            self._lonlat2obsvec(
+                lon, lat, alt=alt, not_visible_nan=not_visible_nan,
+                planetocentric=planetocentric,
+            )
+        )
+
+    def km2angular(
+        self, km_x: FloatOrArray, km_y: FloatOrArray, **angular_kwargs
+    ) -> tuple[FloatOrArray, FloatOrArray]:
+        """Target-plane km -> relative angular coordinates."""
+        return self._maybe_transform_as_arrays(
+            self._km2angular, km_x, km_y, **angular_kwargs
+        )
+
+    def _km2angular(self, km_x, km_y, **angular_kwargs):
+        return self._obsvec2angular(
+            self._km2obsvec_norm(km_x, km_y), **angular_kwargs
+        )
+
+    def angular2km(
+        self, angular_x: FloatOrArray, angular_y: FloatOrArray,
+        **angular_kwargs,
+    ) -> tuple[FloatOrArray, FloatOrArray]:
+        """Relative angular coordinates -> target-plane km."""
+        return self._maybe_transform_as_arrays(
+            self._angular2km, angular_x, angular_y, **angular_kwargs
+        )
+
+    def _angular2km(self, angular_x, angular_y, **angular_kwargs):
+        return self._obsvec2km(
+            self._angular2obsvec_norm(angular_x, angular_y, **angular_kwargs)
+        )
+
     # ------------------------------------------------------------------
     # Illumination and visibility
     # ------------------------------------------------------------------
+    @_on_tensors
     def _illumf_from_targvec_radians(self, targvec):
-        """
-        (phase, incidence, emission, visible, lit) of body-fixed vectors.
-        A float64 tensor in: tensors on the device the scene call ran on
-        (``_device.scene_device``); numpy in: numpy out, or numbers for one
-        vector.
-        """
-        tensor = isinstance(targvec, torch.Tensor)
-        v = targvec if tensor else f64(targvec)
-        if not tensor and v.ndim == 1 and not torch.isfinite(v).all():
-            return np.nan, np.nan, np.nan, False, False
+        """(phase, incidence, emission, visible, lit) of body-fixed vectors."""
         phase, incdnc, emissn, visibl, lit = self._engine.illumf(
-            self.et, self.radii, v
+            self.et, self.radii, targvec
         )
-        good = torch.isfinite(v).all(dim=-1).to(phase.device)
-        out = (
+        good = torch.isfinite(targvec).all(dim=-1)
+        return (
             torch.where(good, phase, math.nan),
             torch.where(good, incdnc, math.nan),
             torch.where(good, emissn, math.nan),
             visibl & good,
             lit & good,
         )
-        if tensor:
-            return out
-        if v.ndim == 1:
-            return tuple(t.item() for t in out)
-        return tuple(t.numpy() for t in out)
 
+    def _illumination_angles_from_targvec_radians(self, targvec):
+        phase, incdnc, emissn, _visibl, _lit = (
+            self._illumf_from_targvec_radians(targvec)
+        )
+        return phase, incdnc, emissn
+
+    @_on_tensors
+    def illumination_angles_from_lonlat(
+        self, lon, lat, *, alt: float = 0.0, planetocentric: bool = False,
+    ):
+        """(phase, incidence, emission) angles in degrees for a lonlat."""
+        phase, incdnc, emissn = self._illumination_angles_from_targvec_radians(
+            self.lonlat2targvec(lon, lat, alt=alt, planetocentric=planetocentric)
+        )
+        return (torch.rad2deg(phase), torch.rad2deg(incdnc),
+                torch.rad2deg(emissn))
+
+    @_on_tensors
+    def _azimuth_angle_from_gie_radians(
+        self, phase_radians, incidence_radians, emission_radians,
+    ):
+        # Azimuth from the spherical triangle of the three illumination
+        # angles (same formula as the reference, body.py:2319-2332)
+        a = torch.cos(phase_radians) - torch.cos(emission_radians) * torch.cos(
+            incidence_radians
+        )
+        b = torch.sqrt(1.0 - torch.cos(emission_radians) ** 2) * torch.sqrt(
+            1.0 - torch.cos(incidence_radians) ** 2
+        )
+        return math.pi - torch.acos(a / b)
+
+    @_on_tensors
+    def azimuth_angle_from_lonlat(
+        self, lon, lat, *, alt: float = 0.0, planetocentric: bool = False,
+    ):
+        """Azimuth angle in degrees for a lonlat."""
+        azimuth_radians = self._azimuth_angle_from_gie_radians(
+            *self._illumination_angles_from_targvec_radians(
+                self.lonlat2targvec(
+                    lon, lat, alt=alt, planetocentric=planetocentric
+                )
+            )
+        )
+        return torch.rad2deg(azimuth_radians)
+
+    def _test_if_targvec_illuminated(self, targvec):
+        return self._illumf_from_targvec_radians(targvec)[4]
+
+    def test_if_lonlat_illuminated(
+        self, lon, lat, *, alt: float = 0.0, planetocentric: bool = False,
+    ):
+        """Test if a surface point is illuminated."""
+        return self._test_if_targvec_illuminated(
+            self.lonlat2targvec(lon, lat, alt=alt, planetocentric=planetocentric)
+        )
+
+    @_on_tensors
     def _test_if_targvec_visible_batch(self, targvec, *, on_surface: bool):
         if on_surface:
             return self._illumf_from_targvec_radians(targvec)[3]
-        targvec = np.asarray(targvec, dtype=float)
         # Off-surface: search for an intercept between the observer->point
         # ray and the surface; if found, the point is visible only when it
         # is in front of the intercept (reference body.py:2131-2150).
         obsvec = self._targvec2obsvec(targvec)
-        d = obsvec / np.linalg.norm(obsvec, axis=-1, keepdims=True)
+        d = obsvec / geom.norm(obsvec, keepdim=True)
         intercept, _trgepc, found = self._engine.sincpt(
             self.et, self.radii, d, self.target_light_time
         )
-        found = found.numpy()
-        intercept = intercept.numpy()
         _state_i, lt_i = self._engine.spkcpt(
-            self.et, np.where(found[..., None], intercept, 0.0)
+            self.et, torch.where(found[..., None], intercept, 0.0)
         )
         _state_p, lt_p = self._engine.spkcpt(self.et, targvec)
-        visible = (~found) | (lt_p.numpy() < lt_i.numpy())
-        bad = ~np.all(np.isfinite(targvec), axis=-1)
-        visible = np.where(bad, False, visible)
-        if targvec.ndim == 1:
-            return bool(visible)
-        return visible
+        visible = (~found) | (lt_p < lt_i)
+        return visible & torch.isfinite(targvec).all(dim=-1)
+
+    def _test_if_targvec_visible(self, targvec, *, on_surface: bool):
+        return self._test_if_targvec_visible_batch(
+            targvec, on_surface=on_surface
+        )
+
+    def test_if_lonlat_visible(
+        self, lon, lat, *, alt: float = 0.0, planetocentric: bool = False,
+    ):
+        """Test if a (possibly elevated) surface point is visible."""
+        return self._test_if_targvec_visible(
+            self.lonlat2targvec(lon, lat, alt=alt, planetocentric=planetocentric),
+            on_surface=alt == 0.0,
+        )
+
+    # ------------------------------------------------------------------
+    # Limb
+    # ------------------------------------------------------------------
+    def limb_coordinates_from_radec(
+        self, ra, dec, *, alt: float = 0.0, planetocentric: bool = False,
+    ):
+        """(lon, lat, dist) of the closest point on the limb to an RA/Dec."""
+        with _AdjustedSurfaceAltitude(self, alt):
+            lon, lat, dist = self._limb_coordinates_from_obsvec(
+                self._radec2obsvec_norm(ra, dec)
+            )
+            if planetocentric:
+                lon, lat = self.graphic2centric_lonlat(lon, lat)
+            return lon, lat, dist
+
+    @_on_tensors
+    def _limb_coordinates_from_obsvec(self, obsvec_norm):
+        if obsvec_norm.ndim == 1 and not bool(
+            torch.isfinite(obsvec_norm).all()
+        ):
+            nan = obsvec_norm.new_tensor(math.nan)
+            return nan, nan, nan
+        device = obsvec_norm.device
+        near, dist = geom.nearest_point_on_line(
+            torch.zeros(3, dtype=torch.float64, device=device), obsvec_norm,
+            f64(self._target_obsvec, device),
+        )
+        surface = geom.radial_surface_point(
+            self._obsvec2targvec(near), f64(self.radii, device)
+        )
+        lon, lat = self._radian_pair2degrees(
+            *self._targvec2lonlat_radians(surface)
+        )
+        return lon, lat, dist - geom.norm(surface)
+
+    # ------------------------------------------------------------------
+    # Local solar time
+    # ------------------------------------------------------------------
+    def _lst_from_lon(self, lon: float):
+        if not math.isfinite(lon):
+            return np.nan, np.nan, np.nan, '', ''
+        lst = float(self._lst_hours_from_lons(float(lon)))
+        total_seconds = int(lst * 3600.0)
+        hr = total_seconds // 3600
+        mn = (total_seconds % 3600) // 60
+        sc = total_seconds % 60
+        time_str = f'{hr:02d}:{mn:02d}:{sc:02d}'
+        ampm = f'{(hr % 12) or 12:02d}:{mn:02d}:{sc:02d} ' + (
+            'A.M.' if hr < 12 else 'P.M.'
+        )
+        return hr, mn, sc, time_str, ampm
+
+    @_on_tensors
+    def _lst_hours_from_lons(self, lon_pgr_deg):
+        """
+        Numerical local solar time for planetographic longitudes [deg].
+        ``et2lst`` equivalent evaluated at et - target light time (matching
+        the reference call at body.py:2364-2374). Quantised to whole seconds
+        like CSPICE's integer (hr, mn, sc) output.
+        """
+        et = self.et - self.target_light_time
+        sun_lon_e = float(self._engine.solar_longitude(et))
+        lon = torch.deg2rad(lon_pgr_deg)
+        lon_e = -lon if self.positive_longitude_direction == 'W' else lon
+        sign = 1.0 if self.prograde else -1.0
+        lst = torch.remainder(
+            12.0 + sign * (lon_e - sun_lon_e) * 12.0 / np.pi, 24.0
+        )
+        if lst_quantization_enabled():
+            lst = torch.floor(lst * 3600.0) / 3600.0
+        return lst
+
+    def local_solar_time_from_lon(self, lon: float) -> float:
+        """Numerical local solar time in 'local hours' for a longitude."""
+        hr, mn, sc, _time_str, _ampm = self._lst_from_lon(lon)
+        return hr + mn / 60 + sc / 3600
+
+    def local_solar_time_string_from_lon(self, lon: float) -> str:
+        """Local solar time as an 'HH:MM:SS' string."""
+        return self._lst_from_lon(lon)[3]
+
+    # ------------------------------------------------------------------
+    # Rings
+    # ------------------------------------------------------------------
+    @_on_tensors
+    def _ring_coordinates_from_obsvec(self, obsvec, *, only_visible=True):
+        device = obsvec.device
+        normal, constant = self._ring_plane
+        intercept, nxpts = geom.ray_plane_intercept(
+            torch.zeros(3, dtype=torch.float64, device=device), obsvec,
+            f64(normal, device), f64(constant, device),
+        )
+        ok = nxpts == 1
+        targvec = self._obsvec2targvec(
+            torch.where(ok[..., None], intercept, math.nan)
+        )
+        lon_e, _lat, alt = geom.rect_to_geodetic(
+            targvec, self.r_eq, self.flattening
+        )
+        lon = torch.rad2deg(lon_e)
+        if self.positive_longitude_direction == 'W':
+            lon = -lon
+        lon = torch.remainder(lon, 360.0)
+        distance = geom.norm(intercept)
+        radius = alt + self.r_eq
+
+        invalid = ~ok | ~torch.isfinite(obsvec).all(dim=-1)
+        if only_visible:
+            invalid = invalid | (alt < 0)
+            # Mask ring points hidden behind the planet: where the ray hits
+            # the surface closer than the ring plane
+            d = obsvec / geom.norm(obsvec, keepdim=True)
+            targvec_surf, _trgepc, found = self._engine.sincpt(
+                self.et, self.radii, d, self.target_light_time
+            )
+            _state, lt_surf = self._engine.spkcpt(
+                self.et, torch.where(found[..., None], targvec_surf, 0.0)
+            )
+            surf_dist = lt_surf * self.speed_of_light()
+            invalid = invalid | (found & (surf_dist < distance))
+        return (
+            torch.where(invalid, math.nan, radius),
+            torch.where(invalid, math.nan, lon),
+            torch.where(invalid, math.nan, distance),
+        )
+
+    def ring_plane_coordinates(self, ra, dec, only_visible: bool = True):
+        """(radius, longitude, distance) in the equatorial (ring) plane."""
+        return self._ring_coordinates_from_obsvec(
+            self._radec2obsvec_norm(ra, dec), only_visible=only_visible
+        )
+
+    # ------------------------------------------------------------------
+    # State (distance / velocity / doppler)
+    # ------------------------------------------------------------------
+    @_on_tensors
+    def _state_from_targvec(self, targvec):
+        state, lt = self._engine.spkcpt(self.et, targvec)
+        return state[..., :3], state[..., 3:], lt
+
+    @_on_tensors
+    def _radial_velocity_from_state(self, position, velocity):
+        phat = position / geom.norm(position, keepdim=True)
+        return torch.sum(velocity * phat, dim=-1)
+
+    def _radial_velocity_from_targvec(self, targvec):
+        return self._radial_velocity_from_state(
+            *self._state_from_targvec(targvec)[:2]
+        )
+
+    def radial_velocity_from_lonlat(
+        self, lon, lat, *, alt: float = 0.0, planetocentric: bool = False,
+    ):
+        """Radial velocity of a surface point in km/s (+ve away)."""
+        return self._radial_velocity_from_targvec(
+            self.lonlat2targvec(lon, lat, alt=alt, planetocentric=planetocentric)
+        )
+
+    def distance_from_lonlat(
+        self, lon, lat, *, alt: float = 0.0, planetocentric: bool = False,
+    ):
+        """Observer distance of a surface point in km."""
+        _position, _velocity, lt = self._state_from_targvec(
+            self.lonlat2targvec(lon, lat, alt=alt, planetocentric=planetocentric)
+        )
+        return lt * self.speed_of_light()
+
+    # ------------------------------------------------------------------
+    # Planetographic <-> planetocentric
+    # ------------------------------------------------------------------
+    @_on_tensors
+    def _targvec2lonlat_centric(self, targvec):
+        """Body-fixed vectors -> planetocentric lonlat [deg] (reclat)."""
+        _r, lon_c, lat_c = geom.rect_to_latlon_centric(targvec)
+        bad = ~torch.isfinite(targvec).all(dim=-1)
+        return (torch.rad2deg(torch.where(bad, math.nan, lon_c)),
+                torch.rad2deg(torch.where(bad, math.nan, lat_c)))
+
+    def graphic2centric_lonlat(
+        self, lon: FloatOrArray, lat: FloatOrArray, *, alt: float = 0.0
+    ) -> tuple[FloatOrArray, FloatOrArray]:
+        """Planetographic -> planetocentric lonlat."""
+        return self._maybe_transform_as_arrays(
+            self._graphic2centric_lonlat, lon, lat, alt=alt
+        )
+
+    def _graphic2centric_lonlat(self, lon, lat, *, alt):
+        return self._targvec2lonlat_centric(
+            self.lonlat2targvec(lon, lat, alt=alt)
+        )
+
+    def centric2graphic_lonlat(
+        self, lon_centric: FloatOrArray, lat_centric: FloatOrArray, *,
+        alt: float = 0.0,
+    ) -> tuple[FloatOrArray, FloatOrArray]:
+        """Planetocentric -> planetographic lonlat."""
+        return self._maybe_transform_as_arrays(
+            self._centric2graphic_lonlat, lon_centric, lat_centric, alt=alt
+        )
+
+    @_on_tensors
+    def _centric2graphic_lonlat(self, lon_centric, lat_centric, *, alt):
+        lon_c = torch.deg2rad(lon_centric)
+        lat_c = torch.deg2rad(lat_centric)
+        # latsrf equivalent: radial surface point at the centric direction
+        direction = geom.radec_to_rect(torch.ones_like(lon_c), lon_c, lat_c)
+        surface = geom.radial_surface_point(
+            direction, f64(self.radii, direction.device)
+        )
+        bad = ~(torch.isfinite(lon_c) & torch.isfinite(lat_c))
+        surface = torch.where(bad[..., None], math.nan, surface)
+        # the point's lonlat on the surface raised by alt (the reference's
+        # targvec2lonlat with alt)
+        with _AdjustedSurfaceAltitude(self, alt):
+            return self._radian_pair2degrees(
+                *self._targvec2lonlat_radians(surface)
+            )
 
     # ------------------------------------------------------------------
     # Other

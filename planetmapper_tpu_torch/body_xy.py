@@ -1,29 +1,35 @@
 """
 BodyXY: the pixel/backplane render core (port of ``planetmapper_tpu.body_xy``).
 
-Ported: the constructor, the disc-parameter interface, the pixel <->
-angular affine, the fused 26-backplane pipeline
+Ported: the constructor, the disc-parameter interface, the pixel
+transforms (xy <-> radec, lonlat, km, angular) and image limits, the
+backplane registry (:class:`Backplane`, :func:`BodyXY.get_backplane_img`,
+:func:`BodyXY.get_backplane_map` and the 26 default backplanes behind
+them), the fused 26-backplane pipeline
 (:func:`BodyXY.generate_backplanes_fused`, which runs
 :func:`..pipeline.compute_backplanes`), the map coordinates
-(:func:`BodyXY.generate_map_coordinates`, ``get_x_map``/``get_y_map`` and
-the lonlat/targvec/illumination/obsvec/radec maps behind them) and
-:func:`BodyXY.map_img`. The backplane registry, the other map getters and
-the matplotlib transforms are listed in ROADMAP.md.
+(:func:`BodyXY.generate_map_coordinates`) and :func:`BodyXY.map_img`. The
+limb, terminator, ring and grid curves and the matplotlib transforms are
+listed in ROADMAP.md.
 
 Each BodyXY carries the device its pixel pipeline and its map reprojection
 run on (``device=``; cuda by default, which raises without a card, and cpu
-only when asked for with ``device='cpu'``). The map coordinates (lonlat ->
-targvec -> illumination -> obsvec -> RA/Dec -> x/y) are float64 tensors on
-that device for a map of more than ``_device.BULK_ELEMENTS`` samples (on
-the CPU for a smaller one), cached there; ``get_x_map``/``get_y_map`` copy
-them out as numpy arrays, ``map_img`` reads them where they are.
+only when asked for with ``device='cpu'``). The image chain (pixel rays ->
+targvec -> lonlat, illumination, states, limb and ring-plane coordinates)
+and the map chain (lonlat -> targvec -> illumination -> obsvec -> RA/Dec ->
+x/y and the other map planes) are float64 tensors on that device for a
+frame or map of more than ``_device.BULK_ELEMENTS`` pixels or samples (on
+the CPU for a smaller one), cached there. Only the public getters
+(``get_*_img``, ``get_*_map``) copy a plane to the host, once per cache
+entry; ``map_img`` reads the x/y maps where they are.
 """
 
 from __future__ import annotations
 
 import datetime
 import math
-from typing import Any, Literal
+import os
+from typing import Any, Callable, Literal, NamedTuple, Protocol, TypedDict
 
 import numpy as np
 import torch
@@ -33,11 +39,13 @@ from .base import (
     _as_readonly_view,
     _cache_clearable_result,
     _cache_stable_result,
+    _on_tensors,
     _return_readonly_array,
 )
 from .body import (
     Body,
     _adjust_surface_altitude_decorator,
+    _AdjustedSurfaceAltitude,
     _cache_clearable_alt_dependent_result,
 )
 from .ops.projections import (
@@ -46,6 +54,44 @@ from .ops.projections import (
     transformer_from_proj_string,
 )
 from .progress import progress_decorator
+
+
+class MapKwargs(TypedDict, total=False):
+    """Keyword arguments of the mapping functions (see
+    :func:`BodyXY.generate_map_coordinates`)."""
+
+    projection: str
+    degree_interval: float
+    lon: float
+    lat: float
+    size: int
+    lon_coords: np.ndarray
+    lat_coords: np.ndarray
+    projection_x_coords: np.ndarray
+    projection_y_coords: np.ndarray | None
+    xlim: tuple[float, float] | None
+    ylim: tuple[float, float] | None
+    alt: float
+
+
+class _BackplaneMapGetter(Protocol):
+    def __call__(self, **map_kwargs) -> np.ndarray: ...
+
+
+class Backplane(NamedTuple):
+    """
+    Backplane registration: ``name`` (used as the FITS EXTNAME),
+    ``description``, and the image/map generator functions.
+    """
+
+    name: str
+    description: str
+    get_img: Callable[[], np.ndarray]
+    get_map: _BackplaneMapGetter
+
+
+class BackplaneNotFoundError(Exception):
+    pass
 
 
 class BodyXY(Body):
@@ -90,7 +136,26 @@ class BodyXY(Body):
         self.set_disc_method('default')
         self._default_disc_method = 'manual'
 
+        self.backplanes: dict[str, Backplane] = {}
+        self._register_default_backplanes()
+
         self.reset_disc_params()
+
+    @classmethod
+    def from_body(
+        cls, body: Body, nx: int = 0, ny: int = 0, *, sz: int | None = None,
+        device: str | torch.device | None = None,
+    ):
+        """Create a BodyXY with the same parameters as a Body instance."""
+        new = cls(**body._get_kwargs(), nx=nx, ny=ny, sz=sz, device=device)
+        body._copy_options_to_other(new)
+        return new
+
+    def to_body(self) -> Body:
+        """Create a Body instance from this BodyXY instance."""
+        new = Body(**Body._get_kwargs(self))
+        Body._copy_options_to_other(self, new)
+        return new
 
     def __repr__(self) -> str:
         return self._generate_repr(
@@ -123,7 +188,7 @@ class BodyXY(Body):
         other.set_disc_method(self.get_disc_method())
 
     # ------------------------------------------------------------------
-    # Pixel <-> angular
+    # Coordinate transformations
     # ------------------------------------------------------------------
     @_cache_clearable_result
     def _get_xy2angular_matrix(self) -> np.ndarray:
@@ -140,9 +205,19 @@ class BodyXY(Body):
     def _get_angular2xy_matrix(self) -> np.ndarray:
         return np.linalg.inv(self._get_xy2angular_matrix())
 
+    @_on_tensors
+    def _xy2obsvec_norm(self, x, y):
+        """Image pixels -> unit observer-frame vectors."""
+        m = self._get_xy2angular_matrix()
+        angular_x, angular_y = (
+            float(m[i, 0]) * x + float(m[i, 1]) * y + float(m[i, 2])
+            for i in range(2)
+        )
+        return self._angular2obsvec_norm(angular_x, angular_y)
+
+    @_on_tensors
     def _obsvec2xy(self, obsvec):
-        """Observer-frame vectors -> image pixels (tensors, numpy arrays or,
-        for one vector, floats, as :meth:`_obsvec2angular` gives them)."""
+        """Observer-frame vectors -> image pixels."""
         angular_x, angular_y = self._obsvec2angular(obsvec)
         m = self._get_angular2xy_matrix()
         return tuple(
@@ -150,12 +225,97 @@ class BodyXY(Body):
             + float(m[i, 2]) for i in range(2)
         )
 
+    # Composite transforms
+    def xy2radec(self, x, y):
+        """Image pixel coordinates -> RA/Dec."""
+        return self._maybe_transform_as_arrays(self._xy2radec, x, y)
+
+    def _xy2radec(self, x, y):
+        return self._obsvec2radec(self._xy2obsvec_norm(x, y))
+
     def radec2xy(self, ra, dec):
         """RA/Dec -> image pixel coordinates."""
         return self._maybe_transform_as_arrays(self._radec2xy, ra, dec)
 
     def _radec2xy(self, ra, dec):
         return self._obsvec2xy(self._radec2obsvec_norm(ra, dec))
+
+    def xy2lonlat(
+        self, x, y, *, not_found_nan: bool = True, alt: float = 0.0,
+        planetocentric: bool = False,
+    ):
+        """Image pixel coordinates -> planetographic lonlat."""
+        return self._maybe_transform_as_arrays(
+            self._xy2lonlat, x, y, not_found_nan=not_found_nan, alt=alt,
+            planetocentric=planetocentric,
+        )
+
+    def _xy2lonlat(self, x, y, *, not_found_nan, alt, planetocentric):
+        return self._obsvec_norm2lonlat(
+            self._xy2obsvec_norm(x, y), not_found_nan=not_found_nan, alt=alt,
+            planetocentric=planetocentric,
+        )
+
+    def lonlat2xy(
+        self, lon, lat, *, alt: float = 0.0, not_visible_nan: bool = True,
+        planetocentric: bool = False,
+    ):
+        """Planetographic lonlat -> image pixel coordinates."""
+        return self._maybe_transform_as_arrays(
+            self._lonlat2xy, lon, lat, alt=alt,
+            not_visible_nan=not_visible_nan, planetocentric=planetocentric,
+        )
+
+    def _lonlat2xy(self, lon, lat, *, alt, not_visible_nan, planetocentric):
+        return self._obsvec2xy(
+            self._lonlat2obsvec(
+                lon, lat, alt=alt, not_visible_nan=not_visible_nan,
+                planetocentric=planetocentric,
+            )
+        )
+
+    def xy2km(self, x, y):
+        """Image pixel coordinates -> target plane km."""
+        return self._maybe_transform_as_arrays(self._xy2km, x, y)
+
+    def _xy2km(self, x, y):
+        return self._obsvec2km(self._xy2obsvec_norm(x, y))
+
+    def km2xy(self, km_x, km_y):
+        """Target plane km -> image pixel coordinates."""
+        return self._maybe_transform_as_arrays(self._km2xy, km_x, km_y)
+
+    def _km2xy(self, km_x, km_y):
+        return self._obsvec2xy(self._km2obsvec_norm(km_x, km_y))
+
+    def xy2angular(self, x, y, **angular_kwargs):
+        """Image pixel coordinates -> relative angular coordinates."""
+        return self._maybe_transform_as_arrays(
+            self._xy2angular, x, y, **angular_kwargs
+        )
+
+    def _xy2angular(self, x, y, **angular_kwargs):
+        return self._obsvec2angular(
+            self._xy2obsvec_norm(x, y), **angular_kwargs
+        )
+
+    def angular2xy(self, angular_x, angular_y, **angular_kwargs):
+        """Relative angular coordinates -> image pixel coordinates."""
+        return self._maybe_transform_as_arrays(
+            self._angular2xy, angular_x, angular_y, **angular_kwargs
+        )
+
+    def _angular2xy(self, angular_x, angular_y, **angular_kwargs):
+        return self._obsvec2xy(
+            self._angular2obsvec_norm(angular_x, angular_y, **angular_kwargs)
+        )
+
+    def _radec_arrs2xy_arrs(self, ra_arr, dec_arr):
+        x, y = self.radec2xy(np.asarray(ra_arr), np.asarray(dec_arr))
+        return np.asarray(x), np.asarray(y)
+
+    def _xy2targvec(self, x, y):
+        return self._obsvec_norm2targvec(self._xy2obsvec_norm(x, y))
 
     def _xy_in_image_frame(self, x, y):
         return (
@@ -295,6 +455,36 @@ class BodyXY(Body):
         """(nx, ny) image dimensions in pixels."""
         return (self._nx, self._ny)
 
+    def scale_img_size(self, factor: float, *, allow_rounding: bool = False):
+        """Scale the image size (and disc parameters) by a factor."""
+        if factor <= 0:
+            raise ValueError('Scaling factor must be greater than zero')
+        nx, ny = self.get_img_size()
+        nx_f = nx * factor
+        ny_f = ny * factor
+        nx_ceil = math.ceil(nx_f)
+        ny_ceil = math.ceil(ny_f)
+        if not allow_rounding and (nx_ceil != nx_f or ny_ceil != ny_f):
+            raise ValueError(
+                f'Image size ({nx}, {ny}) cannot be exactly scaled by '
+                f'{factor} to an integer number of pixels: new size would be '
+                f'({nx_f}, {ny_f}). Use `allow_rounding=True` to allow '
+                'rounding of the image size.'
+            )
+        self.set_img_size(nx_ceil, ny_ceil)
+        self.set_r0(self.get_r0() * factor)
+        offset = (factor - 1) / 2
+        self.set_x0(self.get_x0() * factor + offset)
+        self.set_y0(self.get_y0() * factor + offset)
+
+    def add_img_border(self, border: int) -> None:
+        """Add (or crop, if negative) a pixel border around the image."""
+        border = int(border)
+        nx, ny = self.get_img_size()
+        self.set_img_size(nx + 2 * border, ny + 2 * border)
+        self.set_x0(self.get_x0() + border)
+        self.set_y0(self.get_y0() + border)
+
     def set_disc_method(self, method: str) -> None:
         """Record the method used to find the disc."""
         self._cache['disc method'] = method
@@ -303,8 +493,115 @@ class BodyXY(Body):
         """Method used to find the disc."""
         return self._cache.get('disc method', self._default_disc_method)
 
+    def add_arcsec_offset(self, dra_arcsec: float = 0, ddec_arcsec: float = 0):
+        """Adjust (x0, y0) by RA/Dec offsets in arcseconds."""
+        dra = dra_arcsec / 3600
+        ddec = ddec_arcsec / 3600
+        ra0, dec0 = self.xy2radec(0, 0)
+        dx, dy = self.radec2xy(ra0 + dra, dec0 + ddec)
+        self.adjust_disc_params(dx=dx, dy=dy)
+
     def _test_if_img_size_valid(self) -> bool:
         return (self._nx > 0) and (self._ny > 0)
+
+    # ------------------------------------------------------------------
+    # Limits
+    # ------------------------------------------------------------------
+    def _get_xy_corner_coordinates(self) -> list[tuple[float, float]]:
+        return [
+            (-0.5, -0.5),
+            (-0.5, self._ny - 0.5),
+            (self._nx - 0.5, -0.5),
+            (self._nx - 0.5, self._ny - 0.5),
+        ]
+
+    def _get_img_limits(self, func):
+        xy_lim = [func(x, y) for x, y in self._get_xy_corner_coordinates()]
+        xlim = (min(x for x, _ in xy_lim), max(x for x, _ in xy_lim))
+        ylim = (min(y for _, y in xy_lim), max(y for _, y in xy_lim))
+        return xlim, ylim
+
+    def get_img_limits_radec(self):
+        """((ra_left, ra_right), (dec_min, dec_max)) limits of the image."""
+        xlim, ylim = self._get_img_limits(self.xy2radec)
+        return (xlim[1], xlim[0]), ylim
+
+    def get_img_limits_km(self):
+        """km-coordinate limits of the image."""
+        return self._get_img_limits(self.xy2km)
+
+    def get_img_limits_angular(self, **angular_kwargs):
+        """Angular-coordinate limits of the image."""
+        return self._get_img_limits(
+            lambda x, y: self.xy2angular(x, y, **angular_kwargs)
+        )
+
+    def get_img_limits_xy(self):
+        """Pixel-coordinate limits of the image."""
+        return self._get_img_limits(lambda x, y: (x, y))
+
+    # ------------------------------------------------------------------
+    # Backplane management
+    # ------------------------------------------------------------------
+    @staticmethod
+    def standardise_backplane_name(name: str) -> str:
+        """Standardise a backplane name (strip + upper case)."""
+        return name.strip().upper()
+
+    def register_backplane(
+        self,
+        name: str,
+        description: str,
+        get_img: Callable[[], np.ndarray],
+        get_map: _BackplaneMapGetter,
+    ) -> None:
+        """Register a new backplane."""
+        name = self.standardise_backplane_name(name)
+        if name in self.backplanes:
+            raise ValueError(f'Backplane named {name!r} is already registered')
+        self.backplanes[name] = Backplane(
+            name=name, description=description, get_img=get_img, get_map=get_map
+        )
+
+    def backplane_summary_string(self) -> str:
+        """Summary of registered backplanes."""
+        return '\n'.join(
+            f'{bp.name}: {bp.description}' for bp in self.backplanes.values()
+        )
+
+    def print_backplanes(self) -> None:
+        """Print the backplane summary."""
+        print(self.backplane_summary_string())
+
+    def get_backplane(self, name: str) -> Backplane:
+        """Retrieve a registered backplane by (standardised) name."""
+        name = self.standardise_backplane_name(name)
+        try:
+            return self.backplanes[name]
+        except KeyError as exc:
+            raise BackplaneNotFoundError(
+                '{n!r} not found. Currently registered backplanes are: {r}.'.format(
+                    n=name,
+                    r=', '.join([repr(n) for n in self.backplanes.keys()]),
+                )
+            ) from exc
+
+    def get_backplane_img(self, name: str, *, alt: float = 0.0) -> np.ndarray:
+        """Generate (a copy of) a backplane image."""
+        with _AdjustedSurfaceAltitude(self, alt):
+            return (
+                self.backplanes[self.standardise_backplane_name(name)]
+                .get_img()
+                .copy()
+            )
+
+    def get_backplane_map(self, name: str, **map_kwargs) -> np.ndarray:
+        """Generate (a copy of) a backplane map."""
+        return (
+            self.backplanes[self.standardise_backplane_name(name)]
+            .get_map(**map_kwargs)
+            .copy()
+        )
 
     # ------------------------------------------------------------------
     # Fused pipeline (all backplanes in one pass)
@@ -527,14 +824,151 @@ class BodyXY(Body):
                 f'{self.positive_longitude_direction} coordinates.'
             )
 
+    # ------------------------------------------------------------------
+    # Backplane images: float64 tensors where _device.scene_device puts the
+    # frame (this body's device for more than BULK_ELEMENTS pixels, else the
+    # CPU), cached there; the public getters copy a plane out
+    # ------------------------------------------------------------------
+    def _make_empty_img(self, nz: int | None = None) -> np.ndarray:
+        if not self._test_if_img_size_valid():
+            raise ValueError(
+                'nx and ny must be positive to create a backplane image'
+            )
+        shape = (self._ny, self._nx) if nz is None else (self._ny, self._nx, nz)
+        return np.full(shape, np.nan)
+
+    def _get_max_pixel_radius(self) -> float:
+        return self.get_r0() * max(self.radii) / self.r_eq
+
+    def _pixel_axes(self):
+        """The pixel x and y coordinates, float64 tensors on the frame's
+        device."""
+        device = scene_device(self._nx * self._ny, self.device)
+        return (torch.arange(self._nx, dtype=torch.float64, device=device),
+                torch.arange(self._ny, dtype=torch.float64, device=device))
+
+    @_cache_clearable_result
+    def _get_obsvec_norm_img(self) -> torch.Tensor:
+        if not self._test_if_img_size_valid():
+            raise ValueError(
+                'nx and ny must be positive to create a backplane image'
+            )
+        return self._xy2obsvec_norm(
+            *torch.meshgrid(*self._pixel_axes(), indexing='xy')
+        )
+
+    @_cache_clearable_alt_dependent_result
+    @progress_decorator
+    def _get_targvec_img(self) -> torch.Tensor:
+        obsvec_norm = self._get_obsvec_norm_img()
+        targvec = self._engine.sincpt(
+            self.et, self.radii, obsvec_norm, self.target_light_time
+        )[0]
+        if self._optimize_speed:
+            # Behaviour parity with the reference's off-disc short circuit
+            # (body_xy.py:3200-3218): pixels beyond r_cutoff from the disc
+            # centre are excluded. The cutoff is computed from the current
+            # (possibly altitude-adjusted) radii ratio, exactly matching the
+            # reference, so altitude-enlarged discs are clipped to the
+            # nominal disc radius, as in the reference's regression outputs.
+            r_cutoff = self._get_max_pixel_radius() * 1.05 + 1
+            xs, ys = self._pixel_axes()
+            r2 = (xs - self.get_x0())[None, :] ** 2 + \
+                (ys - self.get_y0())[:, None] ** 2
+            targvec = torch.where(
+                (r2 > r_cutoff**2)[..., None], math.nan, targvec
+            )
+        return targvec
+
+    @_cache_clearable_alt_dependent_result
+    @progress_decorator
+    def _get_lonlat_img(self) -> torch.Tensor:
+        return torch.rad2deg(torch.stack(
+            self._targvec2lonlat_radians(self._get_targvec_img()), dim=-1
+        ))
+
+    @_cache_clearable_alt_dependent_result
+    @progress_decorator
+    def _get_lonlat_centric_img(self) -> torch.Tensor:
+        return torch.stack(
+            self._targvec2lonlat_centric(self._get_targvec_img()), dim=-1
+        )
+
+    @_cache_clearable_result
+    @progress_decorator
+    def _get_radec_img(self) -> torch.Tensor:
+        return torch.rad2deg(torch.stack(
+            self._obsvec2radec_radians(self._get_obsvec_norm_img()), dim=-1
+        ))
+
+    @_cache_clearable_result
+    def _get_km_xy_img(self) -> torch.Tensor:
+        return torch.stack(self._obsvec2km(self._get_obsvec_norm_img()), dim=-1)
+
+    @_cache_clearable_alt_dependent_result
+    @progress_decorator
+    def _get_illumination_gie_img(self) -> torch.Tensor:
+        return torch.rad2deg(torch.stack(
+            self._illumination_angles_from_targvec_radians(
+                self._get_targvec_img()
+            ),
+            dim=-1,
+        ))
+
+    @_cache_clearable_alt_dependent_result
+    @progress_decorator
+    def _get_state_imgs(self):
+        """(position, velocity, light time) of each pixel's surface point."""
+        return self._states_of(self._get_targvec_img())
+
+    def _states_of(self, targvec):
+        finite = torch.isfinite(targvec).all(dim=-1)
+        state, lt = self._engine.spkcpt(
+            self.et, torch.where(finite[..., None], targvec, 0.0)
+        )
+        return (
+            torch.where(finite[..., None], state[..., :3], math.nan),
+            torch.where(finite[..., None], state[..., 3:], math.nan),
+            torch.where(finite, lt, math.nan),
+        )
+
+    @_cache_clearable_alt_dependent_result
+    @progress_decorator
+    def _get_limb_coordinate_imgs(self) -> torch.Tensor:
+        return torch.stack(
+            self._limb_coordinates_from_obsvec(self._get_obsvec_norm_img()),
+            dim=-1,
+        )
+
+    @_cache_clearable_alt_dependent_result
+    @progress_decorator
+    def _get_ring_plane_coordinate_imgs(self) -> torch.Tensor:
+        """(radius, longitude, distance) of each pixel's ring-plane point."""
+        rings = torch.stack(self._ring_coordinates_from_obsvec(
+            self._get_obsvec_norm_img(), only_visible=False
+        ), dim=-1)
+        distance = self._get_state_imgs()[2] * self.speed_of_light()
+        return torch.where(
+            (rings[..., 2] > distance)[..., None], math.nan, rings
+        )
+
+    @_cache_clearable_alt_dependent_result
+    @_return_readonly_array
+    def _img_plane(self, getter: str, index: int) -> np.ndarray:
+        """Plane ``index`` of an image getter's tensor, copied to the host
+        once per disc and altitude."""
+        return getattr(self, getter)()[..., index].cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # Backplane maps: float64 tensors where _device.scene_device puts the
+    # map (this body's device for more than BULK_ELEMENTS samples, else the
+    # CPU), cached there; the public getters copy a plane out
+    # ------------------------------------------------------------------
     def _make_empty_map(self, nz: int | None = None, **map_kwargs) -> np.ndarray:
         n0, n1 = self._get_lonlat_map(**map_kwargs).shape[:2]
         shape = (n0, n1) if nz is None else (n0, n1, nz)
         return np.full(shape, np.nan)
 
-    # -- maps: float64 tensors where _device.scene_device puts the map (this
-    # body's device for more than BULK_ELEMENTS samples, else the CPU),
-    # cached there; get_x_map and get_y_map copy them out ---------------
     @_cache_stable_result
     @_adjust_surface_altitude_decorator
     @_return_readonly_array
@@ -545,13 +979,16 @@ class BodyXY(Body):
         lonlat_map[~np.isfinite(lonlat_map)] = np.nan
         return lonlat_map
 
+    def _lonlat_map_tensor(self, **map_kwargs) -> torch.Tensor:
+        """The lon/lat map [deg] as float64 on the map's device."""
+        lonlats = self._get_lonlat_map(**map_kwargs)
+        return f64(lonlats, scene_device(lonlats[..., 0].size, self.device))
+
     @_cache_stable_result
     @progress_decorator
     @_adjust_surface_altitude_decorator
     def _targvec_map(self, **map_kwargs) -> torch.Tensor:
-        lonlats = self._get_lonlat_map(**map_kwargs)
-        device = scene_device(lonlats[..., 0].size, self.device)
-        lon, lat = f64(np.deg2rad(lonlats), device).unbind(-1)
+        lon, lat = torch.deg2rad(self._lonlat_map_tensor(**map_kwargs)).unbind(-1)
         return self._lonlat2targvec_radians(
             lon, lat, alt=0.0, not_visible_nan=False
         )
@@ -573,6 +1010,15 @@ class BodyXY(Body):
     @_adjust_surface_altitude_decorator
     def _obsvec_map(self, **map_kwargs) -> torch.Tensor:
         return self._targvec2obsvec(self._targvec_map(**map_kwargs))
+
+    @_cache_stable_result
+    @progress_decorator
+    @_adjust_surface_altitude_decorator
+    def _get_lonlat_centric_map(self, **map_kwargs) -> torch.Tensor:
+        return torch.stack(
+            self._targvec2lonlat_centric(self._targvec_map(**map_kwargs)),
+            dim=-1,
+        )
 
     @_cache_stable_result
     @progress_decorator
@@ -605,13 +1051,60 @@ class BodyXY(Body):
         """The x/y maps copied to the host once per map and disc."""
         return self._xy_map(**map_kwargs).cpu().numpy()
 
-    def get_x_map(self, **map_kwargs) -> np.ndarray:
-        """Map of x pixel coordinates of each location."""
-        return self._get_xy_map(**map_kwargs)[:, :, 0]
+    @_cache_stable_result
+    @_adjust_surface_altitude_decorator
+    def _get_km_xy_map(self, **map_kwargs) -> torch.Tensor:
+        radec_map = self._radec_map(**map_kwargs)
+        finite = torch.isfinite(radec_map[..., 0])
+        km = torch.stack(self.radec2km(
+            torch.where(finite, radec_map[..., 0], 0.0),
+            torch.where(finite, radec_map[..., 1], 0.0),
+        ), dim=-1)
+        return torch.where(finite[..., None], km, math.nan)
 
-    def get_y_map(self, **map_kwargs) -> np.ndarray:
-        """Map of y pixel coordinates of each location."""
-        return self._get_xy_map(**map_kwargs)[:, :, 1]
+    @_cache_stable_result
+    @progress_decorator
+    @_adjust_surface_altitude_decorator
+    def _get_state_maps(self, **map_kwargs):
+        """(position, velocity, light time) of each map sample."""
+        return self._states_of(self._targvec_map(**map_kwargs))
+
+    @_cache_stable_result
+    @progress_decorator
+    @_adjust_surface_altitude_decorator
+    def _get_limb_coordinate_maps(self, **map_kwargs) -> torch.Tensor:
+        # NOTE: the reference masks limb coordinate maps by the *lit* flag
+        # (illumf index 4, body_xy.py:3981), not the visible flag
+        lit = self._illumf_map(**map_kwargs)[..., 4] > 0
+        limb = torch.stack(self._limb_coordinates_from_obsvec(
+            self._obsvec_map(**map_kwargs)
+        ), dim=-1)
+        return torch.where(lit[..., None], limb, math.nan)
+
+    @_cache_stable_result
+    @progress_decorator
+    @_adjust_surface_altitude_decorator
+    def _get_ring_plane_coordinate_maps(self, **map_kwargs) -> torch.Tensor:
+        """(radius, longitude, distance) of each sample's ring-plane point."""
+        # NOTE: the reference masks ring plane maps by the *lit* flag
+        # (illumf index 4, body_xy.py:4097), not the visible flag
+        lit = self._illumf_map(**map_kwargs)[..., 4] > 0
+        rings = torch.stack(self._ring_coordinates_from_obsvec(
+            self._obsvec_map(**map_kwargs), only_visible=False
+        ), dim=-1)
+        rings = torch.where(lit[..., None], rings, math.nan)
+        distance = self._get_state_maps(**map_kwargs)[2] * \
+            self.speed_of_light()
+        return torch.where(
+            (rings[..., 2] > distance)[..., None], math.nan, rings
+        )
+
+    @_cache_stable_result
+    @_return_readonly_array
+    def _map_plane(self, getter: str, index: int, **map_kwargs) -> np.ndarray:
+        """Plane ``index`` of a map getter's tensor, copied to the host once
+        per map."""
+        return getattr(self, getter)(**map_kwargs)[..., index].cpu().numpy()
 
     @_cache_clearable_alt_dependent_result
     def _get_map_samples(self, **map_kwargs):
@@ -621,6 +1114,276 @@ class BodyXY(Body):
 
         xy_map = self._xy_map(**map_kwargs)
         return _device_xy(xy_map[..., 0], xy_map[..., 1], self.device)
+
+    # -- public backplane getters (same names as the reference) ---------
+    def get_lon_img(self) -> np.ndarray:
+        """Planetographic longitude of each pixel (NaN off-disc)."""
+        return self._img_plane('_get_lonlat_img', 0)
+
+    def get_lon_map(self, **map_kwargs) -> np.ndarray:
+        """Planetographic longitude map."""
+        return self._get_lonlat_map(**map_kwargs)[:, :, 0]
+
+    def get_lat_img(self) -> np.ndarray:
+        """Planetographic latitude of each pixel (NaN off-disc)."""
+        return self._img_plane('_get_lonlat_img', 1)
+
+    def get_lat_map(self, **map_kwargs) -> np.ndarray:
+        """Planetographic latitude map."""
+        return self._get_lonlat_map(**map_kwargs)[:, :, 1]
+
+    def get_lon_centric_img(self) -> np.ndarray:
+        """Planetocentric longitude of each pixel."""
+        return self._img_plane('_get_lonlat_centric_img', 0)
+
+    def get_lon_centric_map(self, **map_kwargs) -> np.ndarray:
+        """Planetocentric longitude map."""
+        return self._map_plane('_get_lonlat_centric_map', 0, **map_kwargs)
+
+    def get_lat_centric_img(self) -> np.ndarray:
+        """Planetocentric latitude of each pixel."""
+        return self._img_plane('_get_lonlat_centric_img', 1)
+
+    def get_lat_centric_map(self, **map_kwargs) -> np.ndarray:
+        """Planetocentric latitude map."""
+        return self._map_plane('_get_lonlat_centric_map', 1, **map_kwargs)
+
+    def get_ra_img(self) -> np.ndarray:
+        """Right ascension of each pixel."""
+        return self._img_plane('_get_radec_img', 0)
+
+    def get_ra_map(self, **map_kwargs) -> np.ndarray:
+        """Right ascension map (NaN where not visible)."""
+        return self._map_plane('_radec_map', 0, **map_kwargs)
+
+    def get_dec_img(self) -> np.ndarray:
+        """Declination of each pixel."""
+        return self._img_plane('_get_radec_img', 1)
+
+    def get_dec_map(self, **map_kwargs) -> np.ndarray:
+        """Declination map (NaN where not visible)."""
+        return self._map_plane('_radec_map', 1, **map_kwargs)
+
+    @_return_readonly_array
+    def get_x_img(self) -> np.ndarray:
+        """x pixel coordinate of each pixel."""
+        out = self._make_empty_img()
+        out[:] = np.arange(self._nx, dtype=float)[None, :]
+        return out
+
+    def get_x_map(self, **map_kwargs) -> np.ndarray:
+        """Map of x pixel coordinates of each location."""
+        return self._get_xy_map(**map_kwargs)[:, :, 0]
+
+    @_return_readonly_array
+    def get_y_img(self) -> np.ndarray:
+        """y pixel coordinate of each pixel."""
+        out = self._make_empty_img()
+        out[:] = np.arange(self._ny, dtype=float)[:, None]
+        return out
+
+    def get_y_map(self, **map_kwargs) -> np.ndarray:
+        """Map of y pixel coordinates of each location."""
+        return self._get_xy_map(**map_kwargs)[:, :, 1]
+
+    def get_km_x_img(self) -> np.ndarray:
+        """East-West distance in target plane of each pixel."""
+        return self._img_plane('_get_km_xy_img', 0)
+
+    def get_km_x_map(self, **map_kwargs) -> np.ndarray:
+        """East-West target plane distance map."""
+        return self._map_plane('_get_km_xy_map', 0, **map_kwargs)
+
+    def get_km_y_img(self) -> np.ndarray:
+        """North-South distance in target plane of each pixel."""
+        return self._img_plane('_get_km_xy_img', 1)
+
+    def get_km_y_map(self, **map_kwargs) -> np.ndarray:
+        """North-South target plane distance map."""
+        return self._map_plane('_get_km_xy_map', 1, **map_kwargs)
+
+    @_return_readonly_array
+    def get_angular_x_img(self) -> np.ndarray:
+        """East-West angular distance (arcsec) of each pixel."""
+        return self.get_km_x_img() / self.km_per_arcsec
+
+    @_return_readonly_array
+    def get_angular_x_map(self, **map_kwargs) -> np.ndarray:
+        """East-West angular distance map (arcsec)."""
+        return self.get_km_x_map(**map_kwargs) / self.km_per_arcsec
+
+    @_return_readonly_array
+    def get_angular_y_img(self) -> np.ndarray:
+        """North-South angular distance (arcsec) of each pixel."""
+        return self.get_km_y_img() / self.km_per_arcsec
+
+    @_return_readonly_array
+    def get_angular_y_map(self, **map_kwargs) -> np.ndarray:
+        """North-South angular distance map (arcsec)."""
+        return self.get_km_y_map(**map_kwargs) / self.km_per_arcsec
+
+    def get_phase_angle_img(self) -> np.ndarray:
+        """Phase angle of each pixel in degrees."""
+        return self._img_plane('_get_illumination_gie_img', 0)
+
+    def get_phase_angle_map(self, **map_kwargs) -> np.ndarray:
+        """Phase angle map in degrees."""
+        return self._map_plane('_illumf_map', 0, **map_kwargs)
+
+    def get_incidence_angle_img(self) -> np.ndarray:
+        """Incidence angle of each pixel in degrees."""
+        return self._img_plane('_get_illumination_gie_img', 1)
+
+    def get_incidence_angle_map(self, **map_kwargs) -> np.ndarray:
+        """Incidence angle map in degrees."""
+        return self._map_plane('_illumf_map', 1, **map_kwargs)
+
+    def get_emission_angle_img(self) -> np.ndarray:
+        """Emission angle of each pixel in degrees."""
+        return self._img_plane('_get_illumination_gie_img', 2)
+
+    def get_emission_angle_map(self, **map_kwargs) -> np.ndarray:
+        """Emission angle map in degrees."""
+        return self._map_plane('_illumf_map', 2, **map_kwargs)
+
+    def _azimuth_from_degrees(self, gie: torch.Tensor) -> np.ndarray:
+        """Azimuth [deg] from (phase, incidence, emission) [deg], copied
+        to the host."""
+        return torch.rad2deg(self._azimuth_angle_from_gie_radians(
+            *torch.deg2rad(gie[..., :3]).unbind(-1)
+        )).cpu().numpy()
+
+    @_cache_clearable_alt_dependent_result
+    @_return_readonly_array
+    def get_azimuth_angle_img(self) -> np.ndarray:
+        """Azimuth angle of each pixel in degrees."""
+        return self._azimuth_from_degrees(self._get_illumination_gie_img())
+
+    @_cache_stable_result
+    @_adjust_surface_altitude_decorator
+    @_return_readonly_array
+    def get_azimuth_angle_map(self, **map_kwargs) -> np.ndarray:
+        """Azimuth angle map in degrees."""
+        return self._azimuth_from_degrees(self._illumf_map(**map_kwargs))
+
+    def _lst_of(self, lon: torch.Tensor) -> np.ndarray:
+        """Local solar time [h] of longitudes [deg] (NaN where lon is),
+        copied to the host."""
+        finite = torch.isfinite(lon)
+        lst = self._lst_hours_from_lons(torch.where(finite, lon, 0.0))
+        return torch.where(finite, lst, math.nan).cpu().numpy()
+
+    @_cache_clearable_alt_dependent_result
+    @progress_decorator
+    @_return_readonly_array
+    def get_local_solar_time_img(self) -> np.ndarray:
+        """Local solar time of each pixel in local hours."""
+        return self._lst_of(self._get_lonlat_img()[..., 0])
+
+    @_cache_stable_result
+    @progress_decorator
+    @_adjust_surface_altitude_decorator
+    @_return_readonly_array
+    def get_local_solar_time_map(self, **map_kwargs) -> np.ndarray:
+        """Local solar time map in local hours."""
+        return self._lst_of(self._lonlat_map_tensor(**map_kwargs)[..., 0])
+
+    @_cache_clearable_alt_dependent_result
+    @_return_readonly_array
+    def get_distance_img(self) -> np.ndarray:
+        """Observer distance of each pixel in km."""
+        lt = self._get_state_imgs()[2]
+        return (lt * self.speed_of_light()).cpu().numpy()
+
+    @_cache_stable_result
+    @_return_readonly_array
+    def get_distance_map(self, **map_kwargs) -> np.ndarray:
+        """Observer distance map in km."""
+        lt = self._get_state_maps(**map_kwargs)[2]
+        return (lt * self.speed_of_light()).cpu().numpy()
+
+    @_cache_clearable_alt_dependent_result
+    @progress_decorator
+    @_return_readonly_array
+    def get_radial_velocity_img(self) -> np.ndarray:
+        """Radial velocity of each pixel in km/s."""
+        position, velocity, _lt = self._get_state_imgs()
+        return self._radial_velocity_from_state(position, velocity).cpu().numpy()
+
+    @_cache_stable_result
+    @progress_decorator
+    @_adjust_surface_altitude_decorator
+    @_return_readonly_array
+    def get_radial_velocity_map(self, **map_kwargs) -> np.ndarray:
+        """Radial velocity map in km/s."""
+        position, velocity, _lt = self._get_state_maps(**map_kwargs)
+        return self._radial_velocity_from_state(position, velocity).cpu().numpy()
+
+    @_return_readonly_array
+    def get_doppler_img(self) -> np.ndarray:
+        """Doppler factor of each pixel."""
+        return self.calculate_doppler_factor(self.get_radial_velocity_img())
+
+    @_return_readonly_array
+    def get_doppler_map(self, **map_kwargs) -> np.ndarray:
+        """Doppler factor map."""
+        return self.calculate_doppler_factor(
+            self.get_radial_velocity_map(**map_kwargs)
+        )
+
+    def get_limb_lon_img(self) -> np.ndarray:
+        """Longitude of the closest limb point for each pixel."""
+        return self._img_plane('_get_limb_coordinate_imgs', 0)
+
+    def get_limb_lon_map(self, **map_kwargs) -> np.ndarray:
+        """Longitude of the closest limb point, mapped."""
+        return self._map_plane('_get_limb_coordinate_maps', 0, **map_kwargs)
+
+    def get_limb_lat_img(self) -> np.ndarray:
+        """Latitude of the closest limb point for each pixel."""
+        return self._img_plane('_get_limb_coordinate_imgs', 1)
+
+    def get_limb_lat_map(self, **map_kwargs) -> np.ndarray:
+        """Latitude of the closest limb point, mapped."""
+        return self._map_plane('_get_limb_coordinate_maps', 1, **map_kwargs)
+
+    def get_limb_distance_img(self) -> np.ndarray:
+        """Distance above the limb for each pixel in km."""
+        return self._img_plane('_get_limb_coordinate_imgs', 2)
+
+    def get_limb_distance_map(self, **map_kwargs) -> np.ndarray:
+        """Distance above the limb, mapped."""
+        return self._map_plane('_get_limb_coordinate_maps', 2, **map_kwargs)
+
+    def get_ring_plane_radius_img(self) -> np.ndarray:
+        """Ring plane radius in km for each pixel."""
+        return self._img_plane('_get_ring_plane_coordinate_imgs', 0)
+
+    def get_ring_plane_radius_map(self, **map_kwargs) -> np.ndarray:
+        """Ring plane radius map in km."""
+        return self._map_plane(
+            '_get_ring_plane_coordinate_maps', 0, **map_kwargs
+        )
+
+    def get_ring_plane_longitude_img(self) -> np.ndarray:
+        """Ring plane planetographic longitude for each pixel."""
+        return self._img_plane('_get_ring_plane_coordinate_imgs', 1)
+
+    def get_ring_plane_longitude_map(self, **map_kwargs) -> np.ndarray:
+        """Ring plane planetographic longitude map."""
+        return self._map_plane(
+            '_get_ring_plane_coordinate_maps', 1, **map_kwargs
+        )
+
+    def get_ring_plane_distance_img(self) -> np.ndarray:
+        """Ring plane distance from the observer for each pixel."""
+        return self._img_plane('_get_ring_plane_coordinate_imgs', 2)
+
+    def get_ring_plane_distance_map(self, **map_kwargs) -> np.ndarray:
+        """Ring plane distance map."""
+        return self._map_plane(
+            '_get_ring_plane_coordinate_maps', 2, **map_kwargs
+        )
 
     # ------------------------------------------------------------------
     # Mapping (reprojection of observed images)
@@ -657,10 +1420,24 @@ class BodyXY(Body):
         modes, the image's dtype for 'nearest'. ``fetch_dtype`` (a numpy
         dtype such as ``np.float16``) casts the result on the device before
         any copy to the host.
+
+        A body on the CPU also takes the JAX package's host route, with
+        ``PLANETMAPPER_TPU_MAP_DEVICE=off``: frame by frame with numpy and
+        scipy, the result always a float64 numpy array. A body on the card
+        refuses the switch: its image is mapped on the card or not at all.
         """
         spline_k = {'linear': 1, 'quadratic': 2, 'cubic': 3}
         if interpolation in spline_k:
             interpolation = spline_k[interpolation]  # type: ignore[index]
+        host_route = os.environ.get(
+            'PLANETMAPPER_TPU_MAP_DEVICE', 'on'
+        ).lower() in ('off', '0', 'false')
+        if host_route and self.device.type != 'cpu':
+            raise ValueError(
+                'PLANETMAPPER_TPU_MAP_DEVICE=off maps on the host, which only '
+                f'a body on the CPU does; this body is on {self.device}: '
+                "unset the switch, or build the body with device='cpu'"
+            )
         if isinstance(img, torch.Tensor):
             img = img.to(self.device)
         else:
@@ -669,6 +1446,16 @@ class BodyXY(Body):
             raise ValueError(
                 f'The input `img` shape {tuple(img.shape)!r} is inconsistent '
                 f'with the body\'s image size (ny={self._ny}, nx={self._nx})'
+            )
+        if host_route:
+            return self._map_img_on_host(
+                img.numpy(), interpolation, propagate_nan=propagate_nan,
+                warn_nan=warn_nan, spline_smoothing=spline_smoothing,
+                smooth_oversample_by=smooth_oversample_by,
+                smooth_max_oversampled_img_size=(
+                    smooth_max_oversampled_img_size
+                ),
+                **map_kwargs,
             )
         samples = self._get_map_samples(**map_kwargs)
 
@@ -699,3 +1486,181 @@ class BodyXY(Body):
         if as_numpy:
             return out.cpu().numpy()
         return out
+
+    def _map_img_on_host(
+        self, img: np.ndarray, interpolation, *, propagate_nan, warn_nan,
+        spline_smoothing, smooth_oversample_by,
+        smooth_max_oversampled_img_size, **map_kwargs,
+    ) -> np.ndarray:
+        """The JAX package's host route of ``map_img`` (body_xy.py:720-806)
+        for a body on the CPU: a cube frame by frame, each through the host
+        modules."""
+        if img.ndim == 3:
+            return np.array([
+                self._map_img_on_host(
+                    frame, interpolation, propagate_nan=propagate_nan,
+                    warn_nan=warn_nan, spline_smoothing=spline_smoothing,
+                    smooth_oversample_by=smooth_oversample_by,
+                    smooth_max_oversampled_img_size=(
+                        smooth_max_oversampled_img_size
+                    ),
+                    **map_kwargs,
+                )
+                for frame in img
+            ])
+        from .ops import interp
+
+        x_map = self.get_x_map(**map_kwargs)
+        y_map = self.get_y_map(**map_kwargs)
+        projected = self._make_empty_map(**map_kwargs)
+        if interpolation == 'nearest':
+            interp.nearest_interpolation(img, x_map, y_map, projected)
+        elif isinstance(interpolation, (int, tuple)):
+            interp.spline_interpolation(
+                img, x_map, y_map, projected,
+                interpolation=interpolation, warn_nan=warn_nan,
+                propagate_nan=propagate_nan,
+                spline_smoothing=spline_smoothing,
+            )
+        elif interpolation == 'smooth':
+            interp.smooth_interpolation(
+                img, x_map, y_map, projected,
+                propagate_nan=propagate_nan,
+                oversample_by=smooth_oversample_by,
+                max_oversampled_img_size=smooth_max_oversampled_img_size,
+            )
+        else:
+            raise ValueError(f'Unknown interpolation method {interpolation!r}')
+        return projected
+
+    # ------------------------------------------------------------------
+    # Default backplane registration (reference body_xy.py:4198-4356)
+    # ------------------------------------------------------------------
+    def _register_default_backplanes(self) -> None:
+        self.register_backplane(
+            'LON-GRAPHIC',
+            'Planetographic longitude, positive {ew} [deg]'.format(
+                ew=self.positive_longitude_direction
+            ),
+            self.get_lon_img, self.get_lon_map,
+        )
+        self.register_backplane(
+            'LAT-GRAPHIC', 'Planetographic latitude [deg]',
+            self.get_lat_img, self.get_lat_map,
+        )
+        self.register_backplane(
+            'LON-CENTRIC', 'Planetocentric longitude [deg]',
+            self.get_lon_centric_img, self.get_lon_centric_map,
+        )
+        self.register_backplane(
+            'LAT-CENTRIC', 'Planetocentric latitude [deg]',
+            self.get_lat_centric_img, self.get_lat_centric_map,
+        )
+        self.register_backplane(
+            'RA', 'Right ascension [deg]', self.get_ra_img, self.get_ra_map,
+        )
+        self.register_backplane(
+            'DEC', 'Declination [deg]', self.get_dec_img, self.get_dec_map,
+        )
+        self.register_backplane(
+            'PIXEL-X', 'Observation x pixel coordinate [pixels]',
+            self.get_x_img, self.get_x_map,
+        )
+        self.register_backplane(
+            'PIXEL-Y', 'Observation y pixel coordinate [pixels]',
+            self.get_y_img, self.get_y_map,
+        )
+        self.register_backplane(
+            'KM-X', 'East-West distance in target plane [km]',
+            self.get_km_x_img, self.get_km_x_map,
+        )
+        self.register_backplane(
+            'KM-Y', 'North-South distance in target plane [km]',
+            self.get_km_y_img, self.get_km_y_map,
+        )
+        self.register_backplane(
+            'ANGULAR-X', 'East-West distance in target plane [arcsec]',
+            self.get_angular_x_img, self.get_angular_x_map,
+        )
+        self.register_backplane(
+            'ANGULAR-Y', 'North-South distance in target plane [arcsec]',
+            self.get_angular_y_img, self.get_angular_y_map,
+        )
+        self.register_backplane(
+            'PHASE', 'Phase angle [deg]',
+            self.get_phase_angle_img, self.get_phase_angle_map,
+        )
+        self.register_backplane(
+            'INCIDENCE', 'Incidence angle [deg]',
+            self.get_incidence_angle_img, self.get_incidence_angle_map,
+        )
+        self.register_backplane(
+            'EMISSION', 'Emission angle [deg]',
+            self.get_emission_angle_img, self.get_emission_angle_map,
+        )
+        self.register_backplane(
+            'AZIMUTH', 'Azimuth angle [deg]',
+            self.get_azimuth_angle_img, self.get_azimuth_angle_map,
+        )
+        self.register_backplane(
+            'LOCAL-SOLAR-TIME', 'Local solar time [local hours]',
+            self.get_local_solar_time_img, self.get_local_solar_time_map,
+        )
+        self.register_backplane(
+            'DISTANCE', 'Distance to observer [km]',
+            self.get_distance_img, self.get_distance_map,
+        )
+        self.register_backplane(
+            'RADIAL-VELOCITY', 'Radial velocity away from observer [km/s]',
+            self.get_radial_velocity_img, self.get_radial_velocity_map,
+        )
+        self.register_backplane(
+            'DOPPLER',
+            'Doppler factor, sqrt((1 + v/c)/(1 - v/c)) where v is radial '
+            'velocity',
+            self.get_doppler_img, self.get_doppler_map,
+        )
+        self.register_backplane(
+            'LIMB-DISTANCE', 'Distance above limb [km]',
+            self.get_limb_distance_img, self.get_limb_distance_map,
+        )
+        self.register_backplane(
+            'LIMB-LON-GRAPHIC',
+            'Planetographic longitude of closest point on the limb [deg]',
+            self.get_limb_lon_img, self.get_limb_lon_map,
+        )
+        self.register_backplane(
+            'LIMB-LAT-GRAPHIC',
+            'Planetographic latitude of closest point on the limb [deg]',
+            self.get_limb_lat_img, self.get_limb_lat_map,
+        )
+        self.register_backplane(
+            'RING-RADIUS', 'Equatorial (ring) plane radius [km]',
+            self.get_ring_plane_radius_img, self.get_ring_plane_radius_map,
+        )
+        self.register_backplane(
+            'RING-LON-GRAPHIC',
+            'Equatorial (ring) plane planetographic longitude [deg]',
+            self.get_ring_plane_longitude_img,
+            self.get_ring_plane_longitude_map,
+        )
+        self.register_backplane(
+            'RING-DISTANCE', 'Equatorial (ring) plane distance to observer [km]',
+            self.get_ring_plane_distance_img,
+            self.get_ring_plane_distance_map,
+        )
+
+
+def _extract_map_kwargs_from_dict(kwargs_dict: dict):
+    """Split kwargs into (map kwargs, other kwargs)."""
+    map_keys = set(MapKwargs.__optional_keys__) | set(
+        MapKwargs.__required_keys__
+    )
+    map_kwargs: MapKwargs = {}
+    other_kwargs = {}
+    for k, v in kwargs_dict.items():
+        if k in map_keys:
+            map_kwargs[k] = v  # type: ignore[literal-required]
+        else:
+            other_kwargs[k] = v
+    return map_kwargs, other_kwargs

@@ -1,8 +1,10 @@
 """
-Plane-by-plane comparison of two backplane sets (numpy only).
+Plane-by-plane comparison of two backplane sets (numpy arrays).
 
 Used by the tests and by ``chip_smoke.py`` to hold the CUDA kernel against
-its plain float64 PyTorch version, and the port against the JAX package.
+its plain float64 PyTorch version, the port against the JAX package, the
+per-plane getters against the fused pipeline, and a card body's getters
+against a CPU body's.
 
 The kernel tolerances are the JAX package's table for its TPU kernel
 (``tests/test_pallas_core.py:673-696``): per-plane absolute bounds (angles
@@ -21,6 +23,8 @@ and TPU kernel) reports LON-CENTRIC in [0, 360).
 from __future__ import annotations
 
 import numpy as np
+
+from ..ops.backplanes_kernel import DISC_PLANES
 
 #: Absolute tolerances of a kernel against its reference (the JAX
 #: package's table); planes not listed are angles in degrees.
@@ -127,3 +131,251 @@ def compare_backplanes(
 def failures(reports: dict[str, dict]) -> dict[str, str]:
     """The planes of a :func:`compare_backplanes` result that failed."""
     return {k: r['reason'] for k, r in reports.items() if not r['ok']}
+
+
+# ---------------------------------------------------------------------------
+# The per-plane getters (get_backplane_img / get_backplane_map)
+# ---------------------------------------------------------------------------
+
+#: The JAX package's bars of its fused pipeline against its per-plane
+#: getters, ``(atol, rtol)`` (``tests/test_pipeline.py:26-37``); planes
+#: not listed: ``(5e-5, 0)``, angles in degrees.
+FUSED_TOLERANCE: dict[str, tuple[float, float]] = {
+    'DISTANCE': (0.05, 5e-7),
+    'RING-DISTANCE': (0.05, 5e-7),
+    'RING-RADIUS': (0.05, 5e-7),
+    'KM-X': (1e-4, 2e-7),
+    'KM-Y': (1e-4, 2e-7),
+    'LIMB-DISTANCE': (1e-4, 2e-7),
+    'RADIAL-VELOCITY': (1e-5, 0.0),
+}
+FUSED_DEFAULT_TOLERANCE = (5e-5, 0.0)
+
+#: One LOCAL-SOLAR-TIME bin [h]: the quantisation to whole seconds
+LST_BIN = 1.0 / 3600.0
+
+#: Float64 against float64, angles [deg]: the port against the JAX package
+#: on the CPU (the JAX package contracts multiply-adds into FMAs, PyTorch's
+#: CPU kernels do not), and a card body against a CPU body (CUDA's
+#: transcendental functions and sum orders differ from the CPU's in the
+#: last ulps; the bar of the map chain's card test)
+F64_ANGLE = 1e-9
+F64_CARD_ANGLE = 1e-8
+#: Float64 against float64 (two implementations of the per-plane getters):
+#: planes computed from observer-frame vectors of the target's size (km,
+#: angular and limb coordinates, ring radius, distances) are held to this
+#: fraction of the target distance, one f64 rounding of those vectors
+#: being 1.1e-16 of it
+F64_POSITION_RELATIVE = 1e-13
+#: km/s; and its Doppler factor, that over the speed of light
+F64_VELOCITY = 1e-9
+#: The bar is this many times larger where the geometry amplifies rounding
+#: (:func:`ill_conditioned`)
+ILL_CONDITIONED_FACTOR = 100.0
+
+_POSITION_PLANES = ('KM-X', 'KM-Y', 'LIMB-DISTANCE', 'RING-RADIUS',
+                    'DISTANCE', 'RING-DISTANCE')
+
+
+def per_plane_tolerance(body, *, angle: float, pixel: float):
+    """
+    ``name -> bar`` for two float64 implementations of a body's per-plane
+    getters: ``angle`` [deg] for angles, :data:`F64_POSITION_RELATIVE` of
+    the target distance for positions and distances (in arcsec for the
+    angular planes), :data:`F64_VELOCITY` for velocities, ``pixel`` for
+    the pixel planes and one :data:`LST_BIN` (a floor flip; the bins that
+    differ are counted apart) for LOCAL-SOLAR-TIME.
+    """
+    position = F64_POSITION_RELATIVE * body.target_distance
+    table = dict.fromkeys(_POSITION_PLANES, position)
+    table.update({
+        'ANGULAR-X': position / body.km_per_arcsec,
+        'ANGULAR-Y': position / body.km_per_arcsec,
+        'RADIAL-VELOCITY': F64_VELOCITY,
+        'DOPPLER': F64_VELOCITY / body.speed_of_light(),
+        'PIXEL-X': pixel, 'PIXEL-Y': pixel,
+        'LOCAL-SOLAR-TIME': LST_BIN * (1 + 1e-9),
+    })
+    return lambda name: table.get(name, angle)
+
+
+def ill_conditioned(ref: dict, near_centre: np.ndarray) -> dict[str, np.ndarray]:
+    """
+    Pixels (or map samples) where a plane's value is ill-conditioned in its
+    inputs, from the reference planes ``ref``:
+
+    - surface planes where the ray grazes the surface (emission > 75 deg:
+      intercept errors grow as 1/cos(emission));
+    - longitudes (and LOCAL-SOLAR-TIME) within 15 deg of a pole (errors
+      grow as 1/cos(latitude));
+    - AZIMUTH near the sub-solar and sub-observer points (undefined there);
+    - limb coordinates of rays passing near the target centre
+      (``near_centre``; errors grow as the target radius over the ray's
+      distance from the centre) and of limb points within 30 deg of a
+      pole.
+    """
+    emission = ref['EMISSION']
+    incidence = ref['INCIDENCE']
+    grazing = ~(emission < 75.0)
+    polar = ~(np.abs(ref['LAT-GRAPHIC']) < 75.0)
+    limb_polar = ~(np.abs(ref['LIMB-LAT-GRAPHIC']) < 60.0)
+    caps = (
+        grazing | ~(incidence > 5.0) | ~(incidence < 175.0)
+        | ~(emission > 5.0)
+    )
+    out = {name: grazing for name in DISC_PLANES}
+    for name in ('LON-GRAPHIC', 'LON-CENTRIC', 'LOCAL-SOLAR-TIME'):
+        out[name] = grazing | polar
+    out['AZIMUTH'] = caps
+    for name in ('LIMB-DISTANCE', 'LIMB-LON-GRAPHIC', 'LIMB-LAT-GRAPHIC'):
+        out[name] = near_centre | limb_polar
+    return out
+
+
+def per_plane_ill_conditioned(ref: dict, ray_offset: np.ndarray):
+    """
+    :func:`ill_conditioned` for the per-plane getters, given each ray's
+    distance from the target centre in equatorial radii (``ray_offset``;
+    near the centre below 0.5), with two more cases:
+
+    - limb coordinates where the offset times the cosine of the limb
+      latitude is below 0.5: a limb longitude errs by the near point's
+      position error over that product (the two causes of
+      :func:`ill_conditioned`, together);
+    - RING-LON-GRAPHIC everywhere: its point is a ray's intercept 1e9 km
+      away with a plane seen nearly edge-on (position errors grow as 1/sin
+      of the opening angle), computed per pixel rather than from anchors,
+      and its longitude errs by that position error over the ring radius.
+    """
+    out = ill_conditioned(ref, ray_offset < 0.5)
+    with np.errstate(invalid='ignore'):
+        lever = ray_offset * np.cos(np.radians(ref['LIMB-LAT-GRAPHIC']))
+    for name in ('LIMB-DISTANCE', 'LIMB-LON-GRAPHIC', 'LIMB-LAT-GRAPHIC'):
+        out[name] = out[name] | ~(lever >= 0.5)
+    out['RING-LON-GRAPHIC'] = np.ones(ray_offset.shape, dtype=bool)
+    return out
+
+
+def compare_per_plane(got: dict, ref: dict, tolerance, ill: dict,
+                      exclude: dict | None = None) -> dict[str, dict]:
+    """
+    :func:`compare_plane` of every plane at ``tolerance`` where it is well
+    conditioned and at :data:`ILL_CONDITIONED_FACTOR` times it everywhere
+    (``ill`` from :func:`per_plane_ill_conditioned`), with the JAX
+    package's mask-flip rule (:func:`boundary_flips`); ``exclude`` maps
+    plane names to pixels left out of the value comparison. Each report
+    adds ``max_abs_err_conditioned`` and ``bar``.
+    """
+    exclude = exclude or {}
+    reports = {}
+    for name in got:
+        max_mask_flips = max_boundary_flips(np.size(ref[name]))
+        left_out = exclude.get(name, np.zeros(np.shape(ref[name]), bool))
+        everywhere = compare_plane(
+            name, got[name], ref[name],
+            atol=tolerance(name) * ILL_CONDITIONED_FACTOR,
+            exclude=left_out, max_mask_flips=max_mask_flips,
+        )
+        conditioned = compare_plane(
+            name, got[name], ref[name], atol=tolerance(name),
+            exclude=left_out | ill.get(name, False),
+            max_mask_flips=max_mask_flips,
+        )
+        flips = boundary_flips(got[name], ref[name])
+        reasons = [r['reason'] for r in (everywhere, conditioned)
+                   if r['reason']]
+        if flips['off_boundary']:
+            reasons.append(f'{flips["off_boundary"]} mask flips off the '
+                           'disc boundary')
+        reports[name] = dict(
+            everywhere, ok=not reasons, reason='; '.join(reasons),
+            max_abs_err_conditioned=conditioned['max_abs_err'],
+            bar=tolerance(name),
+        )
+    return reports
+
+
+def on_mask_boundary(mask: np.ndarray) -> np.ndarray:
+    """Cells 8-adjacent to a transition of ``mask`` (tests/test_pipeline.py
+    ``_on_disc_boundary``)."""
+    padded = np.pad(mask, 1, mode='edge')
+    out = np.zeros_like(mask)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            out |= (
+                padded[1 + dy:1 + dy + mask.shape[0],
+                       1 + dx:1 + dx + mask.shape[1]]
+                != mask
+            )
+    return out
+
+
+def boundary_flips(got, ref) -> dict[str, int]:
+    """
+    The NaN-mask flips of ``got`` against ``ref`` and how many of them lie
+    off the boundary of ``ref``'s NaN mask; the JAX package's rule allows
+    flips only on it, at most :func:`max_boundary_flips` of them.
+    """
+    nan_ref = np.isnan(np.asarray(ref, dtype=np.float64))
+    flips = np.isnan(np.asarray(got, dtype=np.float64)) != nan_ref
+    return dict(flips=int(flips.sum()),
+                off_boundary=int((flips & ~on_mask_boundary(nan_ref)).sum()))
+
+
+def max_boundary_flips(size: int) -> int:
+    """The JAX package's bound on the mask flips of a plane of ``size``."""
+    return max(2, size // 64)
+
+
+def compare_with_fused(exact: dict, fused: dict,
+                       exclude: dict | None = None) -> dict[str, dict]:
+    """
+    The per-plane getters (``exact``) against the fused pipeline, by the
+    JAX package's rule (``tests/test_pipeline.py:54-81``): NaN masks may
+    differ only on the disc boundary, in at most
+    :func:`max_boundary_flips` pixels; values within ``atol + rtol *
+    |exact|`` of :data:`FUSED_TOLERANCE`, longitudes on the circle.
+    LOCAL-SOLAR-TIME may also differ by one whole :data:`LST_BIN` where
+    the two round to either side of a floor (a bin flip), in at most as
+    many pixels as the masks. ``exclude`` maps plane names to pixels left
+    out of the value comparison.
+
+    Each report holds ``ok``, ``reason``, ``flips``, ``off_boundary``,
+    ``max_excess`` (the largest difference less its bar; negative when
+    within it) and ``lst_bin_flips``.
+    """
+    reports = {}
+    for name, plane in exact.items():
+        e = np.asarray(plane, dtype=np.float64)
+        f = np.asarray(fused[name], dtype=np.float64)
+        flips = boundary_flips(f, e)
+        bound = max_boundary_flips(e.size)
+        both = np.isfinite(e) & np.isfinite(f)
+        if exclude and name in exclude:
+            both &= ~exclude[name]
+        diff = np.abs(e[both] - f[both])
+        if 'LON' in name:
+            diff = np.minimum(diff, 360.0 - diff)
+        lst_flips = 0
+        if name == 'LOCAL-SOLAR-TIME':
+            flipped = np.abs(diff - LST_BIN) < 0.5 * LST_BIN
+            lst_flips = int(flipped.sum())
+            diff = np.where(flipped, np.abs(diff - LST_BIN), diff)
+        atol, rtol = FUSED_TOLERANCE.get(name, FUSED_DEFAULT_TOLERANCE)
+        excess = diff - (atol + rtol * np.abs(e[both]))
+        max_excess = float(excess.max()) if excess.size else float('nan')
+        reasons = []
+        if flips['off_boundary']:
+            reasons.append(f'{flips["off_boundary"]} mask flips off the '
+                           'disc boundary')
+        if flips['flips'] > bound:
+            reasons.append(f'{flips["flips"]} mask flips (bound {bound})')
+        if excess.size and max_excess >= 0:
+            reasons.append(f'max excess {max_excess:.3e} over the bar')
+        if lst_flips > bound:
+            reasons.append(f'{lst_flips} LST bin flips (bound {bound})')
+        reports[name] = dict(
+            ok=not reasons, reason='; '.join(reasons), **flips,
+            max_excess=max_excess, lst_bin_flips=lst_flips,
+        )
+    return reports

@@ -1,7 +1,8 @@
 """
 The port's CUDA kernels (backplanes, map spline, PCHIP, map smooth)
-against their plain PyTorch versions, and a CUDA body's map chain against a
-CPU body's, on the card. Every test here carries the ``cuda``
+against their plain PyTorch versions, a CUDA body's map chain and its
+per-plane image and map getters against a CPU body's, and the per-plane
+getters against the backplane kernel, on the card. Every test here carries the ``cuda``
 marker and skips without a CUDA device; on a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -454,6 +455,22 @@ def test_map_img_makes_no_host_copy_of_the_xy_maps(kernel_path, device):
             if isinstance(v, np.ndarray) and v.size > 9] == ['_get_lonlat_map']
 
 
+def test_card_body_refuses_the_host_map_route(kernel_path, device,
+                                              monkeypatch):
+    # PLANETMAPPER_TPU_MAP_DEVICE=off is the host route of a CPU body only:
+    # a card body raises, launches nothing and copies nothing to the host
+    body = _map_bodies(device)['cuda']
+    monkeypatch.setenv('PLANETMAPPER_TPU_MAP_DEVICE', 'off')
+    for lib in (msp, msk, pk):
+        lib.reset_launch_count()
+    img = torch.ones((150, 150), dtype=torch.float64, device=device)
+    for interpolation in ('nearest', 'cubic', 'smooth'):
+        with pytest.raises(ValueError, match="device='cpu'"):
+            body.map_img(img, interpolation=interpolation, degree_interval=2)
+    assert [lib.launch_count() for lib in (msp, msk, pk)] == [0, 0, 0]
+    assert not body._cache
+
+
 def test_host_branch_s0_knots_take_the_uniform_path(device, monkeypatch):
     # a source larger than the device-solve limit (the limit lowered here):
     # the host FITPACK branch at s=0 describes its unit-spaced knots
@@ -513,3 +530,101 @@ def test_map_spline_searches_knots_in_or_out_of_shared_memory(device, n_ty):
         torch.cuda.synchronize()
         assert msp.launch_count() == before + 1
         _assert_within_one_ulp(got, msp.map_spline_plain(*args, **kw))
+
+
+# ---------------------------------------------------------------------------
+# The per-plane getters (get_backplane_img / get_backplane_map)
+# ---------------------------------------------------------------------------
+
+#: A frame of more than 4096 pixels (the bulk route: the image chain runs
+#: on the card) and a map of more than 4096 samples
+PLANES_FRAME = (96, 64, (47.3, 31.8, 26.0, 12.3))
+PLANES_MAP = dict(degree_interval=2)
+
+
+def _plane_bodies(device, nx, ny, disc):
+    bodies = {}
+    for where in ('cpu', device):
+        body = tpm.BodyXY('Jupiter', observer='EARTH',
+                          utc='2005-01-01T00:00:00', nx=nx, ny=ny,
+                          device=where)
+        body.set_disc_params(*disc)
+        bodies[torch.device(where).type] = body
+    return bodies['cuda'], bodies['cpu']
+
+
+def _ray_offset(nx, ny, disc):
+    yy, xx = np.mgrid[0:ny, 0:nx]
+    return np.hypot(xx - disc[0], yy - disc[1]) / disc[2]
+
+
+def test_cuda_body_image_getters_match_cpu_body(kernel_path, device):
+    nx, ny, disc = PLANES_FRAME
+    card, cpu = _plane_bodies(device, nx, ny, disc)
+    names = list(bk.PLANE_ORDER)
+    ref = {n: cpu.get_backplane_img(n) for n in names}
+    got = {n: card.get_backplane_img(n) for n in names}
+    assert card._get_targvec_img().device.type == 'cuda'
+    reports = compare.compare_per_plane(
+        got, ref,
+        compare.per_plane_tolerance(cpu, angle=compare.F64_CARD_ANGLE,
+                                    pixel=0.0),
+        compare.per_plane_ill_conditioned(ref, _ray_offset(nx, ny, disc)),
+    )
+    assert not compare.failures(reports), compare.failures(reports)
+    print('mask flips against the CPU body:',
+          {k: r['mask_flips'] for k, r in reports.items()})
+
+
+def test_cuda_body_map_getters_match_cpu_body(kernel_path, device):
+    card, cpu = _plane_bodies(device, *PLANES_FRAME)
+    names = list(bk.PLANE_ORDER)
+    ref = {n: cpu.get_backplane_map(n, **PLANES_MAP) for n in names}
+    got = {n: card.get_backplane_map(n, **PLANES_MAP) for n in names}
+    assert card._get_state_maps(**PLANES_MAP)[0].device.type == 'cuda'
+    # x/y: 8 ulps of an RA between 256 and 512 deg, in pixels (as above)
+    pixel = 8 * 2.0**-44 * 3600.0 / cpu.get_plate_scale_arcsec()
+    reports = compare.compare_per_plane(
+        got, ref,
+        compare.per_plane_tolerance(cpu, angle=compare.F64_CARD_ANGLE,
+                                    pixel=pixel),
+        compare.per_plane_ill_conditioned(
+            ref, np.abs(np.sin(np.radians(ref['EMISSION'])))),
+    )
+    assert not compare.failures(reports), compare.failures(reports)
+
+
+def test_backplane_img_matches_compute_backplanes_on_card(kernel_path,
+                                                          device):
+    # the JAX package's fused-vs-per-plane rule (tests/test_pipeline.py
+    # TOLS and _compare) against kernel 1
+    nx, ny, disc = 333, 257, (120.6, 140.2, 90.0, 45.0)
+    body, _ = _plane_bodies(device, nx, ny, disc)
+    planes = {n: body.get_backplane_img(n) for n in bk.PLANE_ORDER}
+    before = bk.launch_count()
+    fused = pipeline.compute_backplanes(body)
+    assert bk.launch_count() == before + 1
+    reports = compare.compare_with_fused(planes, fused)
+    assert not compare.failures(reports), compare.failures(reports)
+    assert np.isfinite(planes['EMISSION']).sum() > 10_000
+
+
+def test_image_chain_leaves_no_host_tensor(kernel_path, device):
+    body, _ = _plane_bodies(device, *PLANES_FRAME)
+    for name in bk.PLANE_ORDER:
+        body.get_backplane_img(name)
+    tensors, host = [], []
+    for key, value in body._cache.items():
+        for v in (value if isinstance(value, tuple) else (value,)):
+            if isinstance(v, torch.Tensor):
+                tensors.append(v)
+            elif isinstance(v, np.ndarray) and v.size > 9:
+                host.append(key[0])
+    # every cached step of the chain is a float64 tensor on the card; the
+    # only host arrays are the getters' copies of a plane
+    assert len(tensors) >= 12
+    assert all(t.device.type == 'cuda' and t.dtype == torch.float64
+               for t in tensors)
+    assert set(host) == {'_img_plane', 'get_azimuth_angle_img',
+                         'get_local_solar_time_img', 'get_distance_img',
+                         'get_radial_velocity_img'}

@@ -58,9 +58,6 @@ F64_TOLERANCE = {
     'LIMB-DISTANCE': 1e-6, 'RING-RADIUS': 1e-6, 'RING-DISTANCE': 1e-6,
 }
 F64_ANGLE_TOLERANCE = 1e-9
-#: Where the geometry amplifies that rounding (see _ill_conditioned) the
-#: bound is this many times larger - still 1e3 below the kernel table.
-ILL_CONDITIONED_FACTOR = 100.0
 #: An exact >= test (the intercept discriminant at the limb) may flip on
 #: rounding for a pixel whose ray grazes the surface.
 F64_MAX_MASK_FLIPS = 2
@@ -74,41 +71,19 @@ def _ill_conditioned(
     ref: dict, disc, *, own_anchors: bool = False
 ) -> dict[str, np.ndarray]:
     """
-    Pixels where a plane's value is ill-conditioned in its inputs:
-
-    - on-disc planes where the ray grazes the surface (emission > 75 deg:
-      intercept errors grow as 1/cos(emission));
-    - longitudes (and LOCAL-SOLAR-TIME) within 15 deg of a pole (errors
-      grow as 1/cos(latitude));
-    - AZIMUTH near the sub-solar and sub-observer points (undefined there);
-    - limb coordinates of rays passing near the target centre (errors
-      grow as the disc radius over the ray's distance from the centre:
-      inside half the disc radius) and of limb points within 30 deg of a
-      pole;
-    - with ``own_anchors`` (each package computed its own anchors), the
-      ring planes: the ring-plane anchor is a 1e9 -> 1e5 km difference
-      that the two packages round apart at ~1e-12 relative.
+    Pixels where a plane's value is ill-conditioned in its inputs
+    (:func:`compare.ill_conditioned`; rays passing near the target centre:
+    inside half the disc radius) and, with ``own_anchors`` (each package
+    computed its own anchors), the ring planes: the ring-plane anchor is a
+    1e9 -> 1e5 km difference that the two packages round apart at ~1e-12
+    relative.
     """
-    emission = ref['EMISSION']
-    incidence = ref['INCIDENCE']
-    grazing = ~(emission < 75.0)
-    polar = ~(np.abs(ref['LAT-GRAPHIC']) < 75.0)
-    ny, nx = emission.shape
+    ny, nx = ref['EMISSION'].shape
     yy, xx = np.mgrid[0:ny, 0:nx]
     near_centre = np.hypot(xx - disc[0], yy - disc[1]) < disc[2] / 2
-    limb_polar = ~(np.abs(ref['LIMB-LAT-GRAPHIC']) < 60.0)
-    caps = (
-        grazing | ~(incidence > 5.0) | ~(incidence < 175.0)
-        | ~(emission > 5.0)
-    )
-    out = {name: grazing for name in backplanes_kernel.DISC_PLANES}
-    for name in ('LON-GRAPHIC', 'LON-CENTRIC', 'LOCAL-SOLAR-TIME'):
-        out[name] = grazing | polar
-    out['AZIMUTH'] = caps
-    for name in ('LIMB-DISTANCE', 'LIMB-LON-GRAPHIC', 'LIMB-LAT-GRAPHIC'):
-        out[name] = near_centre | limb_polar
+    out = compare.ill_conditioned(ref, near_centre)
     if own_anchors:
-        everywhere = np.ones_like(grazing)
+        everywhere = np.ones_like(near_centre)
         for name in ('RING-RADIUS', 'RING-LON-GRAPHIC', 'RING-DISTANCE'):
             out[name] = everywhere
     return out
@@ -121,7 +96,9 @@ def assert_f64_parity(
     ill = _ill_conditioned(ref, disc, own_anchors=own_anchors)
     everywhere = compare.compare_backplanes(
         got, ref,
-        tolerance=lambda n: f64_tolerance(n) * ILL_CONDITIONED_FACTOR,
+        tolerance=lambda n: (
+            f64_tolerance(n) * compare.ILL_CONDITIONED_FACTOR
+        ),
         max_mask_flips=F64_MAX_MASK_FLIPS,
     )
     conditioned = compare.compare_backplanes(

@@ -2,7 +2,8 @@
 The PyTorch port's scene layer against the JAX package, on the synthetic
 SPICE kernels written by ``planetmapper_tpu_torch.testing``:
 
-- importing the port pulls in neither JAX nor matplotlib;
+- importing the port, its exports and its lazy submodules pulls in
+  neither JAX nor matplotlib;
 - the synthetic kernels load with the JAX package's own readers and
   reproduce the analytic states they were written from;
 - SPK evaluators, apparent states (``spkezr``), IAU frame rotations and the
@@ -72,10 +73,12 @@ def kernel_files(tmp_path_factory):
 
 def test_import_pulls_in_no_jax_or_matplotlib():
     code = (
-        'import sys, planetmapper_tpu_torch\n'
+        'import sys, planetmapper_tpu_torch as pt\n'
         'from planetmapper_tpu_torch.ops import (cuda_build, interp,\n'
         '    interp_device, map_smooth_kernel, map_spline_kernel,\n'
         '    pchip_device, projections)\n'
+        'exports = [getattr(pt, name) for name in pt.__all__]\n'
+        'lazy = [getattr(pt, name) for name in sorted(pt._SUBMODULES)]\n'
         'bad = [m for m in ("jax", "matplotlib", "planetmapper_tpu") '
         'if m in sys.modules]\n'
         'print(bad)\n'
