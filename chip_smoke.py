@@ -30,6 +30,20 @@ on 2005-01-01 (synthetic SPICE kernels written at run time):
   rule; times the 26 ``get_backplane_map`` calls on the 720x1440 map; and
   holds a 256x256 card body's 26 image getters and its 26 180x360 map
   getters against a CPU body's, each with its peak device memory.
+- observation: writes the map benchmark's 1024x1024 8-frame cube (a bright
+  disc added) as a FITS file with a TAN WCS, with the port's writer; on a
+  card ``Observation`` of it, times the open and the disc from the WCS,
+  ``fit_disc_position``, ``fit_disc_radius``, ``save_observation`` (27
+  HDUs) and ``save_mapped_observation`` onto the 720x1440 map in 'linear'
+  and 'smooth', with peak memory and file sizes; counts the map kernels'
+  launches on that path; reads the files back (HDU names, data), holds
+  the saved backplanes against kernel 1 and the mapped HDUs against
+  ``map_img`` bit for bit; saves again from a fresh Observation of the
+  file, with ``save_observation``'s time split between the plane getters,
+  their host copies and the FITS write, and with every call of the three
+  map kernels held against its plain version on the same inputs; and
+  holds a 128x128 4-frame card Observation's three files against a CPU
+  Observation's, card by card.
 
 Prints the card's name and power limit, one JSON line describing each
 kernel, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -40,6 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -52,6 +67,7 @@ import torch
 import planetmapper_tpu_torch as pt
 from planetmapper_tpu_torch import pipeline
 from planetmapper_tpu_torch._device import f64
+from planetmapper_tpu_torch.io import fits as pt_fits
 from planetmapper_tpu_torch.ops import backplanes_kernel as bk
 from planetmapper_tpu_torch.ops import cuda_build, interp, interp_device
 from planetmapper_tpu_torch.ops import map_smooth_kernel as msk
@@ -59,6 +75,11 @@ from planetmapper_tpu_torch.ops import map_spline_kernel as msp
 from planetmapper_tpu_torch.ops import pchip_device
 from planetmapper_tpu_torch.ops import pchip_kernel as pk
 from planetmapper_tpu_torch.testing import bounds, compare
+from planetmapper_tpu_torch.testing.observation_files import (
+    disc_cube,
+    read_fits,
+    write_observation,
+)
 from planetmapper_tpu_torch.testing.synthetic_kernels import (
     AU_KM,
     write_synthetic_kernels,
@@ -110,7 +131,10 @@ TRIAXIAL_SCALE = (1.0, 0.98, 0.935)
 #: Kernel against plain version: the JAX package's own TPU bars relative
 #: to max(scale, 1) (tests/test_pallas_core.py:727-732, :775-780, :812-817)
 MAP_BARS = {('spline', 150): 3e-5, ('spline', 1024): 5e-5,
-            ('smooth', 150): 1e-4}
+            ('smooth', 150): 1e-4,
+            # the JAX package states one bar for its smooth sampler, at
+            # any frame size: the [observation] phase's 1024^2 cube
+            ('smooth', 1024): 1e-4}
 #: The map_spline instances the main path runs most, as (kx, ky):
 #: 'linear', 'cubic' and (3, 1)
 MAIN_SPLINE_DEGREES = ((1, 1), (3, 3), (1, 3))
@@ -467,14 +491,15 @@ def map_runs():
             for size, mode, key in runs]
 
 
-def compare_pchip_with_plain(label, args, kwargs, out) -> float:
+def compare_pchip_with_plain(label, args, kwargs, out,
+                             phase='map') -> float:
     """The PCHIP kernel against its plain version on the same inputs: the
     same float64 values bit for bit (both round every operation alike)."""
     ref = pk.pchip_axis_plain(*args, **kwargs)
     flips = int((torch.isnan(out) != torch.isnan(ref)).sum())
     both = ~torch.isnan(ref)
     err = float((out[both] - ref[both]).abs().max()) if both.any() else 0.0
-    log(f'[map] {label}: pchip kernel (axis {kwargs["axis"]}, '
+    log(f'[{phase}] {label}: pchip kernel (axis {kwargs["axis"]}, '
         f'{tuple(out.shape)}) vs plain: mask flips {flips}, max_abs_err '
         f'{err:.3e} (bar 0: bit for bit), {int(both.sum())} finite values')
     if out.dtype != torch.float64 or flips or err != 0.0:
@@ -482,9 +507,10 @@ def compare_pchip_with_plain(label, args, kwargs, out) -> float:
     return err
 
 
-def compare_with_plain(label, kind, size, args, kwargs, out) -> float:
+def compare_with_plain(label, kind, size, args, kwargs, out,
+                       phase='map') -> float:
     if kind == 'pchip':
-        return compare_pchip_with_plain(label, args, kwargs, out)
+        return compare_pchip_with_plain(label, args, kwargs, out, phase)
     plain_fn = msp.map_spline_plain if kind == 'spline' else \
         msk.map_smooth_plain
     ref = plain_fn(*args, **kwargs).cpu().numpy()
@@ -503,7 +529,7 @@ def compare_with_plain(label, kind, size, args, kwargs, out) -> float:
             / np.spacing(np.maximum(np.abs(ref[both]), np.float32(1e-6)))
         ))
     bar = MAP_BARS[(kind, size)]
-    log(f'[map] {label}: {kind} kernel vs plain: mask flips {flips}, '
+    log(f'[{phase}] {label}: {kind} kernel vs plain: mask flips {flips}, '
         f'max_abs_err {err:.3e} (bar {bar * max(scale, 1.0):.3e}), '
         f'max {ulps:.1f} float32 ulps, {int(both.sum())} finite values')
     if flips or err > bar * max(scale, 1.0):
@@ -936,11 +962,11 @@ def planes_against_fused(planes, fused, size) -> dict:
 
 
 def planes_against_cpu(label, got, ref, tolerance, ill,
-                       exclude=None) -> dict:
+                       exclude=None, phase='planes') -> dict:
     """A card body's planes against a CPU body's (testing/compare.py
     compare_per_plane)."""
     reports = compare.compare_per_plane(got, ref, tolerance, ill, exclude)
-    log(f'[planes] {label}, card vs CPU body: per plane (max_abs_err where '
+    log(f'[{phase}] {label}, card vs CPU body: per plane (max_abs_err where '
         'well conditioned, max_abs_err, bar, mask flips, LST bin flips): '
         + json.dumps({k: (f'{r["max_abs_err_conditioned"]:.3e}',
                           f'{r["max_abs_err"]:.3e}', f'{r["bar"]:.1e}',
@@ -1028,6 +1054,374 @@ def planes_phase(device, card: str) -> dict:
                 small_map=small_map)
 
 
+# ---------------------------------------------------------------------------
+# [observation]: Observation with FITS in and FITS out
+# ---------------------------------------------------------------------------
+
+#: The observation file: the map benchmark's 1024x1024 8-frame cube with
+#: its NaN block, a bright disc added on MAP_BODIES[1024]
+OBS_SIZE = 1024
+#: The card-against-CPU file: 128x128, 4 frames, the disc scaled by 1/8,
+#: mapped onto the 180x360 map
+OBS_SMALL = 128
+OBS_SMALL_FRAMES = 4
+OBS_SMALL_DISC = (*(v / 8 for v in MAP_BODIES[OBS_SIZE][:3]),
+                  MAP_BODIES[OBS_SIZE][3])
+#: Headers card by card (testing/compare.py compare_headers); the disc,
+#: the metadata and the map WCS come from host computations on both
+#: bodies
+OBS_HEADER_BARS = dict(angle=compare.F64_CARD_ANGLE, pixel=1e-9,
+                       relative=1e-12)
+#: The card's mapped data against the CPU body's (the plain versions of
+#: the map kernels): the kernel-vs-plain bars of MAP_BARS
+OBS_MAP_BARS = {'linear': MAP_BARS[('spline', 150)],
+                'smooth': MAP_BARS[('smooth', 150)]}
+
+
+def synchronised(fn):
+    """``(result, ms, peak MiB)`` of one call on the card: host clock to
+    the end of a synchronise, and the peak device memory above what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, (time.perf_counter() - t0) * 1e3,
+            (torch.cuda.max_memory_allocated() - live) / 2**20)
+
+
+class ExportClock:
+    """
+    Splits the host-clock time of ``save_observation``: the 26 plane
+    getters (each synchronised), the host copies inside them that go
+    through ``BodyXY._img_plane`` (timed after a synchronise of the plane
+    they copy; the other getters copy inside themselves and count as
+    getters), and the FITS encoding and write (``HDUList.writeto``).
+    """
+
+    def __init__(self):
+        self.ms = dict(getters=0.0, copies=0.0, fits=0.0)
+
+    @contextlib.contextmanager
+    def timing(self, obs):
+        img_plane = pt.BodyXY._img_plane
+        writeto = pt_fits.HDUList.writeto
+        registry = dict(obs.backplanes)
+        ms = self.ms
+
+        def timed_img_plane(body, getter, index):
+            getattr(body, getter)()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = img_plane(body, getter, index)
+            ms['copies'] += (time.perf_counter() - t0) * 1e3
+            return out
+
+        def timed_getter(get_img):
+            def timed():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = get_img()
+                torch.cuda.synchronize()
+                ms['getters'] += (time.perf_counter() - t0) * 1e3
+                return out
+            return timed
+
+        def timed_writeto(hdul, *args, **kwargs):
+            t0 = time.perf_counter()
+            writeto(hdul, *args, **kwargs)
+            ms['fits'] += (time.perf_counter() - t0) * 1e3
+
+        pt.BodyXY._img_plane = timed_img_plane
+        pt_fits.HDUList.writeto = timed_writeto
+        obs.backplanes = {name: bp._replace(get_img=timed_getter(bp.get_img))
+                          for name, bp in registry.items()}
+        try:
+            yield
+        finally:
+            pt.BodyXY._img_plane = img_plane
+            pt_fits.HDUList.writeto = writeto
+            obs.backplanes = registry
+
+
+def check_observation_file(label, path, planes) -> list:
+    """The HDU names of a saved file (the JAX package's: the primary HDU,
+    then the 26 default backplanes in registry order); its data."""
+    names, headers, data = read_fits(path)
+    if names != [''] + list(planes):
+        raise SmokeFailure(f'{label}: HDU names {names}')
+    return headers, data
+
+
+def observation_run(device, path, card):
+    """The main path on the 1024^2 file, each step synchronised: the open
+    and the disc from the WCS, the two disc fits, save_observation and
+    save_mapped_observation in 'linear' and 'smooth'. The map kernels'
+    counts are set to 0 before the open and read after the last save."""
+    disc = MAP_BODIES[OBS_SIZE]
+    out = os.path.dirname(path)
+    paths = {'nav': os.path.join(out, 'nav_1024.fits'),
+             'linear': os.path.join(out, 'map_linear_1024.fits'),
+             'smooth': os.path.join(out, 'map_smooth_1024.fits')}
+    steps = {}
+
+    def step(name, fn):
+        out, ms, peak = synchronised(fn)
+        steps[name] = (ms, peak)
+        return out
+
+    for lib in (msp, msk, pk):
+        lib.reset_launch_count()
+    obs = step('open + disc_from_wcs',
+               lambda: pt.Observation(path, device=device))
+    wcs_disc = obs.get_disc_params()
+    # the WCS was made from 1-pixel steps of the disc's RA/Dec (TAN); the
+    # WCS route measures the rotation on RA and Dec degrees, and the plate
+    # scale as the arccos of the cosine of a one-pixel step (~2e-7 rad
+    # here, whose float64 rounding is ~0.3% of it), as the JAX package
+    # does: within 0.01 px, 1% of r0 and 0.2 deg of the disc
+    offsets = np.abs(np.subtract(wcs_disc, disc))
+    if obs.get_disc_method() != 'wcs' or obs.device.type != device.type or \
+            max(offsets[:2]) > 0.01 or offsets[2] > 1e-2 * disc[2] or \
+            offsets[3] > 0.2:
+        raise SmokeFailure(f'the WCS disc {wcs_disc} ({obs.get_disc_method()}'
+                           f') on {obs.device}, expected {disc}')
+    step('fit_disc_position', obs.fit_disc_position)
+    step('fit_disc_radius', obs.fit_disc_radius)
+    fitted = obs.get_disc_params()
+    log(f'[observation] fitted disc (fit_disc_position, fit_disc_radius) '
+        f'{json.dumps(fitted[:3])} beside the WCS disc '
+        f'{json.dumps(wcs_disc[:3])}')
+    # the disc is a step of 8 x 5 on noise of sd 8**0.5; the fit reports
+    # the middle of the radius step with the steepest fall of the mean,
+    # the radii being (r_ceil / 99) px apart: within two steps of r0
+    r_step = int(min(*wcs_disc[:2], OBS_SIZE - wcs_disc[0],
+                     OBS_SIZE - wcs_disc[1])) / 99
+    if max(abs(fitted[0] - wcs_disc[0]), abs(fitted[1] - wcs_disc[1])) > 0.5 \
+            or abs(fitted[2] - wcs_disc[2]) > 2 * r_step:
+        raise SmokeFailure(f'the fitted disc {fitted} is not the WCS disc')
+    obs.disc_from_wcs()
+    step('save_observation', lambda: obs.save_observation(
+        paths['nav'], include_wireframe=False, print_info=False))
+    for mode in ('linear', 'smooth'):
+        step(f'save_mapped_observation {mode}',
+             lambda: obs.save_mapped_observation(
+                 paths[mode], interpolation=mode, include_wireframe=False,
+                 print_info=False, **MAP_KW))
+    launches = {'map_spline': msp.launch_count(),
+                'pchip_axis': pk.launch_count(),
+                'map_smooth': msk.launch_count()}
+    sizes = {k: os.path.getsize(p) for k, p in paths.items()}
+    for name, (ms, peak) in steps.items():
+        size = {'save_observation': sizes['nav'],
+                'save_mapped_observation linear': sizes['linear'],
+                'save_mapped_observation smooth': sizes['smooth']}.get(name)
+        log(f'[observation] {card} | {name}: {ms:.1f} ms (host clock, '
+            f'synchronised), peak device memory {peak:.1f} MiB above what '
+            'was allocated before' + (f', file {size / 2**20:.1f} MiB'
+                                      if size else ''))
+    log(f'[observation] kernel launches in the run: {json.dumps(launches)}')
+    if min(launches.values()) < 1:
+        raise SmokeFailure(f'the observation path launched {launches}')
+    return obs, paths, steps, launches
+
+
+def instrumented_run(obs, path, card) -> tuple[dict, dict]:
+    """
+    The saves again, on a fresh Observation of the same file (the first
+    one's planes and maps are cached): save_observation under
+    :class:`ExportClock`, and save_mapped_observation with the map
+    kernels' calls recorded and each held against its plain version on
+    the same inputs. Its files are deleted as soon as written.
+    """
+    again = pt.Observation(path, device=obs.device)
+    if again.get_disc_params() != obs.get_disc_params():
+        raise SmokeFailure('a second open gave another WCS disc')
+    scratch = os.path.join(os.path.dirname(path), 'instrumented.fits')
+    clock, calls, ms = ExportClock(), KernelCalls(), {}
+    with clock.timing(again):
+        _, ms['save_observation'], _ = synchronised(
+            lambda: again.save_observation(scratch, include_wireframe=False,
+                                           print_info=False))
+    os.remove(scratch)
+    for mode in ('linear', 'smooth'):
+        with calls.recording(f'{OBS_SIZE}^2 {MAP_CUBE_FRAMES[OBS_SIZE]}-frame '
+                             f'observation {mode}'):
+            _, ms[f'save_mapped_observation {mode}'], _ = synchronised(
+                lambda: again.save_mapped_observation(
+                    scratch, interpolation=mode, include_wireframe=False,
+                    print_info=False, **MAP_KW))
+        os.remove(scratch)
+        if not np.array_equal(again.get_mapped_data(mode, **MAP_KW),
+                              obs.get_mapped_data(mode, **MAP_KW),
+                              equal_nan=True):
+            raise SmokeFailure(f'{mode}: the second run mapped another cube')
+    kinds = sorted(kind for _, kind, *_ in calls.calls)
+    if kinds != ['pchip', 'pchip', 'smooth', 'spline']:
+        raise SmokeFailure(f'the mapped saves called {kinds}')
+    errors = {'spline': 0.0, 'smooth': 0.0, 'pchip': 0.0}
+    for label, kind, args, kwargs, out in calls.calls:
+        err = compare_with_plain(label, kind, OBS_SIZE, args, kwargs, out,
+                                 phase='observation')
+        errors[kind] = max(errors[kind], err)
+    nav_ms = ms['save_observation']
+    log(f'[observation] {card} | second run, instrumented (a fresh '
+        'Observation of the same file): ' + ', '.join(
+            f'{k} {v:.1f} ms' for k, v in ms.items()))
+    log(f'[observation] {card} | its save_observation {nav_ms:.1f} ms: the '
+        f'26 plane getters {clock.ms["getters"]:.1f} ms (of which host '
+        f'copies through _img_plane {clock.ms["copies"]:.1f} ms), FITS '
+        f'encoding and write {clock.ms["fits"]:.1f} ms, the rest (header '
+        'metadata, HDUs) '
+        f'{nav_ms - clock.ms["getters"] - clock.ms["fits"]:.1f} ms')
+    return errors, dict(ms=ms, split=clock.ms)
+
+
+def observation_checks(obs, paths, cube) -> dict:
+    """The saved files: HDU names, the data, the backplanes against kernel
+    1 (TOLS) and the mapped data against map_img bit for bit."""
+    names = list(bk.PLANE_ORDER)
+    _, data = check_observation_file('save_observation', paths['nav'], names)
+    if not np.array_equal(data[0], cube, equal_nan=True):
+        raise SmokeFailure('the saved primary HDU is not the observed cube')
+    planes = dict(zip(names, data[1:]))
+    fused = pipeline.compute_backplanes(obs)
+    reports = compare.compare_with_fused(
+        planes, fused,
+        centre_pixel((OBS_SIZE, OBS_SIZE), obs.get_disc_params()))
+    log(f'[observation] {OBS_SIZE}x{OBS_SIZE} saved backplane HDUs vs '
+        'compute_backplanes (kernel 1): per plane (largest excess over the '
+        'bar, mask flips, flips off the disc boundary, LST bin flips): '
+        + json.dumps({k: (f'{r["max_excess"]:.3e}', r['flips'],
+                          r['off_boundary'], r['lst_bin_flips'])
+                      for k, r in reports.items()}))
+    bad = compare.failures(reports)
+    if bad:
+        raise SmokeFailure(f'saved backplanes differ from kernel 1: {bad}')
+    for mode in ('linear', 'smooth'):
+        headers, data = check_observation_file(
+            f'save_mapped_observation {mode}', paths[mode], names)
+        ref = obs.map_img(obs.data, interpolation=mode, as_numpy=True,
+                          **MAP_KW).astype(np.float64)
+        if data[0].shape != (MAP_CUBE_FRAMES[OBS_SIZE],) + MAP_SHAPE or \
+                not np.array_equal(data[0], ref, equal_nan=True):
+            raise SmokeFailure(f'{mode}: the mapped HDU is not map_img(cube)')
+        if headers[0]['PLANMAP MAP INTERPOLATION'] != mode:
+            raise SmokeFailure(f'{mode}: header {headers[0]}')
+        frac = float(np.isfinite(data[0][0]).mean())
+        log(f'[observation] save_mapped_observation {mode}: mapped HDU '
+            f'{data[0].shape} equals map_img(cube) bit for bit; finite '
+            f'fraction of frame 0 {frac:.4f}')
+    return reports
+
+
+def small_observations(device, tmp):
+    """The 128^2 4-frame file on a card Observation and a CPU one, each
+    saved navigated and mapped ('linear' with the backplanes, 'smooth'
+    without) onto the 180x360 map."""
+    path = os.path.join(tmp, 'observation_128.fits')
+    rng = np.random.default_rng(OBS_SMALL)
+    cube = disc_cube(rng.normal(size=(OBS_SMALL_FRAMES, OBS_SMALL,
+                                      OBS_SMALL)), OBS_SMALL_DISC)
+    cube[1, 40:44, 60:63] = np.nan
+    write_observation(path, cube, OBS_SMALL_DISC, UTC)
+    files, bodies = {}, {}
+    for label, where in (('card', device), ('cpu', torch.device('cpu'))):
+        obs = pt.Observation(path, device=where)
+        bodies[label] = obs
+        for kind, kw in (('nav', None), ('linear', True), ('smooth', False)):
+            out = os.path.join(tmp, f'small_{kind}_{label}.fits')
+            if kw is None:
+                obs.save_observation(out, include_wireframe=False,
+                                     print_info=False)
+            else:
+                obs.save_mapped_observation(
+                    out, interpolation=kind, include_backplanes=kw,
+                    include_wireframe=False, print_info=False, **SMALL_MAP)
+            files[kind, label] = read_fits(out)
+    return files, bodies['cpu']
+
+
+def small_observation_checks(device, tmp) -> dict:
+    """A card Observation's files against a CPU Observation's: headers card
+    by card (but the date), backplane HDUs at the card-vs-CPU bars of the
+    [planes] phase, the mapped data at the map kernels' bars against their
+    plain versions."""
+    files, cpu = small_observations(device, tmp)
+    report = {}
+    for kind in ('nav', 'linear', 'smooth'):
+        (names, headers, data), (ref_names, ref_headers, ref_data) = (
+            files[kind, 'card'], files[kind, 'cpu'])
+        if names != ref_names:
+            raise SmokeFailure(f'small {kind}: HDU names {names}')
+        for name, got, ref in zip(names, headers, ref_headers):
+            problems = compare.compare_headers(got, ref, **OBS_HEADER_BARS)
+            if problems:
+                raise SmokeFailure(f'small {kind} {name!r} header: {problems}')
+        if kind == 'nav':
+            ok = np.array_equal(data[0], ref_data[0], equal_nan=True)
+            primary = dict(equal=ok)
+        else:
+            primary = compare.compare_map(data[0], ref_data[0],
+                                          OBS_MAP_BARS[kind])
+            ok = primary['ok']
+        if not ok:
+            raise SmokeFailure(f'small {kind}: primary HDU {primary}')
+        report[kind] = dict(primary=primary, cards=len(headers[0]))
+        if len(names) == 1:
+            continue
+        planes = dict(zip(names[1:], data[1:]))
+        refs = dict(zip(names[1:], ref_data[1:]))
+        if kind == 'nav':
+            yy, xx = np.mgrid[0:OBS_SMALL, 0:OBS_SMALL]
+            offset = np.hypot(xx - OBS_SMALL_DISC[0], yy - OBS_SMALL_DISC[1]) \
+                / OBS_SMALL_DISC[2]
+            pixel = 0.0
+            exclude = centre_pixel((OBS_SMALL, OBS_SMALL), OBS_SMALL_DISC)
+        else:
+            offset = np.abs(np.sin(np.radians(refs['EMISSION'])))
+            pixel = 8 * 2.0**-44 * 3600.0 / cpu.get_plate_scale_arcsec()
+            exclude = None
+        report[kind]['planes'] = planes_against_cpu(
+            f'{OBS_SMALL}x{OBS_SMALL} Observation {kind} HDUs', planes, refs,
+            compare.per_plane_tolerance(cpu, angle=compare.F64_CARD_ANGLE,
+                                        pixel=pixel),
+            compare.per_plane_ill_conditioned(refs, offset), exclude,
+            phase='observation')
+    log(f'[observation] {OBS_SMALL}x{OBS_SMALL} {OBS_SMALL_FRAMES}-frame '
+        'card Observation vs CPU Observation: headers equal card by card '
+        '(but PLANMAP DATE); primary HDUs: ' + json.dumps(
+            {k: v['primary'] for k, v in report.items()}))
+    return report
+
+
+def observation_phase(device, card: str) -> dict:
+    """
+    [observation]: write the 1024^2 8-frame FITS observation with the
+    port's writer, drive the main path on a card Observation (timed), check
+    the files it wrote, save again instrumented (the export split, the map
+    kernels against their plain versions), and hold a small card
+    Observation's files against a CPU Observation's.
+    """
+    with tempfile.TemporaryDirectory(prefix='observation_') as tmp:
+        path = os.path.join(tmp, 'observation_1024.fits')
+        cube = disc_cube(map_images(OBS_SIZE, OBS_SIZE)[2],
+                         MAP_BODIES[OBS_SIZE])
+        t0 = time.perf_counter()
+        write_observation(path, cube, MAP_BODIES[OBS_SIZE], UTC)
+        log(f'[observation] wrote {cube.shape} float64 with a TAN WCS '
+            f'({os.path.getsize(path) / 2**20:.1f} MiB) in '
+            f'{(time.perf_counter() - t0) * 1e3:.1f} ms')
+        obs, paths, steps, launches = observation_run(device, path, card)
+        reports = observation_checks(obs, paths, cube)
+        errors, instrumented = instrumented_run(obs, path, card)
+        small = small_observation_checks(device, tmp)
+    return dict(steps=steps, launches=launches, errors=errors,
+                instrumented=instrumented, fused=reports, small=small)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
@@ -1079,6 +1473,22 @@ def main() -> int:
                 f'get_backplane_map {planes["map_ms"]:.1f} ms (peak '
                 f'{planes["map_peak"]:.1f} MiB); phase '
                 f'{time.perf_counter() - t_planes:.1f} s')
+            t_obs = time.perf_counter()
+            observation = observation_phase(device, card_line())
+            steps = observation['steps']
+            log(f'[observation] {card} | Observation export time (the '
+                'first, uninstrumented run): '
+                f'save_observation {steps["save_observation"][0]:.1f} ms, '
+                'save_mapped_observation linear '
+                f'{steps["save_mapped_observation linear"][0]:.1f} ms, '
+                'smooth '
+                f'{steps["save_mapped_observation smooth"][0]:.1f} ms, peak '
+                f'{max(peak for _, peak in steps.values()):.1f} MiB; map '
+                'kernel launches on the path '
+                f'{json.dumps(observation["launches"])}; phase '
+                f'{time.perf_counter() - t_obs:.1f} s')
+            for kind, err in observation['errors'].items():
+                map_errors[kind] = max(map_errors[kind], err)
             pt.clear_kernels()
     except SmokeFailure as exc:
         log(f'FAIL: {exc}')

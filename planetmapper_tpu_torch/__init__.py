@@ -17,7 +17,10 @@ CPU tensors.
 Ported so far: ``Body`` (its point transforms and per-point physics),
 ``BodyXY`` (disc parameters, the pixel transforms, the backplane registry
 with the 26 per-plane image and map getters, the fused 26-backplane
-pipeline, the map coordinates and ``map_img``), ``BasicBody``, the
+pipeline, the map coordinates and ``map_img``), ``BasicBody``,
+``Observation`` (FITS and image input, disc fitting on the body's device,
+``save_observation`` and ``save_mapped_observation``; no wireframe overlay
+yet), the FITS/WCS readers and writer (:mod:`.io`), :mod:`.utils`, the
 kernel-path functions and :mod:`.pipeline`. The rest of the JAX package's
 API is listed in ROADMAP.md.
 """
@@ -43,6 +46,7 @@ from .kernels.pool import (
     set_kernel_path,
     sort_kernel_paths,
 )
+from .observation import Observation
 
 __all__ = [
     'set_kernel_path',
@@ -58,10 +62,12 @@ __all__ = [
     'BackplaneNotFoundError',
     'BodyXY',
     'BasicBody',
+    'Observation',
     'AngularCoordinateKwargs',
     'MapKwargs',
     'base',
     'data_loader',
+    'utils',
     'pipeline',
     'CITATION_STRING',
     'CITATION_DOI',
@@ -73,6 +79,7 @@ __all__ = [
 _SUBMODULES = {
     'base', 'body', 'basic_body', 'body_xy', 'progress', 'data_loader',
     'common', 'exceptions', 'pipeline', 'core', 'kernels', 'ops', 'testing',
+    'observation', 'utils', 'io',
 }
 
 

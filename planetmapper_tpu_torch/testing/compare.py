@@ -379,3 +379,89 @@ def compare_with_fused(exact: dict, fused: dict,
             max_excess=max_excess, lst_bin_flips=lst_flips,
         )
     return reports
+
+
+# ---------------------------------------------------------------------------
+# Observation FITS files: headers card by card, mapped data
+# ---------------------------------------------------------------------------
+
+#: Header cards that hold angles [deg] (the disc rotation, the sub-points,
+#: the north-pole angle, the target's RA/Dec and the map WCS axes)
+HEADER_ANGLE_CARDS = frozenset({
+    'PLANMAP DISC ROT', 'PLANMAP SUBPOINT LAT', 'PLANMAP SUBPOINT LON',
+    'PLANMAP SUBSOL LAT', 'PLANMAP SUBSOL LON', 'PLANMAP NP-ANGLE',
+    'PLANMAP TARGET RA', 'PLANMAP TARGET DEC', 'CRVAL1', 'CRVAL2',
+    'CDELT1', 'CDELT2',
+})
+#: Header cards that hold pixel positions [px]
+HEADER_PIXEL_CARDS = frozenset({
+    'PLANMAP DISC X0', 'PLANMAP DISC Y0', 'PLANMAP DISC R0',
+})
+#: The card that records when a file was written
+HEADER_DATE_CARD = 'PLANMAP DATE'
+
+
+def compare_headers(got, ref, *, angle: float, pixel: float,
+                    relative: float, skip=(HEADER_DATE_CARD,)) -> list[str]:
+    """
+    Two FITS headers (``io.fits.Header``) card by card: the same keywords
+    in the same order with the same comments, strings, booleans and
+    integers equal, and floats within ``angle`` [deg] for
+    :data:`HEADER_ANGLE_CARDS`, ``pixel`` for :data:`HEADER_PIXEL_CARDS`
+    and ``relative`` of the value otherwise. The cards in ``skip`` are
+    compared by keyword and comment only. A card's comment is cut to fit
+    its 80 characters, so where two values print to different lengths
+    (a float's last digits, a date) one comment may be a prefix of the
+    other. Returns the differences found (empty when the headers agree).
+    """
+    got_cards, ref_cards = list(got.cards), list(ref.cards)
+    problems = []
+    if [c.keyword for c in got_cards] != [c.keyword for c in ref_cards]:
+        return [f'keywords {[c.keyword for c in got_cards]} != '
+                f'{[c.keyword for c in ref_cards]}']
+    for g, r in zip(got_cards, ref_cards):
+        numeric = (isinstance(r.value, float) and isinstance(g.value, float))
+        comments = (g.comment or '', r.comment or '')
+        if comments[0] != comments[1] and not (
+                (numeric or r.keyword in skip)
+                and min(comments, key=len) == max(comments, key=len)[
+                    :len(min(comments, key=len))]):
+            problems.append(f'{r.keyword}: comment {g.comment!r} != '
+                            f'{r.comment!r}')
+        if r.keyword in skip:
+            continue
+        if not numeric:
+            if type(g.value) is not type(r.value) or g.value != r.value:
+                problems.append(f'{r.keyword}: {g.value!r} != {r.value!r}')
+            continue
+        if r.keyword in HEADER_ANGLE_CARDS:
+            bar = angle
+        elif r.keyword in HEADER_PIXEL_CARDS:
+            bar = pixel
+        else:
+            bar = relative * abs(r.value)
+        if not abs(g.value - r.value) <= bar:
+            problems.append(f'{r.keyword}: {g.value!r} - {r.value!r} = '
+                            f'{g.value - r.value:.3e} (bar {bar:.3e})')
+    return problems
+
+
+def compare_map(got, ref, bar: float) -> dict:
+    """
+    Mapped data against a reference: the same NaN mask, and values within
+    ``bar`` times the reference's largest magnitude when above 1 (the map
+    bars of ``tests/test_torch_map.py``). A report with ``ok``,
+    ``mask_flips``, ``max_abs_err`` and ``limit``.
+    """
+    got = np.asarray(got, dtype=np.float64)
+    ref = np.asarray(ref, dtype=np.float64)
+    if got.shape != ref.shape:
+        return dict(ok=False, mask_flips=-1, max_abs_err=np.nan,
+                    limit=np.nan)
+    flips = int((np.isnan(got) != np.isnan(ref)).sum())
+    both = ~np.isnan(ref) & ~np.isnan(got)
+    err = float(np.max(np.abs(got[both] - ref[both]))) if both.any() else 0.0
+    scale = float(np.max(np.abs(ref[both]))) if both.any() else 0.0
+    limit = bar * max(scale, 1.0)
+    return dict(ok=flips == 0 and err <= limit, mask_flips=flips,
+                max_abs_err=err, limit=limit)

@@ -602,9 +602,8 @@ def test_getters_copy_each_plane_once(bodies):
 # ---------------------------------------------------------------------------
 
 #: The JAX package's exports whose modules are not ported yet (ROADMAP)
-NOT_PORTED = {'run_gui', 'gui', 'utils', 'kernel_downloader', 'Observation',
-              'WireframeKwargs', 'WireframeComponent',
-              'DEFAULT_WIREFRAME_FORMATTING'}
+NOT_PORTED = {'run_gui', 'gui', 'kernel_downloader', 'WireframeKwargs',
+              'WireframeComponent', 'DEFAULT_WIREFRAME_FORMATTING'}
 
 
 def test_exports_match_jax():
@@ -612,10 +611,12 @@ def test_exports_match_jax():
     for name in tpm.__all__:
         assert getattr(tpm, name) is not None, name
     for name in ('body', 'basic_body', 'body_xy', 'base', 'core', 'kernels',
-                 'ops', 'progress', 'common', 'exceptions', 'data_loader'):
+                 'ops', 'progress', 'common', 'exceptions', 'data_loader',
+                 'observation', 'utils', 'io'):
         assert getattr(tpm, name).__name__ == f'planetmapper_tpu_torch.{name}'
+    assert tpm.Observation is tpm.observation.Observation
     with pytest.raises(AttributeError):
-        tpm.Observation
+        tpm.gui
     assert tpm.BodyBase is tpm.base.BodyBase
     assert tpm.AngularCoordinateKwargs.__optional_keys__ == \
         jpm.AngularCoordinateKwargs.__optional_keys__

@@ -27,7 +27,7 @@ from planetmapper_tpu_torch.ops import interp_device, pchip_device
 from planetmapper_tpu_torch.ops import map_smooth_kernel as msk
 from planetmapper_tpu_torch.ops import map_spline_kernel as msp
 from planetmapper_tpu_torch.ops import pchip_kernel as pk
-from planetmapper_tpu_torch.testing import compare
+from planetmapper_tpu_torch.testing import compare, observation_files
 from planetmapper_tpu_torch.testing.synthetic_kernels import (
     write_synthetic_kernels,
 )
@@ -628,3 +628,110 @@ def test_image_chain_leaves_no_host_tensor(kernel_path, device):
     assert set(host) == {'_img_plane', 'get_azimuth_angle_img',
                          'get_local_solar_time_img', 'get_distance_img',
                          'get_radial_velocity_img'}
+
+
+# ---------------------------------------------------------------------------
+# Observation: a card Observation against a CPU one
+# ---------------------------------------------------------------------------
+
+#: 96x64, 3 frames: a bulk frame; a bulk 90x180 map (both run on the card)
+OBS_FRAME = (96, 64, (47.3, 31.8, 25.6, 12.3))
+OBS_MAP = dict(degree_interval=2)
+
+
+@pytest.fixture(scope='module')
+def observations(kernel_path, device, tmp_path_factory):
+    """The same FITS observation on the card and on the CPU."""
+    nx, ny, disc = OBS_FRAME
+    noise = np.random.default_rng(4).normal(size=(3, ny, nx))
+    cube = observation_files.disc_cube(noise, disc)
+    cube[1, 10:13, 20:24] = np.nan
+    path = str(tmp_path_factory.mktemp('observation') / 'obs.fits')
+    observation_files.write_observation(path, cube, disc,
+                                        '2005-01-01T00:00:00')
+    return (tpm.Observation(path, device=device),
+            tpm.Observation(path, device='cpu'))
+
+
+@pytest.mark.parametrize('mapped', [False, True])
+def test_observation_files_card_match_cpu(observations, tmp_path, mapped):
+    card, cpu = observations
+    files = {}
+    for label, obs in (('card', card), ('cpu', cpu)):
+        path = tmp_path / f'{label}.fits'
+        if mapped:
+            obs.save_mapped_observation(path, include_wireframe=False,
+                                        print_info=False, **OBS_MAP)
+        else:
+            obs.save_observation(path, include_wireframe=False,
+                                 print_info=False)
+        files[label] = observation_files.read_fits(path)
+    (names, headers, data), (ref_names, ref_headers, ref_data) = (
+        files['card'], files['cpu'])
+    assert names == ref_names == [''] + list(bk.PLANE_ORDER)
+    # the disc, the metadata and the map WCS are host computations on both
+    for got, ref in zip(headers, ref_headers):
+        assert not compare.compare_headers(
+            got, ref, angle=compare.F64_CARD_ANGLE, pixel=1e-9,
+            relative=1e-12)
+    if mapped:
+        # float64 copies of float32 maps: the casts back are exact
+        got, ref = (torch.from_numpy(d[0].astype(np.float32))
+                    for d in (data, ref_data))
+        _assert_within_map_bar(got, ref)
+        offset = np.abs(np.sin(np.radians(ref_data[names.index('EMISSION')])))
+        pixel = 8 * 2.0**-44 * 3600.0 / cpu.get_plate_scale_arcsec()
+    else:
+        np.testing.assert_array_equal(data[0], ref_data[0])
+        offset = _ray_offset(*OBS_FRAME)
+        pixel = 0.0
+    refs = dict(zip(names[1:], ref_data[1:]))
+    reports = compare.compare_per_plane(
+        dict(zip(names[1:], data[1:])), refs,
+        compare.per_plane_tolerance(cpu, angle=compare.F64_CARD_ANGLE,
+                                    pixel=pixel),
+        compare.per_plane_ill_conditioned(refs, offset),
+    )
+    assert not compare.failures(reports), compare.failures(reports)
+
+
+def test_get_mapped_data_launches_map_kernels(observations):
+    # copies: the mapped data is cached per observation
+    card, cpu = (o.copy() for o in observations)
+    for interpolation, libs in (('linear', [msp]), ('cubic', [msp]),
+                                ('smooth', [msk, pk])):
+        for lib in (msp, msk, pk):
+            lib.reset_launch_count()
+        got = card.get_mapped_data(interpolation, **OBS_MAP)
+        # the cube in one launch of each kernel (the PCHIP kernel: one
+        # per axis)
+        assert [lib.launch_count() for lib in libs] == \
+            [2 if lib is pk else 1 for lib in libs]
+        assert isinstance(got, np.ndarray) and got.dtype == np.float64
+        assert got.shape == (3, 90, 180)
+        ref = cpu.get_mapped_data(interpolation, **OBS_MAP)
+        _assert_within_map_bar(torch.from_numpy(got.astype(np.float32)),
+                               torch.from_numpy(ref.astype(np.float32)))
+
+
+def test_disc_fits_run_on_the_card(observations, monkeypatch):
+    from planetmapper_tpu_torch.ops import photometry
+
+    card, cpu = (o.copy() for o in observations)
+    devices = []
+    for name in ('circular_aperture_sums', 'threshold_centroid'):
+        original = getattr(photometry, name)
+
+        def recorded(img, *args, _original=original):
+            devices.append(img.device.type)
+            return _original(img, *args)
+        monkeypatch.setattr(photometry, name, recorded)
+    for obs in (card, cpu):
+        obs.fit_disc_position()
+        obs.fit_disc_radius()
+    assert devices == ['cuda', 'cuda', 'cpu', 'cpu']
+    # the same centroid (exact moments of the same mask) and the same
+    # radius of steepest decline
+    np.testing.assert_allclose(card.get_disc_params(), cpu.get_disc_params(),
+                               rtol=0, atol=1e-9)
+    assert card.get_disc_method() == 'fit_r0'

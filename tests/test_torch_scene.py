@@ -76,10 +76,12 @@ def test_import_pulls_in_no_jax_or_matplotlib():
         'import sys, planetmapper_tpu_torch as pt\n'
         'from planetmapper_tpu_torch.ops import (cuda_build, interp,\n'
         '    interp_device, map_smooth_kernel, map_spline_kernel,\n'
-        '    pchip_device, projections)\n'
+        '    pchip_device, photometry, projections)\n'
+        'from planetmapper_tpu_torch import observation, utils\n'
+        'from planetmapper_tpu_torch.io import fits, wcs\n'
         'exports = [getattr(pt, name) for name in pt.__all__]\n'
         'lazy = [getattr(pt, name) for name in sorted(pt._SUBMODULES)]\n'
-        'bad = [m for m in ("jax", "matplotlib", "planetmapper_tpu") '
+        'bad = [m for m in ("jax", "matplotlib", "PIL", "planetmapper_tpu") '
         'if m in sys.modules]\n'
         'print(bad)\n'
         'sys.exit(1 if bad else 0)\n'
