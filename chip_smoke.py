@@ -3,9 +3,9 @@ Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the port's four kernels (``planetmapper_tpu_torch/csrc/*.cu``) with
-nvcc, one process each, all at once. Then, on Jupiter seen from the Earth
-on 2005-01-01 (synthetic SPICE kernels written at run time):
+Builds the port's five kernel libraries (``planetmapper_tpu_torch/csrc/
+*.cu``) with nvcc, one process each, all at once. Then, on Jupiter seen
+from the Earth on 2005-01-01 (synthetic SPICE kernels written at run time):
 
 - backplanes: drives ``pipeline.compute_backplanes`` on a 2048x2048 BodyXY
   and holds the backplane kernel against its plain float64 PyTorch version
@@ -44,6 +44,15 @@ on 2005-01-01 (synthetic SPICE kernels written at run time):
   map kernels held against its plain version on the same inputs; and
   holds a 128x128 4-frame card Observation's three files against a CPU
   Observation's, card by card.
+- dsk: runs the three cases of the JAX package's dsk kernel tests
+  (``tests/test_pallas_core.py:538-616``: ds mul, div, hypot and atan2_ds
+  on 8192 pairs, float32 atan2 on 8192 values) through the two dsk kernels
+  (``csrc/dsk.cu``), holds each output to its test's grade against float64
+  numpy and to its plain version on the card word for word, again at
+  2048x2048 values; times each op at both sizes with a cold L2 and back to
+  back beside its bound, its plain version and one PyTorch call (the
+  float64 op over the same bytes for the pairs, ``torch.atan2`` in
+  float32).
 
 Prints the card's name and power limit, one JSON line describing each
 kernel, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -69,12 +78,13 @@ from planetmapper_tpu_torch import pipeline
 from planetmapper_tpu_torch._device import f64
 from planetmapper_tpu_torch.io import fits as pt_fits
 from planetmapper_tpu_torch.ops import backplanes_kernel as bk
-from planetmapper_tpu_torch.ops import cuda_build, interp, interp_device
+from planetmapper_tpu_torch.ops import cuda_build, dsk, interp, interp_device
+from planetmapper_tpu_torch.ops import dsk_kernel as dskk
 from planetmapper_tpu_torch.ops import map_smooth_kernel as msk
 from planetmapper_tpu_torch.ops import map_spline_kernel as msp
 from planetmapper_tpu_torch.ops import pchip_device
 from planetmapper_tpu_torch.ops import pchip_kernel as pk
-from planetmapper_tpu_torch.testing import bounds, compare
+from planetmapper_tpu_torch.testing import bounds, compare, dsk_cases
 from planetmapper_tpu_torch.testing.observation_files import (
     disc_cube,
     read_fits,
@@ -202,7 +212,8 @@ def check_against_plain(label, got, ref, disc, row0=0.0) -> dict:
 
 
 def build_phase() -> None:
-    libraries = [bk.LIBRARY, msp.LIBRARY, msk.LIBRARY, pk.LIBRARY]
+    libraries = [bk.LIBRARY, msp.LIBRARY, msk.LIBRARY, pk.LIBRARY,
+                 dskk.LIBRARY]
     t0 = time.perf_counter()
     cuda_build.build_all(libraries)
     log(f'[build] {len(libraries)} nvcc builds in parallel + load '
@@ -213,10 +224,15 @@ def build_phase() -> None:
         entry, spills = '', ''
         for line in library.ptxas_log().splitlines():
             if 'Compiling entry function' in line:
-                # the template arguments <kx, ky> in the mangled name
+                # the template arguments <kx, ky> or <op> in the mangled
+                # name
                 degrees = re.search(r'ILi(\d)ELi(\d)E', line)
+                op = re.search(r'(dsk_pairs|dsk_atan2)(?:ILi(\d)E)?', line)
                 entry = f'<kx={degrees[1]}, ky={degrees[2]}> ' if degrees \
                     else ''
+                if op:
+                    entry = (f'{op[1]}<{dskk.OPS[int(op[2])]}> ' if op[2]
+                             else f'{op[1]} ')
             elif 'spill' in line:
                 spills = line.split(',', 1)[-1].strip()
             elif 'registers' in line:
@@ -686,7 +702,8 @@ def map_phase(device):
     return bodies, images, calls, launches, errors, peak
 
 
-def time_pair(name, kernel, plain, library, flush, reps=(200, 10, 200, 50)):
+def time_pair(name, kernel, plain, library, flush, reps=(200, 10, 200, 50),
+              phase='map-time'):
     """
     Kernel, plain version and library yardstick, in turns after warm-up:
     back to back (warm L2) for all three, and one call after an L2 flush
@@ -700,7 +717,7 @@ def time_pair(name, kernel, plain, library, flush, reps=(200, 10, 200, 50)):
     cold = in_turns({k: (fn, reps[3]) for k, (fn, _) in runs.items()
                      if k != 'plain'},
                     lambda fn, n: cold_time_ms(fn, n, flush))
-    log(f'[map-time] {name}: ms per call (two turns each), back to back: '
+    log(f'[{phase}] {name}: ms per call (two turns each), back to back: '
         + json.dumps(warm) + f'; cold L2 (median of {reps[3]}): '
         + json.dumps(cold))
     out = {f'{k}_warm': float(np.mean(v)) for k, v in warm.items()}
@@ -1422,6 +1439,172 @@ def observation_phase(device, card: str) -> dict:
                 instrumented=instrumented, fused=reports, small=small)
 
 
+# ---------------------------------------------------------------------------
+# [dsk]: the double-single kernels of ops/dsk.py (csrc/dsk.cu)
+# ---------------------------------------------------------------------------
+
+#: The value counts: the JAX tests' (8, 1024) block, and the main path's
+#: 2048x2048 frame, where the bytes and the work outweigh the launch
+DSK_SIZES = (dsk_cases.N_TEST, SIZE * SIZE)
+#: The yardstick of each pair op: the float64 op over the same values, the
+#: same bytes (two float32 words are the 8 bytes of one float64)
+DSK_FLOAT64 = {'mul': torch.mul, 'div': torch.div, 'hypot': torch.hypot,
+               'atan2_ds': torch.atan2}
+DSK_OPS = (*dskk.OPS, 'atan2')
+
+
+def dsk_inputs(n: int, device) -> dict:
+    """Each op's case at ``n`` values: its numpy inputs and, on the card,
+    its ds pairs (float32 ``y``, ``x`` for atan2)."""
+    cases = {}
+    for op in dskk.OPS:
+        a64, b64 = dsk_cases.pair_inputs(op, n)
+        cases[op] = (a64, b64,
+                     dsk.split_f64(torch.from_numpy(a64).to(device)),
+                     dsk.split_f64(torch.from_numpy(b64).to(device)))
+    y, x = dsk_cases.atan2_inputs(n)
+    cases['atan2'] = (y, x, torch.from_numpy(y).to(device),
+                      torch.from_numpy(x).to(device))
+    return cases
+
+
+def dsk_run(cases) -> dict:
+    """The path: every case through the wrappers, as a user calls them."""
+    outs = {op: dskk.pairs(op, cases[op][2], cases[op][3])
+            for op in dskk.OPS}
+    outs['atan2'] = (dskk.atan2(cases['atan2'][2], cases['atan2'][3]),)
+    torch.cuda.synchronize()
+    return outs
+
+
+def dsk_check(n: int, cases, outs) -> dict[str, float]:
+    """
+    Each op's kernel output against float64 numpy at its JAX test's grade,
+    and against its plain version on the card on the same inputs, word for
+    word (NaN matching NaN); the largest |kernel - plain| (hi + lo in
+    float64) of each op.
+    """
+    errors = {}
+    for op in DSK_OPS:
+        a64, b64, a, b = cases[op]
+        plain = ((dskk.atan2_plain(a, b),) if op == 'atan2'
+                 else dskk.pairs_plain(op, a, b))
+        got = outs[op]
+        words = sum(int(((g.view(torch.int32) != p.view(torch.int32))
+                         & ~(torch.isnan(g) & torch.isnan(p))).sum())
+                    for g, p in zip(got, plain))
+        value = sum(t.double() for t in got)
+        ref = sum(t.double() for t in plain)
+        both_nan = torch.isnan(value) & torch.isnan(ref)
+        errors[op] = float(torch.where(both_nan, 0.0,
+                                       torch.abs(value - ref)).max())
+        grade = dsk_cases.error(op, value.cpu().numpy(), a64, b64)
+        log(f'[dsk] {op} at {n} values: error {grade:.3e} against float64 '
+            f'numpy (grade {dsk_cases.GRADES[op]:g}, '
+            f'{"relative" if op in dsk_cases.RELATIVE else "rad"}); '
+            f'{words} of {2 * n if op != "atan2" else n} words differ from '
+            f'the plain version on the card (max |kernel - plain| '
+            f'{errors[op]:.3e})')
+        if not grade < dsk_cases.GRADES[op]:
+            raise SmokeFailure(f'dsk {op} at {n} values: error {grade} '
+                               f'above the grade {dsk_cases.GRADES[op]}')
+        if words or not errors[op] == 0.0:
+            raise SmokeFailure(f'dsk {op} at {n} values: {words} words differ '
+                               'from the plain version (bar: bit for bit)')
+    return errors
+
+
+def dsk_timers(op: str, case):
+    """(kernel, plain, float64 or float32 yardstick, branch counts) of one
+    op's case: the kernel on buffers made once, as its wrapper makes them."""
+    _, _, a, b = case
+    if op == 'atan2':
+        out = torch.empty_like(a)
+        return (lambda: dskk.launch_atan2(a, b, out),
+                lambda: dskk.atan2_plain(a, b),
+                lambda: torch.atan2(a, b), bounds.atan2_branches(a, b))
+    oh, ol = torch.empty_like(a[0]), torch.empty_like(a[0])
+    a64 = a[0].double() + a[1].double()
+    b64 = b[0].double() + b[1].double()
+    library = DSK_FLOAT64[op]
+    branches = (bounds.atan2_branches(a[0], b[0]) if op == 'atan2_ds'
+                else {})
+    return (lambda: dskk.launch_pairs(op, *a, *b, oh, ol),
+            lambda: dskk.pairs_plain(op, a, b),
+            lambda: library(a64, b64), branches)
+
+
+def dsk_phase(device, card: str) -> dict:
+    """
+    The three cases of the JAX dsk tests through the kernels (the launches
+    counted), held to their grades and plain versions at 8192 and 2048^2
+    values, each op timed at both sizes.
+    """
+    small = dsk_inputs(DSK_SIZES[0], device)
+    dskk.reset_launch_count()
+    outs = dsk_run(small)
+    launches = {k: dskk.launch_count(k) for k in dskk.KERNELS}
+    log(f'[dsk] launches on the path (the three cases at {DSK_SIZES[0]} '
+        f'values): {json.dumps(launches)}')
+    if not all(launches.values()):
+        raise SmokeFailure(f'a dsk kernel was not launched: {launches}')
+    errors = dsk_check(DSK_SIZES[0], small, outs)
+    large = dsk_inputs(DSK_SIZES[1], device)
+    for op, err in dsk_check(DSK_SIZES[1], large, dsk_run(large)).items():
+        errors[op] = max(errors[op], err)
+    flush = l2_flush(device)
+    times = {}
+    for n, cases in zip(DSK_SIZES, (small, large)):
+        for op in DSK_OPS:
+            kernel, plain, library, branches = dsk_timers(op, cases[op])
+            t = time_pair(f'{card} | dsk {op} {n} values', kernel, plain,
+                          library, flush, phase='dsk-time')
+            bound = bounds.dsk_call_bound(op, n, **branches)
+            t.update(bound=bound['ms'], bound_by=bound['bound_by'],
+                     bytes=bound['bytes'], f32_ops=bound['f32_ops'])
+            times[(op, n)] = t
+            yardstick = ('torch.atan2 float32' if op == 'atan2'
+                         else f'float64 {DSK_FLOAT64[op].__name__}')
+            log(f'[dsk-time] {card} | {op} {n} values: bound '
+                f'{bound["ms"] * 1e3:.3f} us ({bound["bound_by"]}: '
+                f'{bound["bytes"]} bytes, {bound["f32_ops"]} FP32 '
+                f'operations); kernel {t["kernel"] * 1e3:.2f} us cold, '
+                f'{t["kernel_warm"] * 1e3:.2f} us warm ('
+                f'{bound["ms"] / t["kernel"]:.1%} / '
+                f'{bound["ms"] / t["kernel_warm"]:.1%} of the bound); plain '
+                f'{t["plain"] * 1e3:.1f} us; '
+                f'{yardstick} '
+                f'{t["library"] * 1e3:.2f} us cold, '
+                f'{t["library_warm"] * 1e3:.2f} us warm: kernel / yardstick '
+                f'{t["kernel"] / t["library"]:.2f} cold, '
+                f'{t["kernel_warm"] / t["library_warm"]:.2f} warm')
+    return dict(launches=launches, errors=errors, times=times)
+
+
+def dsk_entry(name: str, ops, launches: int, errors: dict, times: dict,
+              replaces: str) -> dict:
+    """The kernels-line entry of one dsk kernel: its ops at 2048^2 values,
+    their cold times, plain times and yardsticks added, and the bound of
+    the ops' bytes and operations together."""
+    n = DSK_SIZES[1]
+    runs = [times[(op, n)] for op in ops]
+    ms, bound_by = bounds.roofline_ms(sum(t['bytes'] for t in runs),
+                                      f32_ops=sum(t['f32_ops'] for t in runs))
+    return dict(
+        name=name,
+        route='cuda',
+        source='planetmapper_tpu_torch/csrc/dsk.cu',
+        replaces=replaces,
+        launches=launches,
+        max_abs_err=max(errors[op] for op in ops),
+        ms=sum(t['kernel'] for t in runs),
+        plain_ms=sum(t['plain'] for t in runs),
+        bound_ms=ms,
+        bound_by=bound_by,
+        library_ms=sum(t['library'] for t in runs),
+    )
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
@@ -1490,6 +1673,9 @@ def main() -> int:
             for kind, err in observation['errors'].items():
                 map_errors[kind] = max(map_errors[kind], err)
             pt.clear_kernels()
+        t_dsk = time.perf_counter()
+        dsk_out = dsk_phase(device, card_line())
+        log(f'[dsk] phase {time.perf_counter() - t_dsk:.1f} s')
     except SmokeFailure as exc:
         log(f'FAIL: {exc}')
         return 1
@@ -1508,7 +1694,12 @@ def main() -> int:
         'the 150^2 smooth frame onto the 720x1440 map and pchip_axis its '
         'two launches (rows, columns; bound: the box to the grid); the map '
         'kernels\' ms and library_ms with a cold L2, their plain_ms back to '
-        'back')
+        'back; dsk_pairs its four ops and dsk_atan2 its one at 2048x2048 '
+        'values (ms, plain_ms and library_ms the ops\' added, cold and back '
+        'to back as the map kernels\'; library_ms the float64 op over the '
+        'same bytes, torch.atan2 in float32; bound_ms of their bytes and '
+        'operations together; max_abs_err |kernel - plain| of hi + lo, at '
+        'both sizes)')
     print(json.dumps({'kernels': [
         dict(
             name='backplanes26',
@@ -1565,6 +1756,12 @@ def main() -> int:
             bound_by=pchip_t['bound_by'],
             library_ms=pchip_t['library'],
         ),
+        dsk_entry('dsk_pairs', dskk.OPS, dsk_out['launches']['dsk_pairs'],
+                  dsk_out['errors'], dsk_out['times'],
+                  'tests/test_pallas_core.py:538'),
+        dsk_entry('dsk_atan2', ('atan2',), dsk_out['launches']['dsk_atan2'],
+                  dsk_out['errors'], dsk_out['times'],
+                  'tests/test_pallas_core.py:596'),
     ]}))
     print(f'card: {card}')
     print(json.dumps({

@@ -467,6 +467,27 @@ def fused_backplanes_fn(
     return impl
 
 
+def pick_ds():
+    """
+    The extended-precision backend for cancelling float32 chains, by the JAX
+    package's stated rule (``planetmapper_tpu/ops/ds64.py``: "TPU -> ds,
+    native-f64 backends -> ds64"): :mod:`.ops.ds64`, native float64 with the
+    ds call surface, on every device of the port, the CPU and the card
+    alike. The JAX code tests for the ``'cpu'`` backend, which would send
+    any other device, the card included, to double-single; the H100 has
+    native float64, so the rule and not that test is followed. Override
+    with ``PLANETMAPPER_TPU_DS=ds|f64`` (:mod:`.ops.ds` or
+    :mod:`.ops.ds64`). No path of the port calls it: the backplane kernel
+    and the plain graph run their chains in native float64.
+    """
+    from .ops import ds, ds64
+
+    forced = os.environ.get('PLANETMAPPER_TPU_DS', '')
+    if forced == 'ds':
+        return ds
+    return ds64
+
+
 def _robust_geodetic(body) -> bool:
     """
     True when the body is triaxial (middle axis != re): surface points of

@@ -430,12 +430,94 @@ def smooth_stage_bound(box: torch.Tensor, ky_rep: int, kx_rep: int, args,
     return dict(ms=ms, bound_by=by, bytes=n_bytes, f64_ops=ops)
 
 
-def dsk_pairs_bound(n_values: int = 6 * 8192) -> tuple[float, str]:
+# ---------------------------------------------------------------------------
+# dsk: the double-single kernels (csrc/dsk.cu), one bound per kernel and op
+# ---------------------------------------------------------------------------
+#
+# Bytes: each value's float32 words read once and written once, 6 for a
+# pair op (a and b in, the result out, each a (hi, lo) pair) and 3 for the
+# float32 atan2. Operations: float32, at the least work known to compute
+# the result at the JAX tests' grades, the ds blocks in their cheapest
+# known forms (Hida/Li/Bailey's QD library): two_prod as a multiply and an
+# FMA (3, where Dekker's split takes 17), the "sloppy" ds add and division,
+# QD's ds square root (a float32 root and a division, one Newton step);
+# atan2_ds as dsk.atan2_ds reduces and sums it (13 ds terms), with the
+# branch work counted only for the values that take the branch.
+
+#: float32 operations of the ds building blocks
+DS_BLOCK_OPS = dict(
+    two_sum=6,
+    quick_two_sum=3,
+    two_prod=3,       # p = a*b, e = fma(a, b, -p)
+    add=11,           # two_sum, the lo words' sum and its add, quick_two_sum
+    add_f=10,         # two_sum, the lo word's add, quick_two_sum
+    mul=10,           # two_prod, the two cross terms as FMAs, quick_two_sum
+    sqr=9,            # two_prod, 2*hi as a multiply and an FMA, quick_two_sum
+    div=22,           # QD: q1 = a.hi/b.hi, b*q1, a - b*q1, q2, quick_two_sum
+    sqrt=25,          # QD: x = 1/sqrt(a.hi), a.hi*x, a - (a.hi*x)^2, add
+)
+
+
+def _dsk_value_ops() -> dict[str, int]:
+    b = DS_BLOCK_OPS
+    return {
+        'mul': b['mul'],
+        'div': b['div'],
+        'hypot': 2 * b['sqr'] + b['add'] + b['sqrt'],
+        # compares (swap, zero den, tan(pi/8), x < 0, y < 0, 2 NaN tests),
+        # t = num/den, s = u^2, the 12-step ds Horner chain, u + u s p
+        'atan2_ds': 7 + b['div'] + b['sqr'] + 12 * (b['mul'] + b['add'])
+        + 2 * b['mul'] + b['add'],
+        # max, min, zero test, t, s, 8 FMAs of the Horner chain, t + t s p
+        # (a multiply and an FMA), 3 sign compares, 2 NaN tests
+        'atan2': 2 + 1 + 1 + 1 + 16 + 3 + 3 + 2,
+    }
+
+
+#: float32 operations per value of each op, at the least known work
+DSK_VALUE_OPS = _dsk_value_ops()
+#: what a value that takes a branch adds: atan2_ds's (t-1)/(t+1) reduction
+#: (two add_f, a division, pi/4 added), the swap's pi/2 - r and the
+#: negative x's pi - r (a ds add each, one subtraction in float32)
+DSK_REDUCED_OPS = 2 * DS_BLOCK_OPS['add_f'] + DS_BLOCK_OPS['div'] \
+    + DS_BLOCK_OPS['add']
+DSK_BRANCH_OPS = {'atan2_ds': DS_BLOCK_OPS['add'], 'atan2': 1}
+#: float32 words moved per value
+DSK_WORDS = {'mul': 6, 'div': 6, 'hypot': 6, 'atan2_ds': 6, 'atan2': 3}
+
+
+def atan2_branches(y, x) -> dict[str, int]:
     """
-    Bytes bound of one call of the test kernels of ``ops/dsk.py``
-    (``tests/test_pallas_core.py:538``, ``:596``): one (8, 1024) block of
-    float32 pairs, ``6 x 8192`` float32 values moved in all (two pairs in,
-    one out). Their double-single arithmetic is not counted, so this is
-    the bytes half of the bound only.
+    The branch counts of :func:`dsk_call_bound` for an atan2 (or
+    atan2_ds, on the hi words) of ``y`` and ``x`` (float32 tensors or
+    arrays): ``swapped`` (|y| > |x|), ``negative_x`` and ``reduced`` (the
+    values whose ratio min/max passes tan(pi/8), as the kernel tests it).
     """
-    return roofline_ms(4 * n_values)
+    y = torch.as_tensor(y, dtype=torch.float32)
+    x = torch.as_tensor(x, dtype=torch.float32)
+    ay, ax = torch.abs(y), torch.abs(x)
+    tiny = torch.finfo(torch.float32).tiny
+    t = torch.minimum(ay, ax) / torch.clamp(torch.maximum(ay, ax), min=tiny)
+    return dict(swapped=int((ay > ax).sum()), negative_x=int((x < 0).sum()),
+                reduced=int((t > 0.41421356237309503).sum()))
+
+
+def dsk_call_bound(op: str, n: int, *, swapped: int = 0,
+                   negative_x: int = 0, reduced: int = 0) -> dict:
+    """
+    The bound of one call of the dsk kernel of ``op`` (``'mul'``, ``'div'``,
+    ``'hypot'``, ``'atan2_ds'``: ``dsk_pairs``; ``'atan2'``: ``dsk_atan2``)
+    over ``n`` values, with the branch counts of :func:`atan2_branches` for
+    the two atan2 ops (ignored by the others). ``dict(ms, bound_by, bytes,
+    f32_ops)``.
+    """
+    if op not in DSK_WORDS:
+        raise ValueError(f'op must be one of {tuple(DSK_WORDS)}, got {op!r}')
+    ops = DSK_VALUE_OPS[op] * n
+    if op in DSK_BRANCH_OPS:
+        ops += DSK_BRANCH_OPS[op] * (swapped + negative_x)
+    if op == 'atan2_ds':
+        ops += DSK_REDUCED_OPS * reduced
+    n_bytes = 4 * DSK_WORDS[op] * n
+    ms, by = roofline_ms(n_bytes, f32_ops=ops)
+    return dict(ms=ms, bound_by=by, bytes=n_bytes, f32_ops=ops)

@@ -1,9 +1,10 @@
 """
-The port's CUDA kernels (backplanes, map spline, PCHIP, map smooth)
-against their plain PyTorch versions, a CUDA body's map chain and its
-per-plane image and map getters against a CPU body's, and the per-plane
-getters against the backplane kernel, on the card. Every test here carries the ``cuda``
-marker and skips without a CUDA device; on a machine with one:
+The port's CUDA kernels (backplanes, map spline, PCHIP, map smooth, the
+double-single dsk kernels) against their plain PyTorch versions, a CUDA
+body's map chain and its per-plane image and map getters against a CPU
+body's, and the per-plane getters against the backplane kernel, on the
+card. Every test here carries the ``cuda`` marker and skips without a CUDA
+device; on a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
@@ -23,11 +24,14 @@ import planetmapper_tpu_torch as tpm
 from planetmapper_tpu_torch import pipeline
 from planetmapper_tpu_torch._device import f64
 from planetmapper_tpu_torch.ops import backplanes_kernel as bk
+from planetmapper_tpu_torch.ops import dsk, dsk_kernel
 from planetmapper_tpu_torch.ops import interp_device, pchip_device
 from planetmapper_tpu_torch.ops import map_smooth_kernel as msk
 from planetmapper_tpu_torch.ops import map_spline_kernel as msp
 from planetmapper_tpu_torch.ops import pchip_kernel as pk
-from planetmapper_tpu_torch.testing import compare, observation_files
+from planetmapper_tpu_torch.ops.cuda_build import check_launch
+from planetmapper_tpu_torch.testing import (compare, dsk_cases,
+                                            observation_files)
 from planetmapper_tpu_torch.testing.synthetic_kernels import (
     write_synthetic_kernels,
 )
@@ -735,3 +739,85 @@ def test_disc_fits_run_on_the_card(observations, monkeypatch):
     np.testing.assert_allclose(card.get_disc_params(), cpu.get_disc_params(),
                                rtol=0, atol=1e-9)
     assert card.get_disc_method() == 'fit_r0'
+
+
+# ---------------------------------------------------------------------------
+# The dsk kernels (csrc/dsk.cu)
+# ---------------------------------------------------------------------------
+
+def _assert_bitwise(got, ref):
+    """Built with -fmad=false, an FMA two_prod and the plain version's
+    seeds, the kernels equal their plain versions word for word (NaN
+    matches NaN whatever its payload)."""
+    for g, r in zip(got, ref):
+        g, r = g.cpu(), r.cpu()
+        nan = torch.isnan(r)
+        assert torch.equal(torch.isnan(g), nan)
+        assert torch.equal(g[~nan].view(torch.int32),
+                           r[~nan].view(torch.int32))
+
+
+def _edge_pairs(op: str, n: int):
+    """The op's case inputs at n values (a ragged count), with the edge
+    values in front."""
+    a, b = dsk_cases.pair_inputs(op, n)
+    edges = np.array(dsk_cases.EDGES)
+    if op != 'atan2_ds':
+        edges = edges * 1e9
+    return np.concatenate([edges[:, 0], a]), np.concatenate([edges[:, 1], b])
+
+
+@pytest.mark.parametrize('op', dsk_kernel.OPS)
+@pytest.mark.parametrize('n', [dsk_cases.N_TEST, 1000_003])
+def test_dsk_pairs_matches_plain_version(device, op, n):
+    a64, b64 = _edge_pairs(op, n)
+    a = dsk.split_f64(torch.from_numpy(a64).to(device))
+    b = dsk.split_f64(torch.from_numpy(b64).to(device))
+    before = dsk_kernel.launch_count('dsk_pairs')
+    got = dsk_kernel.pairs(op, a, b)
+    torch.cuda.synchronize()
+    assert dsk_kernel.launch_count('dsk_pairs') == before + 1
+    assert all(t.device.type == 'cuda' for t in got)
+    _assert_bitwise(got, dsk_kernel.pairs_plain(op, a, b))
+    k = len(dsk_cases.EDGES)
+    value = (got[0].double() + got[1].double()).cpu().numpy()[k:]
+    assert dsk_cases.error(op, value, a64[k:], b64[k:]) < \
+        dsk_cases.GRADES[op]
+
+
+@pytest.mark.parametrize('n', [dsk_cases.N_TEST, 1000_003])
+def test_dsk_atan2_matches_plain_version(device, n):
+    y, x = dsk_cases.atan2_inputs(n)
+    edges = np.array(dsk_cases.EDGES, dtype=np.float32)
+    y = torch.from_numpy(np.concatenate([edges[:, 0], y])).to(device)
+    x = torch.from_numpy(np.concatenate([edges[:, 1], x])).to(device)
+    before = dsk_kernel.launch_count('dsk_atan2')
+    got = dsk_kernel.atan2(y, x)
+    torch.cuda.synchronize()
+    assert dsk_kernel.launch_count('dsk_atan2') == before + 1
+    _assert_bitwise([got], [dsk_kernel.atan2_plain(y, x)])
+    k = len(dsk_cases.EDGES)
+    assert dsk_cases.error('atan2', got[k:].cpu().numpy(),
+                           y[k:].cpu().numpy(), x[k:].cpu().numpy()) < \
+        dsk_cases.GRADES['atan2']
+
+
+def test_dsk_faults_raise(device):
+    a = dsk.split_f64(torch.ones(8, dtype=torch.float64, device=device))
+    lib = dsk_kernel.load_library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    out = torch.empty(8, device=device)
+    # an op the kernel does not have: the launch function refuses it
+    rc = lib.dsk_pairs_launch(7, *(t.data_ptr() for t in (*a, *a)),
+                              out.data_ptr(), out.data_ptr(), 8, stream)
+    with pytest.raises(RuntimeError, match='cudaError'):
+        check_launch(rc, 'dsk_pairs')
+    # a host tensor among CUDA ones, and a strided buffer, raise
+    with pytest.raises(ValueError):
+        dsk_kernel.pairs('mul', a, (a[0].cpu(), a[1].cpu()))
+    with pytest.raises(ValueError):
+        dsk_kernel.launch_atan2(a[0][::2], a[0][::2], out[::2])
+    # no fallback: a CUDA call launches, or raises
+    before = dsk_kernel.launch_count('dsk_pairs')
+    dsk_kernel.pairs('div', a, a)
+    assert dsk_kernel.launch_count('dsk_pairs') == before + 1

@@ -525,8 +525,11 @@ def test_backplane_bound_counts_the_function(nx, ny, n_disc):
     assert one_more_iter['f64_ops'] == got['f64_ops'] + 112 * n_disc
     with pytest.raises(ValueError):
         bounds.backplane_bound(nx, ny, nx * ny + 1)
-    assert bounds.dsk_pairs_bound() == (4 * 6 * 8192 / 3.35e12 * 1e3,
-                                        'bytes')
+    # the dsk test kernels' block of 8192 values: 6 float32 words a value
+    # for a pair op, 10 FP32 operations a ds product
+    assert bounds.dsk_call_bound('mul', 8192) == dict(
+        ms=4 * 6 * 8192 / 3.35e12 * 1e3, bound_by='bytes',
+        bytes=4 * 6 * 8192, f32_ops=10 * 8192)
 
 
 #: The 720x1440 map of chip_smoke.py and its three timed map_spline calls:

@@ -74,9 +74,10 @@ def kernel_files(tmp_path_factory):
 def test_import_pulls_in_no_jax_or_matplotlib():
     code = (
         'import sys, planetmapper_tpu_torch as pt\n'
-        'from planetmapper_tpu_torch.ops import (cuda_build, interp,\n'
-        '    interp_device, map_smooth_kernel, map_spline_kernel,\n'
-        '    pchip_device, photometry, projections)\n'
+        'from planetmapper_tpu_torch.ops import (cuda_build, ds, ds64,\n'
+        '    dsk, dsk_kernel, fastmath, interp, interp_device,\n'
+        '    map_smooth_kernel, map_spline_kernel, pchip_device,\n'
+        '    photometry, projections)\n'
         'from planetmapper_tpu_torch import observation, utils\n'
         'from planetmapper_tpu_torch.io import fits, wcs\n'
         'exports = [getattr(pt, name) for name in pt.__all__]\n'
