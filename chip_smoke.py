@@ -48,8 +48,11 @@ from the Earth on 2005-01-01 (synthetic SPICE kernels written at run time):
   (``tests/test_pallas_core.py:538-616``: ds mul, div, hypot and atan2_ds
   on 8192 pairs, float32 atan2 on 8192 values) through the two dsk kernels
   (``csrc/dsk.cu``), holds each output to its test's grade against float64
-  numpy and to its plain version on the card word for word, again at
-  2048x2048 values; times each op at both sizes with a cold L2 and back to
+  numpy and to its plain version on the card word for word (atan2_ds,
+  native float64 in the kernel: within 1e-12 rad of its plain version, the
+  ds chain, and word for word with ``torch.atan2`` in float64 on the same
+  values), again at 2048x2048 values, and the edge pairs through both
+  kernels; times each op at both sizes with a cold L2 and back to
   back beside its bound, its plain version and one PyTorch call (the
   float64 op over the same bytes for the pairs, ``torch.atan2`` in
   float32).
@@ -1477,11 +1480,23 @@ def dsk_run(cases) -> dict:
     return outs
 
 
+def words_differing(got, ref) -> int:
+    """Float32 words of ``got`` that differ from ``ref`` (NaN matching NaN
+    whatever its payload)."""
+    return sum(int(((g.view(torch.int32) != r.view(torch.int32))
+                    & ~(torch.isnan(g) & torch.isnan(r))).sum())
+               for g, r in zip(got, ref))
+
+
 def dsk_check(n: int, cases, outs) -> dict[str, float]:
     """
     Each op's kernel output against float64 numpy at its JAX test's grade,
-    and against its plain version on the card on the same inputs, word for
-    word (NaN matching NaN); the largest |kernel - plain| (hi + lo in
+    and against its plain version on the card on the same inputs: word for
+    word (NaN matching NaN), but for atan2_ds, whose kernel takes native
+    float64 and its plain version the ds chain: NaN where the plain version
+    has NaN, within dsk_cases.ATAN2_DS_VS_PLAIN, and word for word with
+    torch.atan2 in float64 on the same hi + lo, split
+    (dsk_kernel.atan2_ds_native). The largest |kernel - plain| (hi + lo in
     float64) of each op.
     """
     errors = {}
@@ -1490,9 +1505,7 @@ def dsk_check(n: int, cases, outs) -> dict[str, float]:
         plain = ((dskk.atan2_plain(a, b),) if op == 'atan2'
                  else dskk.pairs_plain(op, a, b))
         got = outs[op]
-        words = sum(int(((g.view(torch.int32) != p.view(torch.int32))
-                         & ~(torch.isnan(g) & torch.isnan(p))).sum())
-                    for g, p in zip(got, plain))
+        words = words_differing(got, plain)
         value = sum(t.double() for t in got)
         ref = sum(t.double() for t in plain)
         both_nan = torch.isnan(value) & torch.isnan(ref)
@@ -1508,10 +1521,57 @@ def dsk_check(n: int, cases, outs) -> dict[str, float]:
         if not grade < dsk_cases.GRADES[op]:
             raise SmokeFailure(f'dsk {op} at {n} values: error {grade} '
                                f'above the grade {dsk_cases.GRADES[op]}')
-        if words or not errors[op] == 0.0:
-            raise SmokeFailure(f'dsk {op} at {n} values: {words} words differ '
-                               'from the plain version (bar: bit for bit)')
+        if op != 'atan2_ds':
+            if words or not errors[op] == 0.0:
+                raise SmokeFailure(f'dsk {op} at {n} values: {words} words '
+                                   'differ from the plain version (bar: bit '
+                                   'for bit)')
+            continue
+        nan_flips = int((torch.isnan(value) != torch.isnan(ref)).sum())
+        native = words_differing(got, dskk.atan2_ds_native(a, b))
+        log(f'[dsk] atan2_ds at {n} values: {nan_flips} NaN positions '
+            'differ from the plain version (bar 0), max |kernel - plain| '
+            f'{errors[op]:.3e} (bar {dsk_cases.ATAN2_DS_VS_PLAIN:g} rad); '
+            f'{native} of {2 * n} words differ from torch.atan2 in float64 '
+            'on the card, split (bar 0)')
+        if nan_flips or not errors[op] <= dsk_cases.ATAN2_DS_VS_PLAIN \
+                or native:
+            raise SmokeFailure(f'dsk atan2_ds at {n} values: {nan_flips} NaN '
+                               f'flips, |kernel - plain| {errors[op]}, '
+                               f'{native} words off the float64 atan2')
     return errors
+
+
+def dsk_edge_check(device) -> None:
+    """
+    dsk_cases.EDGES through both kernels, against their plain versions on
+    the card: dsk_atan2 word for word; dsk_pairs<atan2_ds> word for word on
+    the axes, at the origin and at NaN (the port's zero and NaN
+    conventions), within dsk_cases.ATAN2_DS_VS_PLAIN elsewhere.
+    """
+    y64, x64 = (np.array(v) for v in zip(*dsk_cases.EDGES))
+    y, x = (dsk.split_f64(torch.from_numpy(v).to(device)) for v in (y64, x64))
+    got = dskk.pairs('atan2_ds', y, x)
+    plain = dskk.pairs_plain('atan2_ds', y, x)
+    axes = [i for i, e in enumerate(dsk_cases.EDGES)
+            if dsk_cases.on_an_axis(*e)]
+    on_axes = words_differing([t[axes] for t in got],
+                              [t[axes] for t in plain])
+    value, ref = (t[0].double() + t[1].double() for t in (got, plain))
+    nan = torch.isnan(ref)
+    off = float(torch.abs(value - ref)[~nan].max())
+    y32, x32 = (torch.from_numpy(v.astype(np.float32)).to(device)
+                for v in (y64, x64))
+    f32_words = words_differing([dskk.atan2(y32, x32)],
+                                [dskk.atan2_plain(y32, x32)])
+    torch.cuda.synchronize()
+    log(f'[dsk] the {len(dsk_cases.EDGES)} edge pairs: atan2_ds {on_axes} '
+        f'words differ from the plain version at the {len(axes)} on the '
+        f'axes, at the origin and at NaN (bar 0), max |kernel - plain| '
+        f'{off:.3e} rad; atan2 {f32_words} words differ (bar 0)')
+    if on_axes or f32_words or not torch.equal(torch.isnan(value), nan) \
+            or not off <= dsk_cases.ATAN2_DS_VS_PLAIN:
+        raise SmokeFailure('dsk edge pairs differ from the plain versions')
 
 
 def dsk_timers(op: str, case):
@@ -1549,6 +1609,7 @@ def dsk_phase(device, card: str) -> dict:
     if not all(launches.values()):
         raise SmokeFailure(f'a dsk kernel was not launched: {launches}')
     errors = dsk_check(DSK_SIZES[0], small, outs)
+    dsk_edge_check(device)
     large = dsk_inputs(DSK_SIZES[1], device)
     for op, err in dsk_check(DSK_SIZES[1], large, dsk_run(large)).items():
         errors[op] = max(errors[op], err)

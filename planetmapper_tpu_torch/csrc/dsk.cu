@@ -1,10 +1,10 @@
 // Double-single ("two-float") arithmetic and float32 inverse trigonometry
 // of planetmapper_tpu/ops/dsk.py, elementwise over n values, in two kernels:
 //
-// - dsk_pairs<op>: one ds operation on n (hi, lo) float32 pairs a and b,
-//   out (hi, lo): MUL dsk.mul(a, b), DIV dsk.div(a, b), HYPOT
-//   dsk.sqrt(dsk.add(dsk.sqr(a), dsk.sqr(b))), ATAN2_DS dsk.atan2_ds(a, b)
-//   (a the y pair, b the x pair).
+// - dsk_pairs<op>: one operation on n (hi, lo) float32 pairs a and b, out
+//   (hi, lo): MUL dsk.mul(a, b), DIV dsk.div(a, b), HYPOT
+//   dsk.sqrt(dsk.add(dsk.sqr(a), dsk.sqr(b))), ATAN2_DS the function of
+//   dsk.atan2_ds(a, b) (a the y pair, b the x pair).
 // - dsk_atan2: the branch-free float32 dsk.atan2(y, x), its degree-8
 //   polynomial and reductions (not atan2f, which differs from it by up to
 //   the polynomial's ~1e-7 rad).
@@ -13,10 +13,10 @@
 // tests/test_pallas_core.py TestDskOnTpu._run_pairs (:538, pallas_call :557)
 // and test_atan2_f32_grade (:596, pallas_call :612), which run these
 // functions on one (8, 1024) block in VMEM. This kernel computes the
-// functions, not that block layout: one thread per value, grid-stride, any
-// n. The plain versions are planetmapper_tpu_torch/ops/dsk.py composed as
-// ops/dsk_kernel.py composes them; this kernel follows them operation by
-// operation and equals them bit for bit:
+// functions, not that block layout. The plain versions are
+// planetmapper_tpu_torch/ops/dsk.py composed as ops/dsk_kernel.py composes
+// them. MUL, DIV, HYPOT and dsk_atan2 follow them operation by operation
+// and equal them bit for bit:
 // - built with -fmad=false, so that no multiply-add is contracted (a fused
 //   t = 4097*a; t - (t - a) would destroy a split, and every lo word);
 // - no --use_fast_math: subnormals kept, '/' and sqrt correctly rounded,
@@ -28,17 +28,35 @@
 // - the float32 seed of dsk.rsqrt is 1 / sqrt(x), correctly rounded in
 //   both (the JAX package takes lax.rsqrt);
 // - recip_seed's integer seed by __float_as_int/__int_as_float.
+// ATAN2_DS is native float64 inside: the TPU has no float64 and runs a
+// ~550-instruction double-single chain a value; this card has float64, so
+// the kernel adds each pair exactly in float64 (hi + lo spans at most 49
+// bits), takes one float64 atan2 (the CUDA math library's device function)
+// and splits the result into a pair (~1e-14 rad, against the ds chain's
+// ~3e-13). ops/dsk_kernel.py atan2_ds_native transcribes it; the plain
+// version stays the ds chain, which it meets within 1e-12 rad.
 // The constants below are the port's (ops/dsk.py), as hexadecimal float32
 // literals; tests/test_torch_dsk.py reads them from this file and holds
 // them to ops/dsk.py word for word.
 //
 // What bounds it on this card (testing/bounds.py:dsk_call_bound): 24 bytes
 // a pair value (four words in, two out) and 12 a float32 atan2 value,
-// against 10 (MUL) to ~350 (ATAN2_DS) float32 operations a value at their
-// least known work. By that count every op is memory-bound at 3.35 TB/s
-// and 67 TFLOP/s, ATAN2_DS the closest: its operations take ~3/4 of its
-// bytes' time. The loads and stores are coalesced float32 words, one value
-// a thread; nothing is reused.
+// against 10 (MUL) to ~60 float32 operations a value, or ~60-80 float64
+// instructions for ATAN2_DS, at 3.35 TB/s, 67 TFLOP/s and 16.7 T float64
+// instructions/s: every op is memory-bound, ATAN2_DS the closest. So the
+// design keeps bytes in flight: a thread takes U groups of V = 4 values,
+// one 16-byte streaming load (__ldcs) per input array and group, all U
+// groups' loads issued before any arithmetic, and one 16-byte streaming
+// store (__stcs) per output array and group; nothing is reused. A call
+// whose pointers are not all 16-byte aligned (a view such as t[1:]), or
+// of fewer than kVecMinValues values, runs the scalar loop (one value a
+// thread) over every value, and a vector call's last n % 4 values run it
+// too. U = 1 on one block per 1024 values was the fastest layout of the
+// sweep of scripts/time_dsk.py on the H100 (PERF.md; at U = 2 and 4
+// ATAN2_DS took 62 and 94 registers and ran 6% and 21% slower; the
+// persistent grid was nowhere faster); DSK_GROUPS (U) and
+// DSK_PERSISTENT (0 one block per 256 V U values; 1 the SMs times the
+// resident blocks, with a grid-stride loop) set the sweep's layouts.
 //
 // Built by planetmapper_tpu_torch/ops/dsk_kernel.py (through
 // ops/cuda_build.py) with
@@ -51,15 +69,28 @@
 #include <math.h>
 #include <stdint.h>
 
+#ifndef DSK_GROUPS
+#define DSK_GROUPS 1
+#endif
+#ifndef DSK_PERSISTENT
+#define DSK_PERSISTENT 0
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kVec = 4;              // V: values a group (one float4 load)
+constexpr int kGroups = DSK_GROUPS;  // U: groups a thread loads at once
 constexpr long long kMaxBlocks = 1 << 20;  // grid-stride beyond
+// Below this many values (~one 1024-value block per SM) a call is launch
+// latency and the scalar loop's one value a thread, 4x the threads of the
+// vector loop, finishes sooner
+constexpr long long kVecMinValues = 1 << 17;
 
 enum Op { kMul = 0, kDiv = 1, kHypot = 2, kAtan2Ds = 3 };
 
-// ops/dsk.py constants (float32 words; RECIP_MAGIC an int32); the tables
-// in constant memory, read as uniform operands
+// ops/dsk.py constants (float32 words; RECIP_MAGIC an int32); the table
+// in constant memory, read as uniform operands (ATAN2_DS needs none)
 constexpr int kRecipMagic = 0x7EF311C3;
 // _ATAN_C: atan(t) = t + t s P(s), s = t^2, P of degree 8, lowest first
 __constant__ float kAtanC[9] = {
@@ -67,24 +98,7 @@ __constant__ float kAtanC[9] = {
     -0x1.5348bep-4f, 0x1.cae4fep-5f, -0x1.e0abaap-6f, 0x1.469fe2p-7f,
     -0x1.a0b5b8p-10f,
 };
-// _ATAN_DS_C: (-1)^k / (2k + 1), k = 1..13, split into (hi, lo)
-__constant__ float kAtanDsHi[13] = {
-    -0x1.555556p-2f, 0x1.99999ap-3f, -0x1.24924ap-3f, 0x1.c71c72p-4f,
-    -0x1.745d18p-4f, 0x1.3b13b2p-4f, -0x1.111112p-4f, 0x1.e1e1e2p-5f,
-    -0x1.af286cp-5f, 0x1.861862p-5f, -0x1.642c86p-5f, 0x1.47ae14p-5f,
-    -0x1.2f684cp-5f,
-};
-__constant__ float kAtanDsLo[13] = {
-    0x1.555556p-27f, -0x1.99999ap-29f, 0x1.b6db6ep-28f, -0x1.c71c72p-31f,
-    0x1.745d18p-29f, -0x1.89d89ep-29f, 0x1.dddddep-29f, -0x1.e1e1e2p-33f,
-    0x1.af286cp-32f, -0x1.e79e7ap-31f, 0x1.bd37a8p-31f, 0x1.eb851ep-31f,
-    0x1.2f684cp-32f,
-};
-// _PI_4, _PI_2, _PI as (hi, lo); _TAN_PI_8, pi/2 and pi as float32
-__constant__ float kPi4[2] = {0x1.921fb6p-1f, -0x1.777a5cp-26f};
-__constant__ float kPi2[2] = {0x1.921fb6p+0f, -0x1.777a5cp-25f};
-__constant__ float kPi[2] = {0x1.921fb6p+1f, -0x1.777a5cp-24f};
-constexpr float kTanPi8 = 0x1.a8279ap-2f;
+// pi/2 and pi as float32
 constexpr float kPi2F = 0x1.921fb6p+0f;
 constexpr float kPiF = 0x1.921fb6p+1f;
 
@@ -111,10 +125,6 @@ __device__ __forceinline__ ds two_prod(float a, float b) {
 }
 
 __device__ __forceinline__ ds neg(ds a) { return {-a.hi, -a.lo}; }
-
-__device__ __forceinline__ ds pick(bool c, ds a, ds b) {
-    return {c ? a.hi : b.hi, c ? a.lo : b.lo};
-}
 
 __device__ __forceinline__ ds add(ds a, ds b) {
     const ds s = two_sum(a.hi, b.hi);
@@ -169,28 +179,17 @@ __device__ __forceinline__ ds sqrt_ds(ds a) {
     return {zero ? __fsqrt_rn(a.hi) : s.hi, zero ? 0.0f : s.lo};
 }
 
+// The function of dsk.atan2_ds in native float64. A zero of either sign
+// counts as +0, as in the port (atan2(-0, -1) = pi, atan2(0, -0) = 0; C's
+// atan2 gives -pi and pi); NaN in either gives (NaN, NaN).
 __device__ __forceinline__ ds atan2_ds(ds y, ds x) {
-    const ds ax = {fabsf(x.hi), x.hi < 0.0f ? -x.lo : x.lo};
-    const ds ay = {fabsf(y.hi), y.hi < 0.0f ? -y.lo : y.lo};
-    const bool swap = ay.hi > ax.hi;
-    const ds num = pick(swap, ax, ay);
-    const ds den = pick(swap, ay, ax);
-    const bool den_zero = den.hi == 0.0f;
-    const ds t = div_ds(num, {den_zero ? 1.0f : den.hi, den_zero ? 0.0f : den.lo});
-    // second reduction: t > tan(pi/8) -> (t - 1)/(t + 1), in [-0.414, 0]
-    const bool red = t.hi > kTanPi8;
-    const ds u = pick(red, div_ds(add_f(t, -1.0f), add_f(t, 1.0f)), t);
-    const ds s = sqr(u);
-    ds p = {kAtanDsHi[12], kAtanDsLo[12]};
-#pragma unroll
-    for (int k = 11; k >= 0; --k) p = add(mul(p, s), {kAtanDsHi[k], kAtanDsLo[k]});
-    ds r = add(u, mul(u, mul(s, p)));
-    r = pick(red, add(r, {kPi4[0], kPi4[1]}), r);
-    r = pick(swap, add({kPi2[0], kPi2[1]}, neg(r)), r);
-    r = pick(x.hi < 0.0f, add({kPi[0], kPi[1]}, neg(r)), r);
-    r = pick(y.hi < 0.0f, neg(r), r);
-    if (isnan(x.hi) || isnan(y.hi)) return {nan32(), nan32()};
-    return r;
+    double yd = (double)y.hi + (double)y.lo;
+    double xd = (double)x.hi + (double)x.lo;
+    yd = yd == 0.0 ? 0.0 : yd;
+    xd = xd == 0.0 ? 0.0 : xd;
+    const double r = atan2(yd, xd);
+    const float hi = __double2float_rn(r);
+    return {hi, __double2float_rn(r - (double)hi)};
 }
 
 __device__ __forceinline__ float atan2_f32(float y, float x) {
@@ -209,43 +208,177 @@ __device__ __forceinline__ float atan2_f32(float y, float x) {
 }
 
 template <int OP>
+__device__ __forceinline__ ds pair_op(ds a, ds b) {
+    if constexpr (OP == kMul) {
+        return mul(a, b);
+    } else if constexpr (OP == kDiv) {
+        return div_ds(a, b);
+    } else if constexpr (OP == kHypot) {
+        return sqrt_ds(add(sqr(a), sqr(b)));
+    } else {
+        return atan2_ds(a, b);
+    }
+}
+
+__device__ __forceinline__ float lane(const float4& v, int k) {
+    return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void set_lane(float4& v, int k, float f) {
+    if (k == 0) {
+        v.x = f;
+    } else if (k == 1) {
+        v.y = f;
+    } else if (k == 2) {
+        v.z = f;
+    } else {
+        v.w = f;
+    }
+}
+
+// The groups of a thread in one turn of the grid-stride loop: g0, g0 + 256,
+// ..., g0 + 256 (U - 1), so that each load of a warp is 512 contiguous bytes
+__device__ __forceinline__ int64_t group_of(int64_t g0, int u) {
+    return g0 + (int64_t)u * kThreads;
+}
+
+// dsk_pairs<op> over n values: the vector loop over the n / 4 groups when
+// vec (vector_loop below), then the scalar loop over the rest
+template <int OP>
 __global__ void __launch_bounds__(kThreads)
 dsk_pairs(const float* __restrict__ ah, const float* __restrict__ al,
           const float* __restrict__ bh, const float* __restrict__ bl,
-          float* __restrict__ oh, float* __restrict__ ol, int64_t n) {
-    const int64_t stride = (int64_t)gridDim.x * kThreads;
-    for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-         i += stride) {
-        const ds a = {ah[i], al[i]};
-        const ds b = {bh[i], bl[i]};
-        ds r;
-        if constexpr (OP == kMul) {
-            r = mul(a, b);
-        } else if constexpr (OP == kDiv) {
-            r = div_ds(a, b);
-        } else if constexpr (OP == kHypot) {
-            r = sqrt_ds(add(sqr(a), sqr(b)));
-        } else {
-            r = atan2_ds(a, b);
+          float* __restrict__ oh, float* __restrict__ ol, int64_t n,
+          bool vec) {
+    int64_t done = 0;
+    if (vec) {
+        const int64_t groups = n / kVec;
+        done = groups * kVec;
+        const float4* in4[4] = {reinterpret_cast<const float4*>(ah),
+                                reinterpret_cast<const float4*>(al),
+                                reinterpret_cast<const float4*>(bh),
+                                reinterpret_cast<const float4*>(bl)};
+        const int64_t step = (int64_t)gridDim.x * kThreads * kGroups;
+        for (int64_t g0 = (int64_t)blockIdx.x * kThreads * kGroups +
+                          threadIdx.x;
+             g0 < groups; g0 += step) {
+            float4 in[kGroups][4];
+#pragma unroll
+            for (int u = 0; u < kGroups; ++u) {
+                const int64_t g = group_of(g0, u);
+#pragma unroll
+                for (int a = 0; a < 4; ++a) {
+                    in[u][a] = g < groups ? __ldcs(in4[a] + g)
+                                          : make_float4(0.f, 0.f, 0.f, 0.f);
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < kGroups; ++u) {
+                const int64_t g = group_of(g0, u);
+                float4 rh, rl;
+#pragma unroll
+                for (int k = 0; k < kVec; ++k) {
+                    const ds r = pair_op<OP>(
+                        {lane(in[u][0], k), lane(in[u][1], k)},
+                        {lane(in[u][2], k), lane(in[u][3], k)});
+                    set_lane(rh, k, r.hi);
+                    set_lane(rl, k, r.lo);
+                }
+                if (g < groups) {
+                    __stcs(reinterpret_cast<float4*>(oh) + g, rh);
+                    __stcs(reinterpret_cast<float4*>(ol) + g, rl);
+                }
+            }
         }
-        oh[i] = r.hi;
-        ol[i] = r.lo;
+    }
+    const int64_t stride = (int64_t)gridDim.x * kThreads;
+    for (int64_t i = done + (int64_t)blockIdx.x * kThreads + threadIdx.x;
+         i < n; i += stride) {
+        const ds r = pair_op<OP>({__ldcs(ah + i), __ldcs(al + i)},
+                                 {__ldcs(bh + i), __ldcs(bl + i)});
+        __stcs(oh + i, r.hi);
+        __stcs(ol + i, r.lo);
     }
 }
 
+// dsk_atan2 over n values, laid out as dsk_pairs
 __global__ void __launch_bounds__(kThreads)
 dsk_atan2(const float* __restrict__ y, const float* __restrict__ x,
-          float* __restrict__ out, int64_t n) {
+          float* __restrict__ out, int64_t n, bool vec) {
+    int64_t done = 0;
+    if (vec) {
+        const int64_t groups = n / kVec;
+        done = groups * kVec;
+        const float4* y4 = reinterpret_cast<const float4*>(y);
+        const float4* x4 = reinterpret_cast<const float4*>(x);
+        const int64_t step = (int64_t)gridDim.x * kThreads * kGroups;
+        for (int64_t g0 = (int64_t)blockIdx.x * kThreads * kGroups +
+                          threadIdx.x;
+             g0 < groups; g0 += step) {
+            float4 yv[kGroups], xv[kGroups];
+#pragma unroll
+            for (int u = 0; u < kGroups; ++u) {
+                const int64_t g = group_of(g0, u);
+                const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+                yv[u] = g < groups ? __ldcs(y4 + g) : zero;
+                xv[u] = g < groups ? __ldcs(x4 + g) : zero;
+            }
+#pragma unroll
+            for (int u = 0; u < kGroups; ++u) {
+                const int64_t g = group_of(g0, u);
+                float4 r;
+#pragma unroll
+                for (int k = 0; k < kVec; ++k) {
+                    set_lane(r, k, atan2_f32(lane(yv[u], k), lane(xv[u], k)));
+                }
+                if (g < groups) __stcs(reinterpret_cast<float4*>(out) + g, r);
+            }
+        }
+    }
     const int64_t stride = (int64_t)gridDim.x * kThreads;
-    for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-         i += stride) {
-        out[i] = atan2_f32(y[i], x[i]);
+    for (int64_t i = done + (int64_t)blockIdx.x * kThreads + threadIdx.x;
+         i < n; i += stride) {
+        __stcs(out + i, atan2_f32(__ldcs(y + i), __ldcs(x + i)));
     }
 }
 
-unsigned blocks_for(long long n) {
-    const long long b = (n + kThreads - 1) / kThreads;
+// The vector loop: every pointer 16-byte aligned and enough values
+bool vector_loop(uintptr_t any_of_the_pointers, long long n) {
+    return (any_of_the_pointers & 15) == 0 && n >= kVecMinValues;
+}
+
+// The grid of one launch: one block per 256 V U values (vec) or 256 values
+// (the scalar loop); with DSK_PERSISTENT, at most the blocks the card holds
+// at once
+template <class Kernel>
+unsigned blocks_for(Kernel kernel, long long n, bool vec) {
+    const long long per_block =
+        vec ? (long long)kThreads * kVec * kGroups : kThreads;
+    long long b = (n + per_block - 1) / per_block;
+#if DSK_PERSISTENT
+    int device = 0, sms = 0, resident = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
+                                                  kThreads, 0);
+    const long long held = (long long)sms * resident;
+    if (held > 0 && b > held) b = held;
+#else
+    (void)kernel;
+#endif
     return (unsigned)(b < kMaxBlocks ? b : kMaxBlocks);
+}
+
+template <int OP>
+void launch_pairs(const float* ah, const float* al, const float* bh,
+                  const float* bl, float* oh, float* ol, long long n,
+                  cudaStream_t s) {
+    const bool vec = vector_loop((uintptr_t)ah | (uintptr_t)al |
+                                     (uintptr_t)bh | (uintptr_t)bl |
+                                     (uintptr_t)oh | (uintptr_t)ol,
+                                 n);
+    dsk_pairs<OP><<<blocks_for(dsk_pairs<OP>, n, vec), kThreads, 0, s>>>(
+        ah, al, bh, bl, oh, ol, n, vec);
 }
 
 }  // namespace
@@ -253,26 +386,26 @@ unsigned blocks_for(long long n) {
 extern "C" {
 
 // Launch dsk_pairs<op> (0 MUL, 1 DIV, 2 HYPOT, 3 ATAN2_DS) on `stream` over
-// n values of contiguous float32 device arrays. Returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for another op).
+// n values of contiguous float32 device arrays (any alignment). Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for another
+// op).
 int dsk_pairs_launch(int op, const float* ah, const float* al,
                      const float* bh, const float* bl, float* oh, float* ol,
                      long long n, void* stream) {
     if (n <= 0) return 0;
-    const unsigned blocks = blocks_for(n);
     cudaStream_t s = (cudaStream_t)stream;
     switch (op) {
         case kMul:
-            dsk_pairs<kMul><<<blocks, kThreads, 0, s>>>(ah, al, bh, bl, oh, ol, n);
+            launch_pairs<kMul>(ah, al, bh, bl, oh, ol, n, s);
             break;
         case kDiv:
-            dsk_pairs<kDiv><<<blocks, kThreads, 0, s>>>(ah, al, bh, bl, oh, ol, n);
+            launch_pairs<kDiv>(ah, al, bh, bl, oh, ol, n, s);
             break;
         case kHypot:
-            dsk_pairs<kHypot><<<blocks, kThreads, 0, s>>>(ah, al, bh, bl, oh, ol, n);
+            launch_pairs<kHypot>(ah, al, bh, bl, oh, ol, n, s);
             break;
         case kAtan2Ds:
-            dsk_pairs<kAtan2Ds><<<blocks, kThreads, 0, s>>>(ah, al, bh, bl, oh, ol, n);
+            launch_pairs<kAtan2Ds>(ah, al, bh, bl, oh, ol, n, s);
             break;
         default:
             return (int)cudaErrorInvalidValue;
@@ -281,12 +414,15 @@ int dsk_pairs_launch(int op, const float* ah, const float* al,
 }
 
 // Launch dsk_atan2 on `stream`: out = dsk.atan2(y, x) over n values of
-// contiguous float32 device arrays. Returns cudaGetLastError().
+// contiguous float32 device arrays (any alignment). Returns
+// cudaGetLastError().
 int dsk_atan2_launch(const float* y, const float* x, float* out, long long n,
                      void* stream) {
     if (n <= 0) return 0;
-    dsk_atan2<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(y, x, out,
-                                                                     n);
+    const bool vec =
+        vector_loop((uintptr_t)y | (uintptr_t)x | (uintptr_t)out, n);
+    dsk_atan2<<<blocks_for(dsk_atan2, n, vec), kThreads, 0,
+                (cudaStream_t)stream>>>(y, x, out, n, vec);
     return (int)cudaGetLastError();
 }
 

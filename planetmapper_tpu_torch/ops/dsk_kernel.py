@@ -16,7 +16,11 @@ the source note in the ``.cu`` file says what bounds them.
 
 On CUDA tensors each launches its kernel once and counts the launch; a
 build or launch fault raises. Only CPU tensors take the plain versions
-(:func:`pairs_plain`, :func:`atan2_plain`).
+(:func:`pairs_plain`, :func:`atan2_plain`). The kernel computes
+``'atan2_ds'`` in native float64 (:func:`atan2_ds_native` transcribes it);
+its plain version stays the double-single chain of :func:`.dsk.atan2_ds`,
+which the kernel meets within 1e-12 rad. The other ops equal their plain
+versions bit for bit.
 """
 
 from __future__ import annotations
@@ -80,6 +84,23 @@ def pairs_plain(op: str, a, b):
     if op == 'atan2_ds':
         return dsk.atan2_ds(a, b)
     raise ValueError(f'op must be one of {OPS}, got {op!r}')
+
+
+def atan2_ds_native(y, x):
+    """
+    ``dsk_pairs<atan2_ds>`` as the kernel computes it, in plain PyTorch: each
+    pair added exactly in float64, a zero of either sign taken as +0 (the
+    port's convention: ``atan2(-0, -1) = pi``), one float64 atan2, the
+    result split into a (hi, lo) float32 pair. The CPU tests hold it to
+    the plain version and to float64 numpy, and the card tests and
+    ``chip_smoke.py`` hold the kernel to it; no route of the port calls it.
+    """
+    y64, x64 = (p[0].double() + p[1].double() for p in (y, x))
+    y64 = torch.where(y64 == 0, 0.0, y64)
+    x64 = torch.where(x64 == 0, 0.0, x64)
+    r = torch.atan2(y64, x64)
+    hi = r.float()
+    return hi, (r - hi.double()).float()
 
 
 def atan2_plain(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

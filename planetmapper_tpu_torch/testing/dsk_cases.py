@@ -19,6 +19,10 @@ N_TEST = 8 * 1024
 GRADES = {'mul': 1e-13, 'div': 1e-13, 'hypot': 1e-13, 'atan2_ds': 5e-12,
           'atan2': 5e-7}
 RELATIVE = ('mul', 'div', 'hypot')
+#: ``dsk_pairs<atan2_ds>``, native float64, against its plain version, the
+#: double-single chain: |hi + lo| in rad, a fifth of the grade and 4x the
+#: chain's error against float64 numpy (2.51e-13 on the card at 2048^2)
+ATAN2_DS_VS_PLAIN = 1e-12
 
 #: (y, x) edge values: the axes, the origin, the quadrants, -0, a tiny y,
 #: NaN in either
@@ -26,6 +30,13 @@ EDGES = ((0.0, 1.0), (1.0, 0.0), (0.0, -1.0), (-1.0, 0.0), (0.0, 0.0),
          (1.0, 1.0), (-1.0, -1.0), (1.0, -3.0), (-3.0, 1.0), (1e-30, -1.0),
          (-0.0, 1.0), (-0.0, -1.0), (0.0, -0.0), (np.nan, 1.0),
          (1.0, np.nan))
+
+
+def on_an_axis(y: float, x: float) -> bool:
+    """Whether an :data:`EDGES` pair lies on an axis, at the origin or has a
+    NaN: where the zero and NaN conventions fix atan2_ds's words, so that
+    the float64 kernel and the double-single chain agree word for word."""
+    return y == 0 or x == 0 or bool(np.isnan(y)) or bool(np.isnan(x))
 
 
 def pair_inputs(op: str, n: int = N_TEST) -> tuple[np.ndarray, np.ndarray]:

@@ -757,6 +757,30 @@ def _assert_bitwise(got, ref):
                            r[~nan].view(torch.int32))
 
 
+def _assert_atan2_ds_bar(got, ref, edges=()):
+    """The kernel takes native float64 and its plain version the ds chain:
+    NaN where the plain version has NaN, |hi + lo - plain| <= the bar,
+    and of the ``edges`` (pairs of dsk_cases.EDGES that the inputs start
+    with) those on the axes, at the origin and at NaN word for word: the
+    port's zero conventions."""
+    value = (got[0].double() + got[1].double()).cpu()
+    want = (ref[0].double() + ref[1].double()).cpu()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(value), nan)
+    assert torch.equal(torch.isnan(got[1]).cpu(), nan)
+    assert float((value - want)[~nan].abs().max()) <= \
+        dsk_cases.ATAN2_DS_VS_PLAIN
+    axes = [i for i, e in enumerate(edges) if dsk_cases.on_an_axis(*e)]
+    _assert_bitwise([t[axes] for t in got], [t[axes] for t in ref])
+
+
+def _assert_matches_plain(op, got, ref, edges=()):
+    if op == 'atan2_ds':
+        _assert_atan2_ds_bar(got, ref, edges)
+    else:
+        _assert_bitwise(got, ref)
+
+
 def _edge_pairs(op: str, n: int):
     """The op's case inputs at n values (a ragged count), with the edge
     values in front."""
@@ -778,11 +802,86 @@ def test_dsk_pairs_matches_plain_version(device, op, n):
     torch.cuda.synchronize()
     assert dsk_kernel.launch_count('dsk_pairs') == before + 1
     assert all(t.device.type == 'cuda' for t in got)
-    _assert_bitwise(got, dsk_kernel.pairs_plain(op, a, b))
+    _assert_matches_plain(op, got, dsk_kernel.pairs_plain(op, a, b),
+                          dsk_cases.EDGES)
     k = len(dsk_cases.EDGES)
     value = (got[0].double() + got[1].double()).cpu().numpy()[k:]
     assert dsk_cases.error(op, value, a64[k:], b64[k:]) < \
         dsk_cases.GRADES[op]
+
+
+@pytest.mark.parametrize('n', [dsk_cases.N_TEST, 1000_003])
+def test_dsk_atan2_ds_is_the_float64_atan2(device, n):
+    """dsk_pairs<atan2_ds> against torch.atan2 in float64 on the card, on
+    the same hi + lo with zeros taken as +0, split into a pair
+    (dsk_kernel.atan2_ds_native): word for word."""
+    y64, x64 = _edge_pairs('atan2_ds', n)
+    y = dsk.split_f64(torch.from_numpy(y64).to(device))
+    x = dsk.split_f64(torch.from_numpy(x64).to(device))
+    got = dsk_kernel.pairs('atan2_ds', y, x)
+    _assert_bitwise(got, dsk_kernel.atan2_ds_native(y, x))
+
+
+#: Values of a misaligned view: above the kernels' 2^17-value floor of the
+#: vector loop, so that the alignment alone sends it to the scalar loop
+VIEW_VALUES = 2**17 + 4
+
+
+def _short_or_misaligned(op: str, count, device):
+    """The op's inputs (edges in front) on the card: ``count`` values in
+    fresh buffers, or for 'view' the contiguous views t[1:] of
+    VIEW_VALUES + 1 values, 4 bytes past a 16-byte boundary."""
+    n = VIEW_VALUES + 1 if count == 'view' else count
+    if op == 'atan2':
+        y, x = dsk_cases.atan2_inputs(n)
+        edges = np.array(dsk_cases.EDGES, dtype=np.float32)
+        a = (torch.from_numpy(np.concatenate([edges[:, 0], y])[:n]),)
+        b = (torch.from_numpy(np.concatenate([edges[:, 1], x])[:n]),)
+    else:
+        a64, b64 = _edge_pairs(op, n)
+        a = dsk.split_f64(torch.from_numpy(a64[:n]))
+        b = dsk.split_f64(torch.from_numpy(b64[:n]))
+    a, b = ([t.to(device) for t in p] for p in (a, b))
+    if count == 'view':
+        a, b = ([t[1:] for t in p] for p in (a, b))
+        assert all(t.is_contiguous() and t.data_ptr() % 16 == 4
+                   for t in (*a, *b))
+    return tuple(a), tuple(b)
+
+
+@pytest.mark.parametrize('count', ['view', 1, 3, 5])
+@pytest.mark.parametrize('op', [*dsk_kernel.OPS, 'atan2'])
+def test_dsk_kernels_on_misaligned_views_and_short_counts(device, op,
+                                                          count):
+    """The scalar loop: every value of a call whose pointers are not
+    16-byte aligned (a view t[1:], inputs through the wrapper and outputs
+    through the launch function), and of a short call; each against its
+    plain version, launched and counted. (The vector loop's tail, n % 4
+    values, runs in the tests at 1000_003 + 15 values.)"""
+    a, b = _short_or_misaligned(op, count, device)
+    kernel = 'dsk_atan2' if op == 'atan2' else 'dsk_pairs'
+    before = dsk_kernel.launch_count(kernel)
+    if op == 'atan2':
+        got = (dsk_kernel.atan2(a[0], b[0]),)
+        plain = (dsk_kernel.atan2_plain(a[0], b[0]),)
+    else:
+        got = dsk_kernel.pairs(op, a, b)
+        plain = dsk_kernel.pairs_plain(op, a, b)
+    torch.cuda.synchronize()
+    assert dsk_kernel.launch_count(kernel) == before + 1
+    front = dsk_cases.EDGES[1:] if count == 'view' else \
+        dsk_cases.EDGES[:count]
+    _assert_matches_plain(op, got, plain, front)
+    if count == 'view':
+        # misaligned outputs too: views of fresh buffers, one value in
+        out = [torch.full((t.numel() + 1,), -7.0, device=device)[1:]
+               for t in got]
+        if op == 'atan2':
+            dsk_kernel.launch_atan2(a[0], b[0], *out)
+        else:
+            dsk_kernel.launch_pairs(op, *a, *b, *out)
+        torch.cuda.synchronize()
+        _assert_bitwise(out, got)
 
 
 @pytest.mark.parametrize('n', [dsk_cases.N_TEST, 1000_003])

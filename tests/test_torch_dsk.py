@@ -18,8 +18,10 @@ the CPU:
 - the three ``TestDskOnTpu`` cases of ``tests/test_pallas_core.py`` through
   ``dsk_kernel`` on CPU tensors (the plain route), with their seeds, sizes
   and grades, and with the lo words shown to carry the precision; and the
-  kernel's one change of algorithm, ``two_prod`` by an FMA, transcribed
-  here and shown to give the same words on those inputs;
+  kernel's changes of algorithm: ``two_prod`` by an FMA, transcribed here
+  and shown to give the same words on those inputs, and ``atan2_ds`` in
+  native float64 (``dsk_kernel.atan2_ds_native``), held to float64 numpy,
+  to the JAX function and to the port's zero and NaN conventions;
 - NaN propagation and the edge cases of sqrt, recip, atan2 and atan2_ds;
 - ``pick_ds`` and its overrides; the wrapper's checks; the dsk bounds.
 
@@ -175,12 +177,6 @@ def _cu_floats(values) -> list[float]:
 CU_CONSTANTS = {
     'kRecipMagic': [dsk.RECIP_MAGIC],
     'kAtanC': list(dsk._ATAN_C),
-    'kAtanDsHi': [c[0] for c in dsk._ATAN_DS_PAIRS],
-    'kAtanDsLo': [c[1] for c in dsk._ATAN_DS_PAIRS],
-    'kPi4': list(dsk._PI_4),
-    'kPi2': list(dsk._PI_2),
-    'kPi': list(dsk._PI),
-    'kTanPi8': [dsk._TAN_PI_8_F],
     'kPi2F': [dsk._PI_2_F],
     'kPiF': [dsk._PI_F],
 }
@@ -488,13 +484,102 @@ def _fma_two_prod(a, b):
 @pytest.mark.parametrize('op', dsk_kernel.OPS)
 def test_fma_two_prod_gives_the_plain_versions_words(op, monkeypatch):
     """csrc/dsk.cu computes two_prod with an FMA where ops/dsk.py splits
-    (Dekker): on the cases' inputs every word is the same."""
+    (Dekker): on the cases' inputs every word is the same (for atan2_ds
+    that is the plain version's chain; the kernel takes float64)."""
     a64, b64 = dsk_cases.pair_inputs(op)
     a = dsk.split_f64(torch.from_numpy(a64))
     b = dsk.split_f64(torch.from_numpy(b64))
     dekker = dsk_kernel.pairs_plain(op, a, b)
     monkeypatch.setattr(dsk, 'two_prod', _fma_two_prod)
     _assert_words_equal(dsk_kernel.pairs_plain(op, a, b), dekker)
+
+
+# ---------------------------------------------------------------------------
+# atan2_ds as the kernel computes it: native float64
+# ---------------------------------------------------------------------------
+
+#: The float64 route against float64 numpy: half an ulp of lo (|lo| <=
+#: 2^-23 below |r| <= pi, so at most 2^-47 = 7.1e-15) and an ulp or two of
+#: the float64 atan2s
+SPLIT_ROUNDING = 1e-14
+
+
+def _native(y64, x64):
+    return dsk_kernel.atan2_ds_native(dsk.split_f64(torch.from_numpy(y64)),
+                                      dsk.split_f64(torch.from_numpy(x64)))
+
+
+@pytest.mark.parametrize('n', [dsk_cases.N_TEST, 65536])
+def test_native_atan2_ds_meets_the_grade(n):
+    """The float64 route on the seed-1 case, against float64 numpy: ~1e-14
+    rad, set by the float32 rounding of lo; hi alone is float32-grade."""
+    y, x = dsk_cases.pair_inputs('atan2_ds', n)
+    hi_, lo_ = _native(y, x)
+    assert hi_.dtype == lo_.dtype == torch.float32
+    err = dsk_cases.error('atan2_ds', _f64((hi_, lo_)), y, x)
+    assert err < ATAN2_DS_GRADE
+    assert err < SPLIT_ROUNDING
+    assert dsk_cases.error('atan2_ds', hi_.double().numpy(), y, x) > \
+        1e4 * ATAN2_DS_GRADE
+
+
+@pytest.mark.parametrize('n', [dsk_cases.N_TEST, 65536])
+def test_native_atan2_ds_matches_jax_within_the_bar(n):
+    """The float64 route against the JAX package's ds chain called eagerly
+    (and the port's plain version, its word-for-word copy)."""
+    y, x = dsk_cases.pair_inputs('atan2_ds', n)
+    got = _f64(_native(y, x))
+    jax_ = j_dsk.atan2_ds(j_dsk.split_f64(jnp.asarray(y)),
+                          j_dsk.split_f64(jnp.asarray(x)))
+    plain = dsk.atan2_ds(dsk.split_f64(torch.from_numpy(y)),
+                         dsk.split_f64(torch.from_numpy(x)))
+    _assert_words_equal(plain, jax_)
+    assert np.max(np.abs(got - _f64(jax_))) < dsk_cases.ATAN2_DS_VS_PLAIN
+
+
+@pytest.mark.parametrize('edge', dsk_cases.EDGES, ids=str)
+def test_native_atan2_ds_keeps_the_ports_conventions(edge):
+    """Every EDGES pair: a zero of either sign counts as +0 (atan2(-0, -1) =
+    +pi, atan2(0, -0) = 0), NaN in either gives (NaN, NaN); on the axes,
+    at the origin and at NaN the words equal dsk.atan2_ds's and the JAX
+    package's; elsewhere within the bar."""
+    y, x = (np.array([v]) for v in edge)
+    got = _native(y, x)
+    plain = dsk.atan2_ds(_pair(y), _pair(x))
+    jax_ = j_dsk.atan2_ds(j_dsk.split_f64(jnp.asarray(y)),
+                          j_dsk.split_f64(jnp.asarray(x)))
+    _assert_words_equal(plain, jax_)
+    ref = np.arctan2(0.0 if y[0] == 0 else y, 0.0 if x[0] == 0 else x)
+    if np.isnan(ref).any():
+        assert all(torch.isnan(t).all() for t in got)
+        return
+    assert abs(_f64(got) - ref)[0] < SPLIT_ROUNDING
+    if dsk_cases.on_an_axis(*edge):
+        _assert_words_equal(got, plain)
+    else:
+        assert abs(_f64(got) - _f64(plain))[0] < dsk_cases.ATAN2_DS_VS_PLAIN
+
+
+def _cu_function(name: str) -> str:
+    source = (Path(dsk.__file__).resolve().parent.parent / 'csrc' /
+              'dsk.cu').read_text()
+    start = source.index(f' {name}(')
+    return source[start:source.index('\n}\n', start)]
+
+
+@pytest.mark.parametrize('arg', ['y', 'x'])
+def test_kernel_takes_zeros_as_the_port_does(arg):
+    """csrc/dsk.cu's atan2_ds adds the pair in float64 and replaces a zero
+    of either sign by +0 before its float64 atan2, as atan2_ds_native
+    does; the ds tables it no longer needs are gone from the file."""
+    body = _cu_function('atan2_ds')
+    d = f'{arg}d'
+    add = body.index(f'double {d} = (double){arg}.hi + (double){arg}.lo;')
+    zero = body.index(f'{d} = {d} == 0.0 ? 0.0 : {d};')
+    assert add < zero < body.index('atan2(yd, xd)')
+    assert '__double2float_rn(r - (double)hi)' in body
+    assert not {'kAtanDsHi', 'kAtanDsLo', 'kPi4', 'kPi2', 'kPi',
+                'kTanPi8'} & set(_cu_constants())
 
 
 # ---------------------------------------------------------------------------
