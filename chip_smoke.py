@@ -43,7 +43,21 @@ from the Earth on 2005-01-01 (synthetic SPICE kernels written at run time):
   their host copies and the FITS write, and with every call of the three
   map kernels held against its plain version on the same inputs; and
   holds a 128x128 4-frame card Observation's three files against a CPU
-  Observation's, card by card.
+  Observation's, card by card. The saves pass ``include_wireframe=False``:
+  the overlay renders with matplotlib, which the card host lacks.
+- wireframe: on a 2048x2048 card BodyXY and a CPU BodyXY, each with Io and
+  Amalthea (a ``BasicBody``) as other bodies of interest, a ring and a
+  lon/lat coordinate of interest, builds the wireframe's artist specs
+  (``_body_plotting._wireframe_artists``: grid, limb, terminator,
+  illuminated limb, ring, markers and labels), maps every curve to pixels
+  and holds the card body's to the CPU body's; runs an 8192-point limb and
+  terminator on the card (above the bulk threshold: the engine's tensors
+  are on the card), holds them to the CPU body's and the limb to the card's
+  own ``sincpt`` (rays nudged 2% of the disc radius inside each limb point
+  hit, outside miss, in one call of 2 x 8192 rays); times the artists, the
+  two curves and ``add_satellites_to_bodies_of_interest`` with the phase's
+  peak device memory. Nothing is rendered (no matplotlib on the card host;
+  the rasters are held to the JAX package by the CPU tests).
 - dsk: runs the three cases of the JAX package's dsk kernel tests
   (``tests/test_pallas_core.py:538-616``: ds mul, div, hypot and atan2_ds
   on 8192 pairs, float32 atan2 on 8192 values) through the two dsk kernels
@@ -77,8 +91,8 @@ import numpy as np
 import torch
 
 import planetmapper_tpu_torch as pt
-from planetmapper_tpu_torch import pipeline
-from planetmapper_tpu_torch._device import f64
+from planetmapper_tpu_torch import _body_plotting, pipeline
+from planetmapper_tpu_torch._device import BULK_ELEMENTS, f64
 from planetmapper_tpu_torch.io import fits as pt_fits
 from planetmapper_tpu_torch.ops import backplanes_kernel as bk
 from planetmapper_tpu_torch.ops import cuda_build, dsk, interp, interp_device
@@ -1443,6 +1457,205 @@ def observation_phase(device, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# [wireframe]: the wireframe's geometry on a card body
+# ---------------------------------------------------------------------------
+
+#: Points of the bulk limb and terminator (above _device.BULK_ELEMENTS, so
+#: the scene calls run on the body's device)
+WIREFRAME_NPTS = 8192
+#: The wireframe's options (the plot functions' defaults)
+WIREFRAME_KW = dict(grid_interval=30, grid_lat_limit=90,
+                    planetocentric_grid=False, indicate_equator=False,
+                    indicate_prime_meridian=False, label_poles=True)
+#: Bars: the CPU tests' (tests/test_torch_curves.py) for the artists, which
+#: run on CPU tensors on both bodies; card against CPU for the bulk curves
+#: (compare.F64_CARD_ANGLE, the [planes] phase's angle bar, and the limb
+#: points' 1e-6 km)
+ARTIST_BARS = dict(deg=compare.F64_ANGLE, px=2e-9)
+BULK_BARS = dict(deg=compare.F64_CARD_ANGLE, km=1e-6)
+
+
+def wireframe_bodies(device):
+    """A card and a CPU BodyXY of the main path's frame and disc, each with
+    Io and Amalthea (a BasicBody), a ring and a coordinate of interest."""
+    bodies = []
+    for where in (device, torch.device('cpu')):
+        body = pt.BodyXY('Jupiter', observer='EARTH', utc=UTC, sz=SIZE,
+                         device=where)
+        body.set_disc_params(*DISC)
+        body.add_other_bodies_of_interest('IO', 505)
+        body.ring_radii.add(129000.0)
+        body.coordinates_of_interest_lonlat.append(
+            (round(body.subpoint_lon) + 5.0, 10.0))
+        bodies.append(body)
+    kinds = [type(o).__name__ for o in bodies[0].other_bodies_of_interest]
+    if kinds != ['Body', 'BasicBody']:
+        raise SmokeFailure(f'[wireframe] other bodies {kinds}')
+    return bodies
+
+
+def artists_in_xy(body) -> list[tuple]:
+    """The wireframe's artist specs with every position mapped to pixels."""
+    out = []
+    for spec in _body_plotting._wireframe_artists(body, **WIREFRAME_KW):
+        x, y = body.radec2xy(np.asarray(spec.ras, dtype=float),
+                             np.asarray(spec.decs, dtype=float))
+        out.append((spec.kind, spec.component, spec.overlays, spec.text,
+                    np.atleast_1d(spec.ras), np.atleast_1d(spec.decs),
+                    np.atleast_1d(x), np.atleast_1d(y)))
+    return out
+
+
+def check_curves(label, got, ref, bar, period=None, flips=None) -> float:
+    """compare.compare_curve, failing the run; adds the NaN flips to
+    ``flips`` (a one-entry list)."""
+    report = compare.compare_curve(got, ref, bar, period=period)
+    if not report['ok']:
+        raise SmokeFailure(f'[wireframe] {label}: {report}')
+    if flips is not None:
+        flips[0] += report['mask_flips']
+    return report['max_abs_err']
+
+
+def check_artists(card_artists, cpu_artists) -> dict:
+    """The card body's artists against the CPU body's: the same specs in the
+    same order, RA/Dec and pixels within the CPU tests' bars."""
+    if [a[:4] for a in card_artists] != [a[:4] for a in cpu_artists]:
+        raise SmokeFailure('[wireframe] the artist specs differ')
+    errors = dict(deg=0.0, px=0.0)
+    for got, ref in zip(card_artists, cpu_artists):
+        label = f'{got[0]} {got[1]}'
+        for unit, g, r, period in (('deg', got[4], ref[4], 360.0),
+                                   ('deg', got[5], ref[5], None),
+                                   ('px', got[6], ref[6], None),
+                                   ('px', got[7], ref[7], None)):
+            errors[unit] = max(errors[unit], check_curves(
+                label, g, r, ARTIST_BARS[unit], period))
+    return errors
+
+
+@contextlib.contextmanager
+def engine_devices(engine):
+    """Record the device of every limbpt/termpt result of ``engine``."""
+    seen = []
+    originals = {name: getattr(engine, name) for name in ('limbpt', 'termpt')}
+
+    def spy(name):
+        def call(*args, **kwargs):
+            out = originals[name](*args, **kwargs)
+            seen.append((name, out.device.type, tuple(out.shape)))
+            return out
+        return call
+
+    for name in originals:
+        setattr(engine, name, spy(name))
+    try:
+        yield seen
+    finally:
+        for name in originals:
+            delattr(engine, name)
+
+
+def bulk_curves(body) -> tuple[dict, list]:
+    """The 8192-point limb and terminator (RA/Dec, host arrays) and the
+    devices their engine calls ran on."""
+    with engine_devices(body._engine) as seen:
+        curves = dict(limb=body.limb_radec(npts=WIREFRAME_NPTS),
+                      terminator=body.terminator_radec(npts=WIREFRAME_NPTS))
+    return curves, seen
+
+
+def limb_against_sincpt(body, ra_limb, dec_limb) -> int:
+    """Rays nudged 2% of the way to the disc centre from each limb point
+    hit the surface, rays nudged 2% outwards miss (tests/test_golden_parity
+    .py:682-697), in one bulk radec2lonlat call on the body's device."""
+    ra, dec = ra_limb[:-1], dec_limb[:-1]
+    eps = np.concatenate([np.full(ra.size, 0.02), np.full(ra.size, -0.02)])
+    ra_t = np.tile(ra, 2) + eps * (body.target_ra - np.tile(ra, 2))
+    dec_t = np.tile(dec, 2) + eps * (body.target_dec - np.tile(dec, 2))
+    lon, _ = body.radec2lonlat(f64(ra_t, body.device), f64(dec_t, body.device))
+    if lon.device.type != body.device.type:
+        raise SmokeFailure(f'[wireframe] sincpt ran on {lon.device}')
+    hit = torch.isfinite(lon).cpu().numpy()
+    wrong = int((hit != (eps > 0)).sum())
+    if wrong:
+        raise SmokeFailure(f'[wireframe] limb vs sincpt: {wrong} of '
+                           f'{hit.size} rays on the wrong side')
+    return hit.size
+
+
+def wireframe_phase(device, card: str) -> dict:
+    """
+    [wireframe]: the wireframe's artist specs on a card body against a CPU
+    body's, the bulk limb and terminator on the card against the CPU
+    body's and the limb against the card's sincpt, timed with the phase's
+    peak device memory. No rendering: the card host has no matplotlib.
+    """
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    card_body, cpu_body = wireframe_bodies(device)
+
+    t0 = time.perf_counter()
+    card_artists = artists_in_xy(card_body)
+    torch.cuda.synchronize()
+    times['artists'] = (time.perf_counter() - t0) * 1e3
+    errors = check_artists(card_artists, artists_in_xy(cpu_body))
+
+    t0 = time.perf_counter()
+    card_curves, seen = bulk_curves(card_body)
+    torch.cuda.synchronize()
+    times['limb + terminator'] = (time.perf_counter() - t0) * 1e3
+    want = [('limbpt', device.type, (WIREFRAME_NPTS, 3)),
+            ('termpt', device.type, (WIREFRAME_NPTS, 3))]
+    if seen != want or 3 * WIREFRAME_NPTS <= BULK_ELEMENTS:
+        raise SmokeFailure(f'[wireframe] bulk curves ran as {seen}')
+    cpu_curves, cpu_seen = bulk_curves(cpu_body)
+    if {d for _, d, _ in cpu_seen} != {'cpu'}:
+        raise SmokeFailure(f'[wireframe] CPU body ran on {cpu_seen}')
+    flips = [0]
+    for name in card_curves:
+        for axis, period in ((0, 360.0), (1, None)):
+            errors['bulk deg'] = max(errors.get('bulk deg', 0.0), check_curves(
+                f'{name} {WIREFRAME_NPTS}', card_curves[name][axis],
+                cpu_curves[name][axis], BULK_BARS['deg'], period, flips))
+    limb_card = card_body._limb_targvec(npts=WIREFRAME_NPTS).cpu().numpy()
+    limb_cpu = cpu_body._limb_targvec(npts=WIREFRAME_NPTS).numpy()
+    errors['km'] = float(np.max(np.abs(limb_card - limb_cpu)))
+    if not errors['km'] <= BULK_BARS['km']:
+        raise SmokeFailure(f'[wireframe] limb points {errors["km"]:.3e} km')
+    rays = limb_against_sincpt(card_body, *card_curves['limb'])
+
+    scan = card_body.copy()
+    t0 = time.perf_counter()
+    scan.add_satellites_to_bodies_of_interest(skip_insufficient_data=True)
+    torch.cuda.synchronize()
+    times['add_satellites_to_bodies_of_interest'] = (
+        time.perf_counter() - t0) * 1e3
+    found = [o.target for o in scan.other_bodies_of_interest]
+    if found != ['IO', 'AMALTHEA']:
+        raise SmokeFailure(f'[wireframe] satellites {found}')
+    peak = (torch.cuda.max_memory_allocated() - live) / 2**20
+    curves = sum(a[0] == 'curve' for a in card_artists)
+    log(f'[wireframe] {card} | {len(card_artists)} artists ({curves} curves) '
+        f'on a {SIZE}x{SIZE} card body {times["artists"]:.1f} ms, held to a '
+        f'CPU body\'s (max {errors["deg"]:.3e} deg, {errors["px"]:.3e} px); '
+        f'{WIREFRAME_NPTS}-point limb + terminator on the card '
+        f'{times["limb + terminator"]:.1f} ms ({seen}), RA/Dec within '
+        f'{errors["bulk deg"]:.3e} deg of the CPU body\'s ({flips[0]} NaN '
+        f'flips), limb points within {errors["km"]:.3e} km, {rays} rays '
+        'against sincpt on the card; add_satellites_to_bodies_of_interest '
+        f'{times["add_satellites_to_bodies_of_interest"]:.1f} ms; peak '
+        f'{peak:.1f} MiB')
+    log('[wireframe] no rendering: the card host has no matplotlib (the '
+        'overlays and the WIREFRAME HDU are held to the JAX package byte '
+        'for byte by tests/test_torch_plotting.py and '
+        'tests/test_torch_observation.py on the CPU)')
+    return dict(times=times, errors=errors, peak=peak)
+
+
+# ---------------------------------------------------------------------------
 # [dsk]: the double-single kernels of ops/dsk.py (csrc/dsk.cu)
 # ---------------------------------------------------------------------------
 
@@ -1679,7 +1892,7 @@ def main() -> int:
     try:
         occupancy = build_phase()
         with tempfile.TemporaryDirectory(prefix='synthetic_kernels_') as kdir:
-            write_synthetic_kernels(kdir, seed=0)
+            write_synthetic_kernels(kdir, seed=0, satellites=True)
             pt.set_kernel_path(kdir)
             body, args, launches, peak, reports, n_disc = main_path_phase(
                 device
@@ -1721,7 +1934,9 @@ def main() -> int:
             observation = observation_phase(device, card_line())
             steps = observation['steps']
             log(f'[observation] {card} | Observation export time (the '
-                'first, uninstrumented run): '
+                'first, uninstrumented run; include_wireframe=False: the '
+                'overlay renders with matplotlib, which the card host '
+                'lacks): '
                 f'save_observation {steps["save_observation"][0]:.1f} ms, '
                 'save_mapped_observation linear '
                 f'{steps["save_mapped_observation linear"][0]:.1f} ms, '
@@ -1733,6 +1948,9 @@ def main() -> int:
                 f'{time.perf_counter() - t_obs:.1f} s')
             for kind, err in observation['errors'].items():
                 map_errors[kind] = max(map_errors[kind], err)
+            t_wf = time.perf_counter()
+            wireframe_phase(device, card_line())
+            log(f'[wireframe] phase {time.perf_counter() - t_wf:.1f} s')
             pt.clear_kernels()
         t_dsk = time.perf_counter()
         dsk_out = dsk_phase(device, card_line())

@@ -14,15 +14,17 @@ device, so a card body's per-plane images and maps stay on the card;
 smaller calls (the scalar API, the scene constants, the anchors) run on
 CPU tensors.
 
-Ported so far: ``Body`` (its point transforms and per-point physics),
+Ported so far: ``Body`` (point transforms, per-point physics, limb and
+terminator curves, other bodies, rings, grids, wireframe plots),
 ``BodyXY`` (disc parameters, the pixel transforms, the backplane registry
 with the 26 per-plane image and map getters, the fused 26-backplane
-pipeline, the map coordinates and ``map_img``), ``BasicBody``,
-``Observation`` (FITS and image input, disc fitting on the body's device,
-``save_observation`` and ``save_mapped_observation``; no wireframe overlay
-yet), the FITS/WCS readers and writer (:mod:`.io`), :mod:`.utils`, the
-kernel-path functions and :mod:`.pipeline`. The rest of the JAX package's
-API is listed in ROADMAP.md.
+pipeline, the map coordinates, ``map_img``, the plots and the wireframe
+overlays), ``BasicBody``, ``Observation`` (FITS and image input, disc
+fitting on the body's device, ``save_observation`` and
+``save_mapped_observation`` with their WIREFRAME HDU), the FITS/WCS
+readers and writer (:mod:`.io`), :mod:`.utils`, the kernel-path functions
+and :mod:`.pipeline`. matplotlib is imported only by the functions that
+draw. The rest of the JAX package's API is listed in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -30,7 +32,14 @@ from __future__ import annotations
 from . import pipeline
 from .base import BodyBase, SpiceBase
 from .basic_body import BasicBody
-from .body import AngularCoordinateKwargs, Body
+from .body import (
+    DEFAULT_WIREFRAME_FORMATTING,
+    AngularCoordinateKwargs,
+    Body,
+    LonLatGridKwargs,
+    WireframeComponent,
+    WireframeKwargs,
+)
 from .body_xy import Backplane, BackplaneNotFoundError, BodyXY, MapKwargs
 from .common import (
     CITATION_BIBTEX,
@@ -64,6 +73,10 @@ __all__ = [
     'BasicBody',
     'Observation',
     'AngularCoordinateKwargs',
+    'WireframeKwargs',
+    'WireframeComponent',
+    'DEFAULT_WIREFRAME_FORMATTING',
+    'LonLatGridKwargs',
     'MapKwargs',
     'base',
     'data_loader',

@@ -1,15 +1,17 @@
 """
 Body: the geometry engine API (port of ``planetmapper_tpu.body``).
 
-Ported: the constructor (scene constants, sub-observer and sub-solar
-points, ring plane), the transforms between lonlat (planetographic and
-planetocentric), radec, km, angular and the internal targvec/obsvec
-vectors, the illumination angles, azimuth, visibility and illumination
-tests of points, the limb coordinates of rays, local solar time,
-ring-plane coordinates, the states, radial velocities and distances of
-points, and the surface-altitude adjustment. Other bodies, limb and
-terminator curves, named rings, lon/lat grids, occultation,
-``get_description`` and plotting are listed in ROADMAP.md.
+The whole of the JAX package's ``Body``: the constructor (scene constants,
+sub-observer and sub-solar points, ring plane), the transforms between
+lonlat (planetographic and planetocentric), radec, km, angular and the
+internal targvec/obsvec vectors, the illumination angles, azimuth,
+visibility and illumination tests of points, the limb coordinates of
+rays, local solar time, ring-plane coordinates, the states, radial
+velocities and distances of points, the surface-altitude adjustment, the
+limb and terminator curves (``SceneEngine.limbpt``/``termpt``), other
+bodies of interest and their occultation, named rings, lon/lat grids,
+``get_description`` and, in :mod:`._body_plotting`, the wireframe plots
+(matplotlib is imported by the functions that draw, never here).
 
 Every transform takes numbers, numpy arrays or float64 tensors
 (:func:`.base._on_tensors`). Tensors come back as tensors, on the device
@@ -25,13 +27,13 @@ import datetime
 import functools
 import math
 import os
-from typing import Any, TypedDict
+from typing import Any, Literal, TypedDict
 
 import numpy as np
 import torch
 
 from . import data_loader
-from ._device import f64
+from ._device import HOST, f64, scene_device
 from .base import (
     BodyBase,
     FloatOrArray,
@@ -42,10 +44,37 @@ from .base import (
     _replace_np_arr_args_with_tuples,
     get_pool,
 )
+from .basic_body import BasicBody
 from .core import geometry as geom
 from .core.ephemeris import InsufficientDataError
 from .core.frames import BodyFrameModel
 from .core.scene import SceneEngine
+from .kernels.pool import KernelVarNotFoundError
+
+WireframeComponent = Literal[
+    'all', 'grid', 'equator', 'prime_meridian', 'limb', 'limb_illuminated',
+    'terminator', 'ring', 'pole', 'coordinate_of_interest_lonlat',
+    'coordinate_of_interest_radec', 'other_body_of_interest_marker',
+    'other_body_of_interest_label', 'hidden_other_body_of_interest_marker',
+    'hidden_other_body_of_interest_label', 'map_boundary',
+]
+
+
+class WireframeKwargs(TypedDict, total=False):
+    """Keyword arguments accepted by the wireframe plotting functions."""
+
+    label_poles: bool
+    add_title: bool
+    grid_interval: float
+    grid_lat_limit: float
+    planetocentric_grid: bool
+    indicate_equator: bool
+    indicate_prime_meridian: bool
+    formatting: dict[WireframeComponent, dict[str, Any]] | None
+    alt: float
+    color: str | tuple[float, float, float]
+    alpha: float
+    zorder: float
 
 
 class AngularCoordinateKwargs(TypedDict, total=False):
@@ -54,6 +83,118 @@ class AngularCoordinateKwargs(TypedDict, total=False):
     origin_ra: float | None
     origin_dec: float | None
     coordinate_rotation: float
+
+
+class LonLatGridKwargs(TypedDict, total=False):
+    """Keyword arguments of the lon/lat grid generators."""
+
+    npts: int
+    lat_limit: float
+    alt: float
+    planetocentric: bool
+
+
+def _default_wireframe_formatting():
+    """The default formatting of each wireframe component (the JAX
+    package's, from the reference body.py:104-137). Needs matplotlib."""
+    import matplotlib.patheffects as path_effects
+
+    return {
+        'all': dict(color='k'),
+        'grid': dict(alpha=0.5, linestyle=':'),
+        'equator': dict(linestyle='-'),
+        'prime_meridian': dict(linestyle='-'),
+        'limb': dict(linewidth=0.5),
+        'limb_illuminated': dict(),
+        'terminator': dict(linestyle='--'),
+        'ring': dict(linewidth=0.5),
+        'pole': dict(
+            ha='center', va='center', size='small', weight='bold',
+            path_effects=[
+                path_effects.Stroke(linewidth=3, foreground='w'),
+                path_effects.Normal(),
+            ],
+            clip_on=True,
+        ),
+        'coordinate_of_interest_lonlat': dict(marker='x'),
+        'coordinate_of_interest_radec': dict(marker='+'),
+        'other_body_of_interest_marker': dict(marker='+'),
+        'other_body_of_interest_label': dict(
+            size='small', ha='center', va='center', alpha=0.5, clip_on=True
+        ),
+        'hidden_other_body_of_interest_marker': dict(alpha=0.333),
+        'hidden_other_body_of_interest_label': dict(),
+        'map_boundary': dict(),
+    }
+
+
+class _LazyFormattingDict(dict):
+    """Defaults are filled on first *read* (not at import: they need
+    matplotlib). Every read path must materialise - ``get``/``keys``
+    don't call ``__missing__``, and a consumer iterating an
+    unmaterialised dict would silently see no formatting (and drop the
+    per-plot coordinate transform carried through the same kwargs)."""
+
+    _materialised = False
+
+    def _materialise(self):
+        if not self._materialised:
+            self._materialised = True
+            # setdefault: a user who customised entries before first
+            # use keeps their values; only missing components fill in
+            for k, v in _default_wireframe_formatting().items():
+                self.setdefault(k, v)
+
+    def __missing__(self, key):
+        self._materialise()
+        if key not in self:
+            raise KeyError(key)
+        return self[key]
+
+    def get(self, key, default=None):
+        self._materialise()
+        return dict.get(self, key, default)
+
+    def keys(self):
+        self._materialise()
+        return dict.keys(self)
+
+    def items(self):
+        self._materialise()
+        return dict.items(self)
+
+    def values(self):
+        self._materialise()
+        return dict.values(self)
+
+    def __iter__(self):
+        self._materialise()
+        return dict.__iter__(self)
+
+    def __contains__(self, key):
+        self._materialise()
+        return dict.__contains__(self, key)
+
+    def __len__(self):  # also covers bool()
+        self._materialise()
+        return dict.__len__(self)
+
+    def __eq__(self, other):
+        self._materialise()
+        return dict.__eq__(self, other)
+
+    __hash__ = None  # type: ignore[assignment]  # dicts are unhashable
+
+    def __repr__(self):
+        self._materialise()
+        return dict.__repr__(self)
+
+    def copy(self):
+        self._materialise()
+        return dict(self)
+
+
+DEFAULT_WIREFRAME_FORMATTING: dict = _LazyFormattingDict()
 
 
 def _unit_from_radec(ra: torch.Tensor, dec: torch.Tensor) -> torch.Tensor:
@@ -77,6 +218,13 @@ def _radec_from_unit(v: torch.Tensor):
         torch.clamp(v[..., 2] / torch.where(r > 0, r, 1.0), -1.0, 1.0)
     )
     return r, ra, dec
+
+
+def _host_array(x) -> np.ndarray:
+    """A tensor (on any device) or an array-like as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def _matvec_rows(m: np.ndarray, v: torch.Tensor) -> torch.Tensor:
@@ -213,6 +361,11 @@ class Body(BodyBase):
     body.py:275). Transforms accept floats, numpy arrays or tensors.
     """
 
+    #: Where the body's bulk curves run (a limb or terminator of more than
+    #: ``_device.BULK_ELEMENTS`` points): the host for a Body, its own
+    #: device for a BodyXY; an other body of interest takes its creator's.
+    device: torch.device = HOST
+
     def __init__(
         self,
         target: str | int,
@@ -337,6 +490,9 @@ class Body(BodyBase):
 
         self.named_ring_data = data_loader.get_ring_radii().get(self.target, {})
         self.ring_radii: set[float] = set()
+        self.other_bodies_of_interest: list[Body | BasicBody] = []
+        self.coordinates_of_interest_lonlat: list[tuple[float, float]] = []
+        self.coordinates_of_interest_radec: list[tuple[float, float]] = []
 
         self._matrix_km2angular: np.ndarray | None = None
         self._matrix_angular2km: np.ndarray | None = None
@@ -386,6 +542,135 @@ class Body(BodyBase):
             surface_method='ELLIPSOID',
             **super()._get_default_init_kwargs(),
         )
+
+    def _copy_options_to_other(self, other) -> None:
+        super()._copy_options_to_other(other)
+        other.other_bodies_of_interest = self.other_bodies_of_interest.copy()
+        other.coordinates_of_interest_lonlat = (
+            self.coordinates_of_interest_lonlat.copy()
+        )
+        other.coordinates_of_interest_radec = (
+            self.coordinates_of_interest_radec.copy()
+        )
+        other.ring_radii = self.ring_radii.copy()
+
+    # ------------------------------------------------------------------
+    # Other bodies
+    # ------------------------------------------------------------------
+    def create_other_body(
+        self, other_target: str | int, fallback_to_basic_body: bool = True
+    ) -> 'Body | BasicBody':
+        """
+        Create a Body with identical parameters but a different target, on
+        this body's device (a :class:`BasicBody` when the kernels hold no
+        radii for it and ``fallback_to_basic_body``).
+        """
+        try:
+            try:
+                other = Body(
+                    target=other_target,
+                    utc=self.utc,
+                    observer=self.observer,
+                    observer_frame=self.observer_frame,
+                    illumination_source=self.illumination_source,
+                    aberration_correction=self.aberration_correction,
+                    subpoint_method=self.subpoint_method,
+                    surface_method=self.surface_method,
+                )
+                other.device = self.device
+                return other
+            except KernelVarNotFoundError:
+                if not fallback_to_basic_body:
+                    raise
+                return BasicBody(
+                    target=other_target,
+                    utc=self.utc,
+                    observer=self.observer,
+                    observer_frame=self.observer_frame,
+                    aberration_correction=self.aberration_correction,
+                )
+        except NotFoundError as e:
+            raise NotFoundError(
+                f'{e}\n\nBody name: {other_target!r}'
+            ) from e
+
+    def add_other_bodies_of_interest(
+        self, *other_targets: str | int, only_visible: bool = False
+    ) -> None:
+        """Add targets to :attr:`other_bodies_of_interest`."""
+        for other_target in other_targets:
+            body = self.create_other_body(other_target)
+            if only_visible and not self.test_if_other_body_visible(body):
+                continue
+            if body not in self.other_bodies_of_interest:
+                self.other_bodies_of_interest.append(body)
+
+    def _get_all_satellite_bodies(
+        self, skip_insufficient_data: bool = False, only_visible: bool = False
+    ) -> 'list[Body | BasicBody]':
+        from .kernels import naif_ids
+
+        out: list[Body | BasicBody] = []
+        id_base = (self.target_body_id // 100) * 100
+        for other_target_id in range(id_base + 1, id_base + 99):
+            try:
+                body = self.create_other_body(other_target_id)
+                if only_visible and not self.test_if_other_body_visible(body):
+                    continue
+                out.append(body)
+            except (SpiceError, InsufficientDataError) as exc:
+                if isinstance(exc, NotFoundError):
+                    continue
+                if skip_insufficient_data:
+                    continue
+                try:
+                    naif_ids.bodc2n(other_target_id)
+                except naif_ids.BodyNotFoundError:
+                    continue
+                raise
+        return out
+
+    def add_satellites_to_bodies_of_interest(
+        self, skip_insufficient_data: bool = False, only_visible: bool = False
+    ) -> None:
+        """Add all satellites in the target's system (by NAIF ID range)."""
+        satellites = self._get_all_satellite_bodies(
+            skip_insufficient_data=skip_insufficient_data,
+            only_visible=only_visible,
+        )
+        for satellite in satellites:
+            if satellite not in self.other_bodies_of_interest:
+                self.other_bodies_of_interest.append(satellite)
+
+    # ------------------------------------------------------------------
+    # Rings data helpers
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _standardise_ring_name(name: str) -> str:
+        name = name.casefold().strip().removesuffix('ring')
+        for a, b in data_loader.get_ring_aliases().items():
+            name = name.replace(a, b)
+        return name.casefold().strip()
+
+    def ring_radii_from_name(self, name: str) -> list[float]:
+        """Ring radii in km for a named ring from :attr:`named_ring_data`."""
+        name = self._standardise_ring_name(name)
+        for n, radii in self.named_ring_data.items():
+            if name == self._standardise_ring_name(n):
+                return radii
+        raise ValueError(
+            f'No rings found named {name!r} in named_ring_data.'
+            + '\nValid names: {}'.format(
+                [self._standardise_ring_name(n) for n in self.named_ring_data]
+            )
+        )
+
+    def add_named_rings(self, *names: str) -> None:
+        """Add named rings (all by default) to :attr:`ring_radii`."""
+        if len(names) == 0:
+            names = tuple(self.named_ring_data.keys())
+        for name in names:
+            self.ring_radii.update(self.ring_radii_from_name(name))
 
     # ------------------------------------------------------------------
     # Longitude sign helpers
@@ -580,6 +865,23 @@ class Body(BodyBase):
             if planetocentric:
                 lon, lat = self.graphic2centric_lonlat(lon, lat)
             return lon, lat
+
+    def _targvec_arr2radec_arrs_radians(
+        self, targvec_arr
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """
+        RA/Dec radians, as numpy arrays, of body-fixed vectors: a numpy
+        array, or a tensor that stays on its device until the copy out.
+        """
+        ra, dec = self._obsvec2radec_radians(
+            self._targvec2obsvec(targvec_arr)
+        )
+        return _host_array(ra), _host_array(dec)
+
+    def _targvec_arr2radec_arrs(self, targvec_arr):
+        return self._radian_pair2degrees(
+            *self._targvec_arr2radec_arrs_radians(targvec_arr)
+        )
 
     # Angular coordinates ----------------------------------------------------
     @_cache_stable_result
@@ -914,9 +1216,140 @@ class Body(BodyBase):
             on_surface=alt == 0.0,
         )
 
+    def other_body_los_intercept(
+        self, other: 'str | int | Body | BasicBody', *, alt: float = 0.0
+    ) -> None | str:
+        """
+        Line-of-sight intercept classification between the target and
+        another body: None / 'hidden' / 'part hidden' / 'transit' /
+        'part transit' / 'same'.
+        """
+        if not isinstance(other, BodyBase):
+            other = self.create_other_body(other)
+
+        with _AdjustedSurfaceAltitude(self, alt):
+            if isinstance(other, BasicBody):
+                try:
+                    self.radec2lonlat(
+                        other.target_ra, other.target_dec, not_found_nan=False
+                    )
+                except NotFoundError:
+                    return None
+                if other.target_distance == self.target_distance:
+                    return 'same'
+                elif other.target_distance - self.target_distance > 0:
+                    return 'hidden'
+                else:
+                    return 'transit'
+
+            assert isinstance(other, Body)
+            if (
+                other.target_body_id == self.target_body_id
+                or np.allclose(other._target_obsvec, self._target_obsvec)
+            ):
+                return 'same'
+            return self._occultation_classification(other)
+
+    def _occultation_classification(self, other: 'Body') -> None | str:
+        """
+        Classify disc overlap (``occult`` equivalent): samples each body's
+        limb and centre and tests angular containment within the other's
+        projected limb.
+        """
+        n = 180
+        ra_s, dec_s = self.limb_radec(npts=n, close_loop=False)
+        ra_o, dec_o = other.limb_radec(npts=n, close_loop=False)
+
+        # A point is "inside" a body's disc if the ray towards it
+        # intercepts the body's ellipsoid.
+        def fraction_overlapping(body: 'Body', ra_arr, dec_arr):
+            lon, _lat = body.radec2lonlat(ra_arr, dec_arr)
+            return np.mean(np.isfinite(lon))
+
+        other_on_self = fraction_overlapping(self, ra_o, dec_o)
+        centre_on_self = np.isfinite(
+            self.radec2lonlat(other.target_ra, other.target_dec)[0]
+        )
+        self_on_other = fraction_overlapping(other, ra_s, dec_s)
+        centre_on_other = np.isfinite(
+            other.radec2lonlat(self.target_ra, self.target_dec)[0]
+        )
+
+        overlaps = (
+            other_on_self > 0 or self_on_other > 0
+            or centre_on_self or centre_on_other
+        )
+        if not overlaps:
+            return None
+        in_front = other.target_distance < self.target_distance
+        fully_covered = other_on_self >= 1.0 and self_on_other == 0.0
+        if in_front:
+            return 'transit' if fully_covered else 'part transit'
+        return 'hidden' if fully_covered else 'part hidden'
+
+    def test_if_other_body_visible(
+        self, other: 'str | int | Body | BasicBody', **kwargs
+    ) -> bool:
+        """False only if the other body is fully hidden behind the target."""
+        return self.other_body_los_intercept(other, **kwargs) != 'hidden'
+
     # ------------------------------------------------------------------
     # Limb
     # ------------------------------------------------------------------
+    def _rolls(self, npts: int) -> torch.Tensor:
+        """The cutting half-planes' roll angles of an ``npts``-point curve,
+        on the device of a scene call of that size (``scene_device``)."""
+        device = scene_device(npts, self.device)
+        return 2 * math.pi * torch.arange(
+            npts, dtype=torch.float64, device=device
+        ) / npts
+
+    def _limb_targvec(
+        self,
+        npts: int = 360,
+        close_loop: bool = True,
+        method: str = 'TANGENT/ELLIPSOID',
+        corloc: str = 'ELLIPSOID LIMB',
+    ) -> torch.Tensor:
+        """
+        Limb points in the body-fixed frame (``limbpt`` equivalent): cutting
+        half-planes about the observer-target axis with reference vector
+        [0, 0, 1], per-point light-time epochs (corloc='ELLIPSOID LIMB').
+        A tensor on the device of the call.
+        """
+        points = self._engine.limbpt(
+            self.et, self.radii, self._rolls(npts), self._sub_consts()
+        )
+        if close_loop:
+            points = torch.cat([points, points[:1]])
+        return points
+
+    def limb_radec(self, *, alt: float = 0.0, **kwargs):
+        """RA/Dec coordinates of the target's limb."""
+        with _AdjustedSurfaceAltitude(self, alt):
+            return self._targvec_arr2radec_arrs(self._limb_targvec(**kwargs))
+
+    def limb_lonlat(
+        self, alt: float = 0.0, *, planetocentric: bool = False, **kwargs
+    ):
+        """Planetographic lonlat coordinates of the target's limb."""
+        with _AdjustedSurfaceAltitude(self, alt):
+            lons, lats = self.targvec2lonlat(
+                self._limb_targvec(**kwargs), planetocentric=planetocentric
+            )
+            return _host_array(lons), _host_array(lats)
+
+    def limb_radec_by_illumination(self, *, alt: float = 0.0, **kwargs):
+        """Dayside/nightside split of :func:`limb_radec` (NaN-masked)."""
+        with _AdjustedSurfaceAltitude(self, alt):
+            targvec_arr = self._limb_targvec(**kwargs)
+            ra, dec = self._targvec_arr2radec_arrs(targvec_arr)
+            lit = _host_array(self._illumf_from_targvec_radians(targvec_arr)[4])
+            return (
+                np.where(lit, ra, np.nan), np.where(lit, dec, np.nan),
+                np.where(lit, np.nan, ra), np.where(lit, np.nan, dec),
+            )
+
     def limb_coordinates_from_radec(
         self, ra, dec, *, alt: float = 0.0, planetocentric: bool = False,
     ):
@@ -948,6 +1381,62 @@ class Body(BodyBase):
             *self._targvec2lonlat_radians(surface)
         )
         return lon, lat, dist - geom.norm(surface)
+
+    # ------------------------------------------------------------------
+    # Terminator
+    # ------------------------------------------------------------------
+    def _terminator_targvec(
+        self, *, npts: int, only_visible: bool, close_loop: bool, alt: float,
+        method: str, corloc: str,
+    ) -> torch.Tensor:
+        with _AdjustedSurfaceAltitude(self, alt):
+            # the JAX package's test: 'PENUMBRAL' also contains 'UMBRAL'
+            umbral = 'UMBRAL' in method.upper()
+            targvec_arr = self._engine.termpt(
+                self.et, self.radii, self._rolls(npts), self._sub_consts(),
+                umbral=umbral,
+            )
+            if close_loop:
+                targvec_arr = torch.cat([targvec_arr, targvec_arr[:1]])
+            if only_visible:
+                visible = self._test_if_targvec_visible_batch(
+                    targvec_arr, on_surface=alt == 0.0
+                )
+                targvec_arr = torch.where(
+                    visible[..., None], targvec_arr, math.nan
+                )
+            return targvec_arr
+
+    def terminator_radec(
+        self, npts: int = 360, *, only_visible: bool = True,
+        close_loop: bool = True, alt: float = 0.0,
+        method: str = 'UMBRAL/TANGENT/ELLIPSOID',
+        corloc: str = 'ELLIPSOID TERMINATOR',
+    ):
+        """RA/Dec coordinates of the day/night terminator."""
+        return self._targvec_arr2radec_arrs(
+            self._terminator_targvec(
+                npts=npts, only_visible=only_visible, close_loop=close_loop,
+                alt=alt, method=method, corloc=corloc,
+            )
+        )
+
+    def terminator_lonlat(
+        self, npts: int = 360, *, only_visible: bool = False,
+        close_loop: bool = True, alt: float = 0.0,
+        planetocentric: bool = False,
+        method: str = 'UMBRAL/TANGENT/ELLIPSOID',
+        corloc: str = 'ELLIPSOID TERMINATOR',
+    ):
+        """Planetographic lonlat coordinates of the terminator."""
+        lons, lats = self.targvec2lonlat(
+            self._terminator_targvec(
+                npts=npts, only_visible=only_visible, close_loop=close_loop,
+                alt=alt, method=method, corloc=corloc,
+            ),
+            planetocentric=planetocentric, alt=alt,
+        )
+        return _host_array(lons), _host_array(lats)
 
     # ------------------------------------------------------------------
     # Local solar time
@@ -1045,6 +1534,71 @@ class Body(BodyBase):
         return self._ring_coordinates_from_obsvec(
             self._radec2obsvec_norm(ra, dec), only_visible=only_visible
         )
+
+    def ring_radec(
+        self, radius: float, npts: int = 360, only_visible: bool = True
+    ):
+        """RA/Dec arrays of a circular ring of the given radius."""
+        lons = np.deg2rad(np.linspace(0, 360, npts))
+        alt = radius - self.r_eq
+        targvecs = self._lonlat2targvec_radians(
+            lons, np.zeros_like(lons), alt=alt, not_visible_nan=only_visible
+        )
+        ra, dec = self._obsvec2radec_radians(self._targvec2obsvec(targvecs))
+        return np.rad2deg(ra), np.rad2deg(dec)
+
+    # ------------------------------------------------------------------
+    # Lonlat grid
+    # ------------------------------------------------------------------
+    def visible_lonlat_grid_radec(
+        self, interval: float = 30, **kwargs
+    ) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Gridlines of constant lon and lat (for wireframe plotting)."""
+        lon_radec = self.visible_lon_grid_radec(
+            np.arange(0, 360, interval), **kwargs
+        )
+        lat_radec = self.visible_lat_grid_radec(
+            np.arange(-90, 90, interval), **kwargs
+        )
+        return lon_radec + lat_radec
+
+    def visible_lon_grid_radec(
+        self, lons, npts: int = 60, *, lat_limit: float = 90.0,
+        alt: float = 0.0, planetocentric: bool = False,
+    ) -> list[tuple[np.ndarray, np.ndarray]]:
+        """RA/Dec lines of constant longitude (invisible points NaN)."""
+        lats = np.linspace(-lat_limit, lat_limit, npts)
+        out = []
+        for lon in lons:
+            lon_arr = np.full(npts, lon)
+            lat_arr = lats
+            if planetocentric:
+                lon_arr, lat_arr = self.centric2graphic_lonlat(lon_arr, lats)
+            ra, dec = self.lonlat2radec(
+                lon_arr, lat_arr, alt=alt, not_visible_nan=True
+            )
+            out.append((np.asarray(ra), np.asarray(dec)))
+        return out
+
+    def visible_lat_grid_radec(
+        self, lats, npts: int = 120, *, lat_limit: float = 90.0,
+        alt: float = 0.0, planetocentric: bool = False,
+    ) -> list[tuple[np.ndarray, np.ndarray]]:
+        """RA/Dec lines of constant latitude (invisible points NaN)."""
+        lons = np.linspace(0, 360, npts)
+        out = []
+        for lat in lats:
+            if abs(lat) > lat_limit:
+                continue
+            lon_arr = lons
+            lat_arr = np.full(npts, lat)
+            if planetocentric:
+                lon_arr, lat_arr = self.centric2graphic_lonlat(lons, lat_arr)
+            ra, dec = self.lonlat2radec(
+                lon_arr, lat_arr, alt=alt, not_visible_nan=True
+            )
+            out.append((np.asarray(ra), np.asarray(dec)))
+        return out
 
     # ------------------------------------------------------------------
     # State (distance / velocity / doppler)
@@ -1150,6 +1704,21 @@ class Body(BodyBase):
             theta -= 360
         return float(theta)
 
+    def get_description(self, multiline: bool = True) -> str:
+        """Human-readable description of the observation."""
+        return '{t} ({tid}){alt}{nl}from {o}{nl}at {d}'.format(
+            t=self.target,
+            tid=self.target_body_id,
+            alt=(
+                f', alt = {self._alt_adjustment:g} km'
+                if self._alt_adjustment != 0.0
+                else ''
+            ),
+            nl=('\n' if multiline else ' '),
+            o=self.observer,
+            d=self.dtm.strftime('%Y-%m-%d %H:%M %Z'),
+        )
+
 
 def _spice_rotate(angle: float, axis: int) -> np.ndarray:
     """Coordinate rotation matrix (``spice.rotate`` convention)."""
@@ -1159,3 +1728,8 @@ def _spice_rotate(angle: float, axis: int) -> np.ndarray:
     if axis == 2:
         return np.array([[c, 0, -s], [0, 1.0, 0], [s, 0, c]])
     return np.array([[c, s, 0], [-s, c, 0], [0, 0, 1.0]])
+
+
+# Wireframe plotting methods are defined in _body_plotting and attached to
+# Body there (kept in a separate module for readability).
+from . import _body_plotting  # noqa: E402,F401  (attaches plotting methods)

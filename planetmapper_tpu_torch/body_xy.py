@@ -8,9 +8,11 @@ backplane registry (:class:`Backplane`, :func:`BodyXY.get_backplane_img`,
 them), the fused 26-backplane pipeline
 (:func:`BodyXY.generate_backplanes_fused`, which runs
 :func:`..pipeline.compute_backplanes`), the map coordinates
-(:func:`BodyXY.generate_map_coordinates`) and :func:`BodyXY.map_img`. The
-limb, terminator, ring and grid curves and the matplotlib transforms are
-listed in ROADMAP.md.
+(:func:`BodyXY.generate_map_coordinates`), :func:`BodyXY.map_img`, the
+limb, terminator, ring and grid curves in pixels, the matplotlib
+transforms and, in :mod:`._body_xy_plotting`, the plots and the
+rasterised wireframe overlays (matplotlib is imported by the functions
+that draw, never here).
 
 Each BodyXY carries the device its pixel pipeline and its map reprojection
 run on (``device=``; cuda by default, which raises without a card, and cpu
@@ -135,6 +137,10 @@ class BodyXY(Body):
         self._rotation_radians: float = 0
         self.set_disc_method('default')
         self._default_disc_method = 'manual'
+
+        # matplotlib Affine2D transforms, made on first use (update_transform)
+        self._mpl_transform_xy2angular_fixed = None
+        self._mpl_transform_angular_fixed2xy = None
 
         self.backplanes: dict[str, Backplane] = {}
         self._register_default_backplanes()
@@ -328,6 +334,7 @@ class BodyXY(Body):
     # ------------------------------------------------------------------
     def _invalidate_disc_parameters(self) -> None:
         self._clear_cache()
+        self.update_transform()
 
     def set_disc_params(self, x0=None, y0=None, r0=None, rotation=None):
         """Set multiple disc parameters at once."""
@@ -541,6 +548,138 @@ class BodyXY(Body):
         return self._get_img_limits(lambda x, y: (x, y))
 
     # ------------------------------------------------------------------
+    # Illumination etc. in xy coordinates
+    # ------------------------------------------------------------------
+    def limb_xy(self, **kwargs):
+        """Pixel-coordinate version of :func:`Body.limb_radec`."""
+        return self._radec_arrs2xy_arrs(*self.limb_radec(**kwargs))
+
+    def limb_xy_by_illumination(self, **kwargs):
+        """Pixel-coordinate version of limb_radec_by_illumination."""
+        ra_day, dec_day, ra_night, dec_night = self.limb_radec_by_illumination(
+            **kwargs
+        )
+        return (
+            *self._radec_arrs2xy_arrs(ra_day, dec_day),
+            *self._radec_arrs2xy_arrs(ra_night, dec_night),
+        )
+
+    def terminator_xy(self, **kwargs):
+        """Pixel-coordinate version of terminator_radec."""
+        return self._radec_arrs2xy_arrs(*self.terminator_radec(**kwargs))
+
+    def visible_lonlat_grid_xy(self, *args, **kwargs):
+        """Pixel-coordinate version of visible_lonlat_grid_radec."""
+        return [
+            self._radec_arrs2xy_arrs(*rd)
+            for rd in self.visible_lonlat_grid_radec(*args, **kwargs)
+        ]
+
+    def ring_xy(self, radius: float, **kwargs):
+        """Pixel-coordinate version of ring_radec."""
+        return self._radec_arrs2xy_arrs(*self.ring_radec(radius, **kwargs))
+
+    # ------------------------------------------------------------------
+    # Matplotlib transforms
+    # ------------------------------------------------------------------
+    def _get_matplotlib_xy2angular_fixed_transform(self):
+        import matplotlib.transforms
+
+        if self._mpl_transform_xy2angular_fixed is None:
+            self._mpl_transform_xy2angular_fixed = (
+                matplotlib.transforms.Affine2D(self._get_xy2angular_matrix())
+            )
+        return self._mpl_transform_xy2angular_fixed
+
+    def _get_matplotlib_angular_fixed2xy_transform(self):
+        import matplotlib.transforms
+
+        if self._mpl_transform_angular_fixed2xy is None:
+            self._mpl_transform_angular_fixed2xy = (
+                matplotlib.transforms.Affine2D(self._get_angular2xy_matrix())
+            )
+        return self._mpl_transform_angular_fixed2xy
+
+    def _maybe_get_axis_transform(self, ax):
+        import matplotlib.transforms
+
+        return (
+            ax.transData
+            if ax is not None
+            else matplotlib.transforms.IdentityTransform()
+        )
+
+    def matplotlib_xy2radec_transform(self, ax=None):
+        """Mutable matplotlib transform from xy to radec coordinates."""
+        self.update_transform()
+        return (
+            self._get_matplotlib_xy2angular_fixed_transform()
+            + self._get_matplotlib_transform(self.angular2radec, (0.0, 0.0), ax)
+        )
+
+    def matplotlib_radec2xy_transform(self, ax=None):
+        self.update_transform()
+        return (
+            self._get_matplotlib_transform(
+                self.radec2angular, (self.target_ra, self.target_dec), None
+            )
+            + self._get_matplotlib_angular_fixed2xy_transform()
+            + self._maybe_get_axis_transform(ax)
+        )
+
+    def matplotlib_xy2km_transform(self, ax=None):
+        self.update_transform()
+        return (
+            self._get_matplotlib_xy2angular_fixed_transform()
+            + self._get_matplotlib_transform(self.angular2km, (0.0, 0.0), ax)
+        )
+
+    def matplotlib_km2xy_transform(self, ax=None):
+        self.update_transform()
+        return (
+            self._get_matplotlib_transform(self.km2angular, (0.0, 0.0), None)
+            + self._get_matplotlib_angular_fixed2xy_transform()
+            + self._maybe_get_axis_transform(ax)
+        )
+
+    def matplotlib_xy2angular_transform(self, ax=None, **angular_kwargs):
+        self.update_transform()
+        f = lambda ax_, ay_: self._obsvec2angular(
+            self._angular2obsvec_norm(ax_, ay_), **angular_kwargs
+        )
+        return (
+            self._get_matplotlib_xy2angular_fixed_transform()
+            + self._get_matplotlib_transform(f, (0.0, 0.0), ax)
+        )
+
+    def matplotlib_angular2xy_transform(self, ax=None, **angular_kwargs):
+        self.update_transform()
+        f = lambda ax_, ay_: self._obsvec2angular(
+            self._angular2obsvec_norm(ax_, ay_), **angular_kwargs
+        )
+        return (
+            self._get_matplotlib_transform(f, (0.0, 0.0), None)
+            + self._get_matplotlib_angular_fixed2xy_transform()
+            + self._maybe_get_axis_transform(ax)
+        )
+
+    def update_transform(self) -> None:
+        """
+        Refresh the mutable xy matplotlib transforms after disc changes.
+        Only transforms already made are refreshed (a new one is made from
+        the current disc), so a body that never plots never imports
+        matplotlib.
+        """
+        if self._mpl_transform_xy2angular_fixed is not None:
+            self._mpl_transform_xy2angular_fixed.set_matrix(
+                self._get_xy2angular_matrix()
+            )
+        if self._mpl_transform_angular_fixed2xy is not None:
+            self._mpl_transform_angular_fixed2xy.set_matrix(
+                self._get_angular2xy_matrix()
+            )
+
+    # ------------------------------------------------------------------
     # Backplane management
     # ------------------------------------------------------------------
     @staticmethod
@@ -602,6 +741,37 @@ class BodyXY(Body):
             .get_map(**map_kwargs)
             .copy()
         )
+
+    def plot_backplane_img(self, name, ax=None, *, alt=0.0, show=False, **kwargs):
+        """Plot a backplane image with the target wireframe."""
+        import matplotlib.pyplot as plt
+
+        with _AdjustedSurfaceAltitude(self, alt):
+            backplane = self.get_backplane(name)
+            ax = self.plot_wireframe_xy(ax, show=False)
+            im = ax.imshow(backplane.get_img(), origin='lower', **kwargs)
+            plt.colorbar(im, label=backplane.description)
+            if show:
+                plt.show()
+            return ax
+
+    def plot_backplane_map(self, name, ax=None, show=False, **kwargs):
+        """Plot a backplane map."""
+        import matplotlib.pyplot as plt
+
+        if ax is None:
+            fig, ax = plt.subplots()
+        backplane = self.get_backplane(name)
+        map_kwargs, other_kwargs = _extract_map_kwargs_from_dict(kwargs)
+        if 'plot_kwargs' in other_kwargs:
+            other_kwargs |= other_kwargs.pop('plot_kwargs')
+        im = self.plot_map(
+            backplane.get_map(**map_kwargs), ax=ax, **map_kwargs, **other_kwargs
+        )
+        plt.colorbar(im, label=backplane.description)
+        if show:
+            plt.show()
+        return ax
 
     # ------------------------------------------------------------------
     # Fused pipeline (all backplanes in one pass)
@@ -1664,3 +1834,8 @@ def _extract_map_kwargs_from_dict(kwargs_dict: dict):
         else:
             other_kwargs[k] = v
     return map_kwargs, other_kwargs
+
+
+# Plotting methods (plot_wireframe_xy, plot_map_wireframe, plot_img,
+# plot_map, wireframe overlays) live in _body_xy_plotting.
+from . import _body_xy_plotting  # noqa: E402,F401

@@ -20,7 +20,7 @@ Internally everything works in:
 - "targvec": body-fixed rectangular coordinates centred on the target
 
 with east-positive longitudes in radians (API layers apply planetographic
-sign conventions). ``limbpt``/``termpt`` (wireframes) are not ported yet.
+sign conventions).
 """
 
 from __future__ import annotations
@@ -454,6 +454,163 @@ class SceneEngine:
         return self._obsvec2targvec_core(
             f64(obsvec, device), _sub_tensors(sub, device)
         )
+
+    # -- limb (limbpt equivalent) ------------------------------------------
+    def limbpt(self, et, radii, rolls, sub):
+        device = call_device(rolls)
+        return self._limbpt_core(
+            f64(et, device), f64(np.asarray(radii), device),
+            f64(rolls, device), _sub_tensors(sub, device),
+        )
+
+    def _limbpt_core(self, et, radii, rolls, sub):
+        """
+        Limb points (``limbpt`` with method TANGENT/ELLIPSOID and
+        corloc='ELLIPSOID LIMB'): one point per cutting half-plane. The
+        half-planes contain the observer-target axis; roll=0 contains the
+        reference vector [0,0,1] and roll increases right-handed about the
+        axis. Per-point light-time epochs are converged iteratively.
+
+        For an ellipsoid the tangent points are exactly the limb ellipse
+        (``edlimb``), so each point is the intersection of that ellipse
+        with its half-plane - closed form per iteration, fully batched.
+        """
+        target_obsvec, _lt, obs_pos, _vel = self._apparent_target_center(et)
+        axis = target_obsvec / geom.norm(target_obsvec)
+        # CSPICE limbpt expresses refvec in the fixref (body-fixed) frame:
+        # [0,0,1] is the spin axis, expressed here in J2000 via the frame
+        # rotation at the centre's corrected epoch
+        rot_c = self.frame_model.j2000_to_bodyfixed_matrix(sub['subpoint_et'])
+        refvec = rot_c[2, :]  # = rot_c^T @ [0,0,1]
+        e1 = refvec - torch.sum(refvec * axis) * axis
+        e1 = e1 / geom.norm(e1)
+        # CSPICE's half-plane axis points target->observer (opposite of
+        # ``axis`` here), so positive roll is LEFT-handed about our axis
+        e2 = -torch.linalg.cross(axis, e1)
+        v_roll = (
+            e1 * torch.cos(rolls)[..., None] + e2 * torch.sin(rolls)[..., None]
+        )
+        plane_normal = torch.linalg.cross(
+            torch.broadcast_to(axis, v_roll.shape), v_roll
+        )
+
+        tau = torch.zeros_like(rolls) + sub['subpoint_et']
+        points = None
+        for _ in range(3):
+            targ_pos = self._pos_t(tau)[..., :3] - obs_pos
+            rot = self.frame_model.j2000_to_bodyfixed_matrix(tau)
+            o_bf = -_matvec(rot, targ_pos)
+            n_bf = _matvec(rot, plane_normal)
+            v_bf = _matvec(rot, v_roll)
+            center, u, v = geom.limb_ellipse(o_bf, radii)
+            # Solve n . (center + u cos t + v sin t - o_bf) = 0
+            a_c = torch.sum(n_bf * u, dim=-1)
+            b_c = torch.sum(n_bf * v, dim=-1)
+            c_c = torch.sum(n_bf * (o_bf - center), dim=-1)
+            amp = torch.hypot(a_c, b_c)
+            phase0 = torch.atan2(b_c, a_c)
+            delta = torch.acos(torch.clamp(c_c / amp, -1.0, 1.0))
+            t1 = phase0 + delta
+            t2 = phase0 - delta
+            q1 = center + u * torch.cos(t1)[..., None] + v * torch.sin(t1)[..., None]
+            q2 = center + u * torch.cos(t2)[..., None] + v * torch.sin(t2)[..., None]
+            side1 = torch.sum((q1 - o_bf) * v_bf, dim=-1)
+            points = torch.where(side1[..., None] >= 0.0, q1, q2)
+            dist = geom.norm(points - o_bf)
+            tau = et - dist / CLIGHT
+        return points
+
+    # -- terminator (termpt equivalent) ------------------------------------
+    def termpt(self, et, radii, rolls, sub, umbral: bool = True,
+               source_radius: float | None = None):
+        if source_radius is None:
+            source_radius = self._source_radius()
+        device = call_device(rolls)
+        return self._termpt_core(
+            f64(et, device), f64(np.asarray(radii), device),
+            f64(rolls, device), _sub_tensors(sub, device),
+            float(source_radius), umbral=umbral,
+        )
+
+    def _source_radius(self) -> float:
+        try:
+            return float(
+                self.ephemeris._pool.bodvar(self.illumination_source_id, 'RADII')[0]
+            )
+        except Exception:
+            return 0.0
+
+    def _termpt_core(self, et, radii, rolls, sub, source_radius, *, umbral):
+        """
+        Terminator points (``termpt`` with method UMBRAL/TANGENT/ELLIPSOID
+        or PENUMBRAL/..., corloc='ELLIPSOID TERMINATOR'): the cutting
+        half-planes contain the target-source axis. Each point satisfies
+        the grazing-ray condition n.s_hat = -/+ sin(angular radius of the
+        source), solved by vectorised bisection along each half-plane's
+        surface arc, with per-point light-time epochs.
+        """
+        _, _, obs_pos, _ = self._apparent_target_center(et)
+
+        tau = torch.zeros_like(rolls) + sub['subpoint_et']
+        points = None
+        for _ in range(3):
+            targ_ssb = self._pos_t(tau)[..., :3]
+            # Apparent sun from target centre at tau (per point)
+            lt_s = torch.zeros_like(rolls)
+            sun_vec = None
+            for _ in range(3):
+                sun_pos = self._pos_s(tau - lt_s)[..., :3]
+                sun_vec = sun_pos - targ_ssb
+                lt_s = geom.norm(sun_vec) / CLIGHT
+            rot = self.frame_model.j2000_to_bodyfixed_matrix(tau)
+            sun_bf = _matvec(rot, sun_vec)
+
+            axis = sun_bf / geom.norm(sun_bf, keepdim=True)
+            # CSPICE termpt expresses refvec in the fixref (body-fixed)
+            # frame: [0,0,1] IS the spin axis - no frame conversion
+            ref_bf = torch.zeros_like(sun_bf)
+            ref_bf[..., 2] = 1.0
+            e1 = ref_bf - torch.sum(ref_bf * axis, dim=-1, keepdim=True) * axis
+            e1 = e1 / geom.norm(e1, keepdim=True)
+            e2 = torch.linalg.cross(axis, e1)
+            v_roll = (
+                e1 * torch.cos(rolls)[..., None]
+                + e2 * torch.sin(rolls)[..., None]
+            )
+
+            def surface_point(psi):
+                w = (axis * torch.cos(psi)[..., None]
+                     + v_roll * torch.sin(psi)[..., None])
+                return geom.radial_surface_point(w, radii)
+
+            def g(psi):
+                q = surface_point(psi)
+                n = geom.surface_normal(q, radii)
+                to_sun = sun_bf - q
+                dist_sun = geom.norm(to_sun)
+                s_hat = to_sun / dist_sun[..., None]
+                sin_alpha = torch.clamp(source_radius / dist_sun, 0.0, 1.0)
+                target = -sin_alpha if umbral else sin_alpha
+                return torch.sum(n * s_hat, dim=-1) - target
+
+            # Bisection: g decreases from ~+1 at psi=0 (subsolar) to ~-1 at
+            # psi=pi (antisolar); exactly one root in between.
+            lo = torch.zeros_like(rolls)
+            hi = torch.full_like(rolls, math.pi)
+            for _ in range(55):
+                mid = 0.5 * (lo + hi)
+                positive = g(mid) > 0.0
+                lo = torch.where(positive, mid, lo)
+                hi = torch.where(positive, hi, mid)
+            psi = 0.5 * (lo + hi)
+            points = surface_point(psi)
+
+            # Light time epoch from the observer to each point
+            m_bf2j = torch.swapaxes(rot, -1, -2)
+            point_j2000 = (targ_ssb - obs_pos) + _matvec(m_bf2j, points)
+            dist = geom.norm(point_j2000)
+            tau = et - dist / CLIGHT
+        return points
 
     # -- local solar time --------------------------------------------------
     def solar_longitude(self, et):

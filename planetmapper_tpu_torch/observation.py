@@ -14,9 +14,11 @@ that device (``ops/photometry.py``), ``get_mapped_data`` maps the whole
 cube in one ``map_img`` call there (the map kernels on a card body) and
 copies it to the host once, and ``save_observation`` walks the per-plane
 getters. ``data`` and ``header`` stay numpy and :class:`io.fits.Header`.
+Both saves write the WIREFRAME overlay HDU by default
+(``include_wireframe=True``), which needs matplotlib to render: without it
+they raise the ``ImportError`` before any work and write no file.
 
-Not yet ported: the wireframe overlay (``include_wireframe=True``, the
-JAX package's default, raises) and the GUI (``run_gui`` raises).
+Not yet ported: the GUI (``run_gui`` raises).
 """
 
 from __future__ import annotations
@@ -711,12 +713,10 @@ class Observation(BodyXY):
         alt: float = 0.0,
     ) -> None:
         """
-        Save a FITS file containing the observed data and all generated
-        backplanes (one ImageHDU each). The WIREFRAME overlay HDU is not
-        ported yet: pass ``include_wireframe=False``.
+        Save a FITS file containing the observed data, all generated
+        backplanes (one ImageHDU each) and, with ``include_wireframe``, the
+        WIREFRAME overlay image (:func:`get_wireframe_overlay_img`).
         """
-        _refuse_wireframe(include_wireframe)
-        del wireframe_kwargs
         with _AdjustedSurfaceAltitude(self, alt):
             self._run_fits_export(
                 path,
@@ -730,6 +730,16 @@ class Observation(BodyXY):
                 primary=self._navigated_primary_hdu_parts,
                 plane=lambda backplane: backplane.get_img(),
                 decorate_hdu=None,
+                wireframe=(
+                    (
+                        lambda: self.get_wireframe_overlay_img(
+                            **wireframe_kwargs or {}
+                        ),
+                        'Wireframe image overlay',
+                    )
+                    if include_wireframe
+                    else None
+                ),
                 show_progress=show_progress,
                 print_info=print_info,
             )
@@ -778,11 +788,9 @@ class Observation(BodyXY):
     ) -> None:
         """
         Save a FITS file containing the mapped observation (and mapped
-        backplanes) in the requested projection. The WIREFRAME overlay HDU
-        is not ported yet: pass ``include_wireframe=False``.
+        backplanes) in the requested projection, with the WIREFRAME map
+        overlay (:func:`get_wireframe_overlay_map`) if ``include_wireframe``.
         """
-        _refuse_wireframe(include_wireframe)
-        del wireframe_kwargs
         interp_settings = dict(
             interpolation=interpolation,
             spline_smoothing=spline_smoothing,
@@ -806,6 +814,16 @@ class Observation(BodyXY):
             decorate_hdu=lambda h: self._add_map_wcs_to_header(
                 h, **map_kwargs
             ),
+            wireframe=(
+                (
+                    lambda: self.get_wireframe_overlay_map(
+                        **wireframe_kwargs or {}, **map_kwargs
+                    ),
+                    'Wireframe map overlay',
+                )
+                if include_wireframe
+                else None
+            ),
             show_progress=show_progress,
             print_info=print_info,
             pre_primary_message=' Projecting mapped data...',
@@ -823,9 +841,10 @@ class Observation(BodyXY):
         return data, header
 
     @staticmethod
-    def _about_header(about: str):
+    def _about_header(about: str, overlay_kind: str | None = None):
         h = fits.Header([('ABOUT', about)])
-        h.add_comment('Backplane generated by PlanetMapper software.')
+        what = 'Wireframe overlay' if overlay_kind else 'Backplane'
+        h.add_comment(f'{what} generated by PlanetMapper software.')
         return h
 
     def _run_fits_export(
@@ -840,6 +859,7 @@ class Observation(BodyXY):
         primary: Callable,
         plane: Callable,
         decorate_hdu: Callable | None,
+        wireframe: tuple[Callable, str] | None,
         show_progress: bool,
         print_info: bool,
         pre_primary_message: str | None = None,
@@ -847,14 +867,18 @@ class Observation(BodyXY):
         """
         The export engine shared by :meth:`save_observation` and
         :meth:`save_mapped_observation`: progress-hook lifecycle, the
-        primary HDU, one ImageHDU per requested backplane, and the final
-        write. Callers supply the flavour-specific pieces as callables
-        (``hook`` makes the progress hook, which opens its bar, only when
-        ``show_progress`` asks for it).
+        primary HDU, one ImageHDU per requested backplane, the optional
+        WIREFRAME overlay HDU, and the final write. Callers supply the
+        flavour-specific pieces as callables (``hook`` makes the progress
+        hook, which opens its bar, only when ``show_progress`` asks for it).
         HDU names, card keywords and comment strings are byte-compatible
         with the JAX package's output files.
         """
         path = os.fspath(path)
+        if wireframe is not None:
+            # the overlay renders with matplotlib: without it, fail before
+            # any work rather than after the backplanes
+            import matplotlib.figure  # noqa: F401
         if show_progress and self._get_progress_hook() is None:
             print_info = False
             self._set_progress_hook(hook())
@@ -888,6 +912,16 @@ class Observation(BodyXY):
                         name=name,
                     )
                 )
+        if wireframe is not None:
+            say(' Creating wireframe...')
+            wf_fn, wf_about = wireframe
+            hdus.append(
+                fits.ImageHDU(
+                    data=wf_fn(),
+                    header=self._about_header(wf_about, overlay_kind='wf'),
+                    name='WIREFRAME',
+                )
+            )
         say(' Saving file...')
         utils.check_path(path)
         fits.HDUList(hdus).writeto(path, overwrite=True)
@@ -989,17 +1023,6 @@ class Observation(BodyXY):
         raise NotImplementedError(
             'run_gui: the GUI is not ported to planetmapper_tpu_torch yet '
             '(ROADMAP.md Queue 1 item 7, shells and peripherals)'
-        )
-
-
-def _refuse_wireframe(include_wireframe: bool) -> None:
-    """Raise before any work when the WIREFRAME overlay is asked for."""
-    if include_wireframe:
-        raise NotImplementedError(
-            'include_wireframe=True: the wireframe overlay is not ported to '
-            'planetmapper_tpu_torch yet (ROADMAP.md Queue 1 item 1, the '
-            'wireframe: limb, terminator and ring curves and '
-            'get_wireframe_overlay_img/_map); pass include_wireframe=False'
         )
 
 

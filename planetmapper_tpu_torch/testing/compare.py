@@ -465,3 +465,41 @@ def compare_map(got, ref, bar: float) -> dict:
     limit = bar * max(scale, 1.0)
     return dict(ok=flips == 0 and err <= limit, mask_flips=flips,
                 max_abs_err=err, limit=limit)
+
+
+def compare_curve(got, ref, bar: float, *, period: float | None = None,
+                  scale=None) -> dict:
+    """
+    A curve (a 1-D array of points in curve order: a limb, a terminator, a
+    gridline) against a reference: the same shape; NaN masks equal but for
+    at most :data:`MAX_MASK_FLIPS` points, each next to a transition of the
+    reference's mask (a point at the visibility threshold); finite values
+    within ``bar`` (times ``scale`` per point where given, e.g. a
+    longitude's 1/cos(lat) conditioning), differences of a ``period``
+    (longitudes: 360) taken on the circle. A report with ``ok``,
+    ``mask_flips``, ``off_threshold``, ``max_abs_err`` and ``bar``.
+    """
+    got = np.asarray(got, dtype=np.float64)
+    ref = np.asarray(ref, dtype=np.float64)
+    if got.shape != ref.shape or ref.ndim != 1:
+        return dict(ok=False, mask_flips=-1, off_threshold=-1,
+                    max_abs_err=np.nan, bar=bar)
+    nan_ref = np.isnan(ref)
+    flips = np.isnan(got) != nan_ref
+    edge = np.zeros_like(nan_ref)
+    edge[1:] |= nan_ref[1:] != nan_ref[:-1]
+    edge[:-1] |= nan_ref[1:] != nan_ref[:-1]
+    both = ~nan_ref & ~np.isnan(got)
+    diff = got - ref
+    if period is not None:
+        diff = (diff + period / 2) % period - period / 2
+    limit = bar * (np.ones_like(ref) if scale is None
+                   else np.asarray(scale, dtype=np.float64))
+    err = float(np.max(np.abs(diff[both]))) if both.any() else 0.0
+    excess = (bool(np.any(np.abs(diff[both]) > limit[both]))
+              if both.any() else False)
+    off = int((flips & ~edge).sum())
+    return dict(ok=not excess and off == 0
+                and int(flips.sum()) <= MAX_MASK_FLIPS,
+                mask_flips=int(flips.sum()), off_threshold=off,
+                max_abs_err=err, bar=bar)

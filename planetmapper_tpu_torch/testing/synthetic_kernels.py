@@ -20,6 +20,18 @@ that on 2005-01-01 Jupiter is about 5.3 AU from the Earth at a phase
 angle near 11 deg, so every illumination backplane carries real values.
 ``seed`` jitters both orbital phases by up to +-0.5 deg.
 
+With ``satellites=True`` the PCK and the SPK also carry two satellites of
+Jupiter on circular orbits in its equatorial plane (at the J2000 pole),
+sampled every :data:`SATELLITE_STEP_S` seconds relative to Jupiter:
+
+- Io (501), with its IAU radii, pole and prime meridian (and their
+  nutation-precession terms), a = 421,700 km, period 1.769 d;
+- Amalthea (505), a = 181,366 km, period 0.498 d, with no ``RADII``, so
+  that ``Body.create_other_body`` falls back to a ``BasicBody``.
+
+The Sun, Earth and Jupiter segments are the same words either way, and the
+default files are byte for byte those written without the flag.
+
 The constants are public IAU/NAIF values; nothing is downloaded. These
 kernels are not real ephemerides: they exist so that the geometry code
 runs on a known scene without network access.
@@ -42,6 +54,13 @@ OBLIQUITY_DEG = 23.4392911  # J2000 mean obliquity of the ecliptic
 #: Hermite window (knot count) written into the type 13 segments
 HERMITE_WINDOW = 4
 STEP_S = 3600.0
+#: Sampling step of the satellite segments: Io moves 0.025 rad a step, so
+#: the Hermite window interpolates its orbit to ~1e-12 km
+SATELLITE_STEP_S = 600.0
+
+#: Circular satellite orbits about Jupiter: NAIF ID -> (radius [km],
+#: period [days], argument of latitude on 2005-01-01T00:00 TDB [deg])
+SATELLITE_ORBITS = {501: (421_700.0, 1.769, 40.0), 505: (181_366.0, 0.498, 200.0)}
 
 _LEAP_SECONDS = (
     (10, '1972-JAN-1'), (11, '1972-JUL-1'), (12, '1973-JAN-1'),
@@ -102,6 +121,22 @@ BODY599_NUT_PREC_RA = ( 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0
     0.000117 0.000938 0.001432 0.000030 0.002150 )
 BODY599_NUT_PREC_DEC = ( 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0
     0.000050 0.000404 0.000617 -0.000013 0.000926 )
+
+\\begintext
+"""
+
+_SATELLITE_PCK_TEXT = """
+Io (IAU 2009); Amalthea has no RADII here (a point source).
+
+\\begindata
+
+BODY501_RADII = ( 1829.4 1819.4 1815.7 )
+BODY501_POLE_RA = ( 268.05 -0.009 0.0 )
+BODY501_POLE_DEC = ( 64.50 0.003 0.0 )
+BODY501_PM = ( 200.39 203.4889538 0.0 )
+BODY501_NUT_PREC_RA = ( 0.0 0.0 0.094 0.024 )
+BODY501_NUT_PREC_DEC = ( 0.0 0.0 0.040 0.011 )
+BODY501_NUT_PREC_PM = ( 0.0 0.0 -0.085 -0.022 )
 
 \\begintext
 """
@@ -171,6 +206,30 @@ def synthetic_states(t: np.ndarray, seed: int = 0) -> dict[int, np.ndarray]:
     return {10: sun, 399: sun + earth, 599: sun + jupiter}
 
 
+def satellite_states(t: np.ndarray) -> dict[int, np.ndarray]:
+    """
+    J2000 states ``{naif_id: (n, 6)}`` of the synthetic satellites relative
+    to Jupiter at times ``t`` (seconds past J2000): circles in the plane
+    normal to Jupiter's J2000 pole (``BODY599_POLE_RA``/``_DEC`` at T = 0).
+    """
+    t = np.asarray(t, dtype=np.float64)
+    ra, dec = math.radians(268.056595), math.radians(64.495303)
+    pole = np.array([math.cos(dec) * math.cos(ra),
+                     math.cos(dec) * math.sin(ra), math.sin(dec)])
+    node = np.cross([0.0, 0.0, 1.0], pole)
+    node /= np.linalg.norm(node)
+    normal = np.cross(pole, node)
+    t_ref = calendar_to_j2000_seconds(2005, 1, 1)
+    out = {}
+    for body, (a_km, period_days, u0_deg) in SATELLITE_ORBITS.items():
+        n = 2.0 * math.pi / (period_days * 86400.0)
+        u = (math.radians(u0_deg) + n * (t - t_ref))[..., None]
+        pos = a_km * (np.cos(u) * node + np.sin(u) * normal)
+        vel = a_km * n * (-np.sin(u) * node + np.cos(u) * normal)
+        out[body] = np.concatenate([pos, vel], axis=-1)
+    return out
+
+
 def _type13_words(epochs: np.ndarray, states: np.ndarray) -> np.ndarray:
     """Type 13 payload: states, epochs, epoch directory, window, count."""
     n = epochs.size
@@ -225,10 +284,18 @@ def _daf_bytes(segments: list[tuple]) -> bytes:
     return bytes(record) + summary.tobytes() + bytes(names) + data.tobytes()
 
 
-def write_synthetic_kernels(dirpath: str | os.PathLike, seed: int = 0) -> list[str]:
+def _epochs(step: float) -> np.ndarray:
+    start, end = coverage()
+    return start + step * np.arange(int(round((end - start) / step)) + 1)
+
+
+def write_synthetic_kernels(
+    dirpath: str | os.PathLike, seed: int = 0, satellites: bool = False,
+) -> list[str]:
     """
     Write the synthetic LSK, PCK and SPK into ``dirpath`` (created if
-    missing) and return their paths.
+    missing) and return their paths; ``satellites`` adds Io and Amalthea
+    (see the module's docstring).
     """
     dirpath = os.fspath(dirpath)
     os.makedirs(dirpath, exist_ok=True)
@@ -240,16 +307,22 @@ def write_synthetic_kernels(dirpath: str | os.PathLike, seed: int = 0) -> list[s
 
     pck = os.path.join(dirpath, 'synthetic.tpc')
     with open(pck, 'w', encoding='ascii') as f:
-        f.write(_PCK_TEXT)
+        f.write(_PCK_TEXT + (_SATELLITE_PCK_TEXT if satellites else ''))
 
-    start, end = coverage()
-    epochs = start + STEP_S * np.arange(int(round((end - start) / STEP_S)) + 1)
+    epochs = _epochs(STEP_S)
     states = synthetic_states(epochs, seed)
     segments = [
         (body, 0, 1, 13, float(epochs[0]), float(epochs[-1]),
          f'SYNTHETIC {body}', _type13_words(epochs, states[body]))
         for body in (10, 399, 599)
     ]
+    if satellites:
+        epochs = _epochs(SATELLITE_STEP_S)
+        for body, moon in satellite_states(epochs).items():
+            segments.append(
+                (body, 599, 1, 13, float(epochs[0]), float(epochs[-1]),
+                 f'SYNTHETIC {body}', _type13_words(epochs, moon))
+            )
     spk = os.path.join(dirpath, 'synthetic.bsp')
     with open(spk, 'wb') as f:
         f.write(_daf_bytes(segments))

@@ -602,8 +602,7 @@ def test_getters_copy_each_plane_once(bodies):
 # ---------------------------------------------------------------------------
 
 #: The JAX package's exports whose modules are not ported yet (ROADMAP)
-NOT_PORTED = {'run_gui', 'gui', 'kernel_downloader', 'WireframeKwargs',
-              'WireframeComponent', 'DEFAULT_WIREFRAME_FORMATTING'}
+NOT_PORTED = {'run_gui', 'gui', 'kernel_downloader'}
 
 
 def test_exports_match_jax():
@@ -618,8 +617,11 @@ def test_exports_match_jax():
     with pytest.raises(AttributeError):
         tpm.gui
     assert tpm.BodyBase is tpm.base.BodyBase
-    assert tpm.AngularCoordinateKwargs.__optional_keys__ == \
-        jpm.AngularCoordinateKwargs.__optional_keys__
+    for name in ('AngularCoordinateKwargs', 'WireframeKwargs',
+                 'LonLatGridKwargs'):
+        assert getattr(tpm, name).__optional_keys__ == \
+            getattr(jpm, name).__optional_keys__, name
+    assert tpm.WireframeComponent == jpm.WireframeComponent
     paths = ['b/naif0012.tls', 'a/pck00010.tpc', 'a/de430.bsp']
     assert tpm.sort_kernel_paths(paths) == jpm.sort_kernel_paths(paths)
     assert tpm.CITATION_STRING and tpm.CITATION_BIBTEX.startswith('@')

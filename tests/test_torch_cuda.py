@@ -537,6 +537,65 @@ def test_map_spline_searches_knots_in_or_out_of_shared_memory(device, n_ty):
 
 
 # ---------------------------------------------------------------------------
+# The limb and terminator curves (the wireframe's geometry)
+# ---------------------------------------------------------------------------
+
+#: Points of a bulk curve (its (n, 3) tensors exceed _device.BULK_ELEMENTS)
+BULK_CURVE = 8192
+CURVE_TERMINATOR = dict(only_visible=True, close_loop=True, alt=0.0,
+                        method='UMBRAL/TANGENT/ELLIPSOID',
+                        corloc='ELLIPSOID TERMINATOR')
+
+
+@pytest.mark.parametrize('curve', ['limb', 'terminator'])
+def test_bulk_curves_run_on_card_and_match_cpu_body(kernel_path, device,
+                                                    curve):
+    """An 8192-point limb or terminator of a card body runs on the card
+    and holds to a CPU body's: body-fixed points within 1e-6 km, RA/Dec
+    within the card-vs-CPU angle bar, NaN masks as the CPU tests'."""
+    card, cpu = _plane_bodies(device, *PLANES_FRAME)
+    if curve == 'limb':
+        got = card._limb_targvec(npts=BULK_CURVE)
+        ref = cpu._limb_targvec(npts=BULK_CURVE)
+    else:
+        got = card._terminator_targvec(npts=BULK_CURVE, **CURVE_TERMINATOR)
+        ref = cpu._terminator_targvec(npts=BULK_CURVE, **CURVE_TERMINATOR)
+    assert got.device.type == 'cuda' and ref.device.type == 'cpu'
+    got, ref = got.cpu().numpy(), ref.numpy()
+    for axis in range(3):
+        report = compare.compare_curve(got[:, axis], ref[:, axis], 1e-6)
+        assert report['ok'], report
+    method = f'{curve}_radec'
+    for g, r, period in zip(getattr(card, method)(npts=BULK_CURVE),
+                            getattr(cpu, method)(npts=BULK_CURVE),
+                            (360.0, None)):
+        report = compare.compare_curve(g, r, compare.F64_CARD_ANGLE,
+                                       period=period)
+        assert report['ok'], report
+
+
+def test_small_curves_and_artists_run_on_the_host(kernel_path, device):
+    """A 360-point curve (and so the whole wireframe) of a card body runs
+    on CPU tensors: the same words as a CPU body's."""
+    from planetmapper_tpu_torch import _body_plotting
+
+    card, cpu = _plane_bodies(device, *PLANES_FRAME)
+    assert card._limb_targvec().device.type == 'cpu'
+    for got, ref in zip(card.terminator_xy(), cpu.terminator_xy()):
+        np.testing.assert_array_equal(got, ref)
+    kw = dict(grid_interval=30, grid_lat_limit=90, planetocentric_grid=False,
+              indicate_equator=False, indicate_prime_meridian=False,
+              label_poles=True)
+    got = list(_body_plotting._wireframe_artists(card, **kw))
+    ref = list(_body_plotting._wireframe_artists(cpu, **kw))
+    assert [(s.kind, s.component) for s in got] == \
+        [(s.kind, s.component) for s in ref]
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.ras, r.ras)
+        np.testing.assert_array_equal(g.decs, r.decs)
+
+
+# ---------------------------------------------------------------------------
 # The per-plane getters (get_backplane_img / get_backplane_map)
 # ---------------------------------------------------------------------------
 

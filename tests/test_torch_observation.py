@@ -654,17 +654,73 @@ def test_append_to_header_matches_jax(observations):
                                        **HEADER_BARS)
 
 
-def test_wireframe_and_gui_raise_before_any_file(navigated, tmp_path):
+def test_gui_raises_before_any_file(navigated, tmp_path):
     _, t_obs = navigated
-    path = tmp_path / 'sub' / 'never.fits'
-    for save in (t_obs.save_observation, t_obs.save_mapped_observation):
-        with pytest.raises(NotImplementedError, match='Queue 1 item 1'):
-            save(path)
-        with pytest.raises(NotImplementedError, match='Queue 1 item 1'):
-            save(path, include_wireframe=True, print_info=False)
-    assert not (tmp_path / 'sub').exists()
     with pytest.raises(NotImplementedError, match='Queue 1 item 7'):
         t_obs.run_gui()
+    assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize('mapped', [False, True])
+def test_default_saves_write_the_wireframe(navigated, tmp_path, mapped):
+    """``include_wireframe`` left at its default: both packages write the
+    WIREFRAME HDU last, its raster equal byte for byte, its header card by
+    card."""
+    paths = {}
+    for name, obs in zip(('jax', 'port'), navigated):
+        paths[name] = str(tmp_path / f'{name}.fits')
+        save = obs.save_mapped_observation if mapped else obs.save_observation
+        save(paths[name], print_info=False, backplanes_to_save=['EMISSION'],
+             **(MAP if mapped else {}))
+    with t_fits.open(paths['port']) as got, j_fits.open(paths['jax']) as ref:
+        assert [h.name for h in got] == [h.name for h in ref] == [
+            '', 'EMISSION', 'WIREFRAME']
+        wf, wf_ref = got['WIREFRAME'], ref['WIREFRAME']
+        assert wf.data.dtype == wf_ref.data.dtype == np.uint8
+        np.testing.assert_array_equal(wf.data, wf_ref.data)
+        assert (wf.data < 128).any()
+        problems = compare.compare_headers(wf.header, wf_ref.header,
+                                           **HEADER_BARS)
+        assert not problems, problems
+        assert wf.header['ABOUT'] == ('Wireframe map overlay' if mapped
+                                      else 'Wireframe image overlay')
+
+
+@pytest.mark.parametrize('mapped', [False, True])
+def test_default_saves_without_matplotlib_raise_before_any_file(
+        navigated, tmp_path, monkeypatch, mapped):
+    """Without matplotlib the default save raises its ImportError and
+    writes nothing; ``include_wireframe=False`` still saves."""
+    import sys
+
+    for name in [n for n in sys.modules if n.split('.')[0] == 'matplotlib']:
+        monkeypatch.setitem(sys.modules, name, None)
+    monkeypatch.setitem(sys.modules, 'matplotlib', None)
+    _, t_obs = navigated
+    save = t_obs.save_mapped_observation if mapped else t_obs.save_observation
+    kw = dict(print_info=False, backplanes_to_save=['EMISSION'],
+              **(MAP if mapped else {}))
+    with pytest.raises(ImportError):
+        save(tmp_path / 'sub' / 'never.fits', **kw)
+    assert not (tmp_path / 'sub').exists()
+    save(tmp_path / 'plain.fits', include_wireframe=False, **kw)
+    with t_fits.open(tmp_path / 'plain.fits') as hdul:
+        assert [h.name for h in hdul] == ['', 'EMISSION']
+
+
+def test_observation_copies_carry_rings_bodies_and_coordinates(navigated):
+    _, t_obs = navigated
+    obs = t_obs.copy()
+    obs.ring_radii.add(120000.0)
+    obs.coordinates_of_interest_lonlat.append((1.0, 2.0))
+    obs.coordinates_of_interest_radec.append((3.0, 4.0))
+    obs.other_bodies_of_interest.append(obs.create_other_body('SUN'))
+    for new in (obs.copy(), obs.to_body_xy(), obs.to_body()):
+        assert new.ring_radii == {120000.0}
+        assert new.coordinates_of_interest_lonlat == [(1.0, 2.0)]
+        assert new.coordinates_of_interest_radec == [(3.0, 4.0)]
+        assert [o.target for o in new.other_bodies_of_interest] == ['SUN']
+        assert new.other_bodies_of_interest is not obs.other_bodies_of_interest
 
 
 @pytest.mark.parametrize('mapped', [False, True])

@@ -71,19 +71,37 @@ def kernel_files(tmp_path_factory):
         _restore_kernel_path(pkg, previous[pkg])
 
 
-def test_import_pulls_in_no_jax_or_matplotlib():
+@pytest.mark.parametrize('blocked', [False, True])
+def test_import_pulls_in_no_jax_or_matplotlib(blocked):
+    """Importing every module (the plotting ones too) loads no JAX, no
+    matplotlib and no PIL; with matplotlib made unimportable the package
+    still imports, and a CPU BodyXY still builds and moves its disc (its
+    matplotlib transforms are made on first use only)."""
     code = (
-        'import sys, planetmapper_tpu_torch as pt\n'
+        ('sys_block = __import__("sys")\n'
+         'sys_block.modules["matplotlib"] = None\n' if blocked else '')
+        + 'import sys, tempfile, planetmapper_tpu_torch as pt\n'
         'from planetmapper_tpu_torch.ops import (cuda_build, ds, ds64,\n'
         '    dsk, dsk_kernel, fastmath, interp, interp_device,\n'
         '    map_smooth_kernel, map_spline_kernel, pchip_device,\n'
         '    photometry, projections)\n'
         'from planetmapper_tpu_torch import observation, utils\n'
+        'from planetmapper_tpu_torch import _body_plotting, _body_xy_plotting\n'
         'from planetmapper_tpu_torch.io import fits, wcs\n'
         'exports = [getattr(pt, name) for name in pt.__all__]\n'
         'lazy = [getattr(pt, name) for name in sorted(pt._SUBMODULES)]\n'
+        'assert not pt.DEFAULT_WIREFRAME_FORMATTING._materialised\n'
+        'from planetmapper_tpu_torch.testing.synthetic_kernels import '
+        'write_synthetic_kernels\n'
+        'with tempfile.TemporaryDirectory() as d:\n'
+        '    write_synthetic_kernels(d)\n'
+        '    pt.set_kernel_path(d)\n'
+        '    b = pt.BodyXY("Jupiter", "2005-01-01", sz=16, device="cpu")\n'
+        '    b.set_disc_params(8, 8, 5, 10)\n'
+        '    b.limb_xy(npts=12)\n'
+        '    pt.clear_kernels()\n'
         'bad = [m for m in ("jax", "matplotlib", "PIL", "planetmapper_tpu") '
-        'if m in sys.modules]\n'
+        'if sys.modules.get(m) is not None]\n'
         'print(bad)\n'
         'sys.exit(1 if bad else 0)\n'
     )
