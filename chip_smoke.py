@@ -4,7 +4,8 @@ Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
     python3 chip_smoke.py
 
 Builds the port's five kernel libraries (``planetmapper_tpu_torch/csrc/
-*.cu``) with nvcc, one process each, all at once. Then, on Jupiter seen
+*.cu``) with nvcc, one process each, all at once, and prints each kernel
+instance's registers and spills. Then, on Jupiter seen
 from the Earth on 2005-01-01 (synthetic SPICE kernels written at run time):
 
 - backplanes: drives ``pipeline.compute_backplanes`` on a 2048x2048 BodyXY
@@ -12,6 +13,21 @@ from the Earth on 2005-01-01 (synthetic SPICE kernels written at run time):
   on the card: at the full frame, and at a ragged, a row-offset, an
   un-gated, a triaxial and a plane-subset case; times both at 2048x2048
   on the card, and the main path's call by the host clock.
+- batch: ``pipeline.compute_backplanes_batch`` of 8 disc sets at
+  2048x2048 (frames this large take one single-frame launch each), each
+  frame bit for bit against a single call; the batched kernel forced on
+  the same scenes, bit for bit with the single-frame launches and against
+  its plain version; both routes by device time and the entry point
+  against 8 synchronised single calls, in turns.
+- timeseries: ``parallel.backplane_time_series`` of bench.py:343's 1000
+  epochs at 50x50 (one launch of the batched kernel), the call split into
+  the anchors, the packing, the kernel and the copy out; 3 epochs against
+  per-body calls; the 1000 scenes with all 26 planes against the plain
+  version and timed beside the bound; 8 epochs at 2048x2048.
+- sharded: a 4-entry mesh of the one card, ``sharded_backplanes`` at
+  2048x2048 and ``sharded_map_img`` from the 1024x1024 frame, bit for bit
+  with the unsharded calls; fit: ``fit_disc_gradient`` on the
+  1024x1024 8-frame observation cube against its disc.
 - map: computes each body's x/y maps on the card (timed, its device
   checked, held against a CPU body's) and drives ``BodyXY.map_img`` onto
   the 720x1440 0.25-degree map of the JAX package's map benchmark
@@ -247,6 +263,10 @@ def build_phase() -> None:
                 op = re.search(r'(dsk_pairs|dsk_atan2)(?:ILi(\d)E)?', line)
                 entry = f'<kx={degrees[1]}, ky={degrees[2]}> ' if degrees \
                     else ''
+                if 'backplanes26_batch_kernel' in line:
+                    entry = 'batched '
+                elif 'backplanes26_kernelILb1E' in line:
+                    entry = 'frame of a batch '
                 if op:
                     entry = (f'{op[1]}<{dskk.OPS[int(op[2])]}> ' if op[2]
                              else f'{op[1]} ')
@@ -256,10 +276,12 @@ def build_phase() -> None:
                 log(f'[build] {library.name} {entry}ptxas: '
                     f'{line.split(":", 1)[-1].strip()}; {spills}')
     occ = bk.occupancy()
-    log(f'[build] backplanes26 on {torch.cuda.get_device_name(0)}: '
-        f'{occ["registers"]} registers, {occ["local_bytes"]} bytes of local '
-        f'memory per thread, {occ["blocks_per_sm"]} resident blocks of 256 '
-        'threads per SM')
+    for name, kernel in (('backplanes26', occ),
+                         ('backplanes26_batch', bk.occupancy(batch=True))):
+        log(f'[build] {name} on {torch.cuda.get_device_name(0)}: '
+            f'{kernel["registers"]} registers, {kernel["local_bytes"]} bytes '
+            f'of local memory per thread, {kernel["blocks_per_sm"]} resident '
+            'blocks of 256 threads per SM')
     smooth = msk.occupancy()
     log(f'[build] map_smooth: {smooth["registers"]} registers, '
         f'{smooth["local_bytes"]} bytes of local memory per thread, '
@@ -295,9 +317,9 @@ def main_path_phase(device, size=SIZE, disc=DISC):
     args = device_inputs(body)
     log(f'[scene] BodyXY + anchors {time.perf_counter() - t0:.2f} s on '
         f'{body.device}; Jupiter at {body.target_distance / AU_KM:.3f} AU')
-    _, use_kernel = pipeline.select_pipeline_impl(body, size, size)
+    _, use_pallas = pipeline.select_pipeline_impl(body, size, size)
     log(f'[main] selected implementation: '
-        f'{"CUDA kernel" if use_kernel else "plain graph"}')
+        f'{"CUDA kernel" if use_pallas else "plain graph"}')
 
     if device.type == 'cuda':
         torch.cuda.synchronize()
@@ -467,6 +489,383 @@ def timing_phase(body, args, card: str) -> dict[str, float]:
     log(f'[time] {card} | one blocked compute_backplanes (planes to numpy) '
         f'{(time.perf_counter() - t0) * 1e3:.2f} ms')
     return {name: float(np.mean(t)) for name, t in device_ms.items()}
+
+
+# ---------------------------------------------------------------------------
+# [batch], [timeseries], [sharded], [fit]: the batch entry and parallel/
+# ---------------------------------------------------------------------------
+
+#: The disc sweep of [batch]: 8 disc sets about the main path's disc
+BATCH_FRAMES = 8
+#: bench.py:343's time series: 1000 epochs 60 s apart of a 50x50 frame
+SERIES = dict(frames=1000, size=50, step_s=60.0, names=('EMISSION',
+                                                        'LON-GRAPHIC'))
+#: [fit]: the 1024^2 8-frame cube's disc, and the start of the fit
+FIT_START = (+3.0, -2.5, 1.03)  # dx0, dy0 [px], r0 factor
+FIT_STEPS = 150
+#: [sharded]: the map source frame of sharded_map_img (with its NaN block)
+SHARDED_MAP_SIZE = 1024
+
+
+def sweep_discs(disc, n=BATCH_FRAMES) -> np.ndarray:
+    """``n`` disc sets about ``disc``: shifted, scaled and rotated."""
+    step = (np.arange(n, dtype=np.float64) - (n - 1) / 2) / 100.0
+    return np.stack([disc[0] + 2.0 * disc[2] * step,
+                     disc[1] - disc[2] * step, disc[2] * (1.0 + step),
+                     disc[3] + 500.0 * step], axis=1)
+
+
+def affines(body, discs) -> np.ndarray:
+    """The xy2angular matrices of ``discs`` on ``body`` (its disc is
+    restored after)."""
+    keep = body.get_disc_params()
+    out = []
+    for disc in discs:
+        body.set_disc_params(*disc)
+        out.append(np.array(body._get_xy2angular_matrix()))
+    body.set_disc_params(*keep)
+    return np.stack(out)
+
+
+def equal_planes(got: dict, ref: dict) -> list[str]:
+    """The names of the planes of ``got`` that differ from ``ref``'s in any
+    bit (NaN equal to NaN)."""
+    return [k for k in ref
+            if not torch.equal(torch.isnan(got[k]), torch.isnan(ref[k]))
+            or not torch.equal(torch.nan_to_num(got[k]),
+                               torch.nan_to_num(ref[k]))]
+
+
+def batch_phase(body, card: str) -> None:
+    """
+    [batch]: compute_backplanes_batch of the disc sweep at 2048x2048, all
+    26 planes (frames this large take one single-frame launch each, in one
+    call); each frame bit for bit against a single call; the batched
+    kernel forced on the same scenes, bit for bit with the single-frame
+    launches, frame 0 against the plain version; both routes by device time
+    and the entry point against 8 synchronised single calls by host clock,
+    in turns; the call's peak memory.
+    """
+    discs = sweep_discs(body.get_disc_params())
+    xys = affines(body, discs)
+    keep = body.get_disc_params()
+    device = body.device
+    frame_route = SIZE * SIZE >= bk.FRAME_LAUNCH_PIXELS
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bk.reset_batch_launch_count()
+    bk.reset_launch_count()
+    t0 = time.perf_counter()
+    out = pipeline.compute_backplanes_batch(body, xys, discs, as_numpy=False)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = (bk.launch_count(), bk.batch_launch_count())
+    peak = (torch.cuda.max_memory_allocated() - live) / 2**20
+    if launches != ((BATCH_FRAMES, 0) if frame_route else (0, 1)):
+        raise SmokeFailure(f'compute_backplanes_batch made {launches} '
+                           '(single-frame, batched) launches')
+    if set(out) != set(bk.PLANE_ORDER) or any(
+            v.shape != (BATCH_FRAMES, SIZE, SIZE) for v in out.values()):
+        raise SmokeFailure('compute_backplanes_batch returned the wrong '
+                           'planes or shapes')
+    log(f'[batch] compute_backplanes_batch of {BATCH_FRAMES} discs at '
+        f'{SIZE}x{SIZE}: (single-frame, batched) launches {launches}, '
+        f'first call {first_ms:.1f} ms, peak {peak:.1f} MiB above what was '
+        'allocated before')
+    for i, disc in enumerate(discs):
+        body.set_disc_params(*disc)
+        single = pipeline.compute_backplanes(body, as_numpy=False)
+        bad = equal_planes({k: v[i] for k, v in out.items()}, single)
+        if bad:
+            raise SmokeFailure(f'batch frame {i} differs from a single call '
+                               f'in {bad}')
+    log(f'[batch] each of the {BATCH_FRAMES} frames equals its single '
+        'compute_backplanes call bit for bit (26 planes)')
+
+    # the batched kernel on the same scenes, against the single-frame ones
+    impl, _ = pipeline.select_pipeline_impl(body, SIZE, SIZE)
+    anchors = body._get_pipeline_anchors()
+    radii = np.asarray(body.radii, dtype=np.float64)
+    scenes = bk.pack_scenes(xys, discs, radii, anchors)
+    scenes_dev = torch.from_numpy(scenes).to(device)
+    batched = impl.run_batch(scenes_dev, SIZE, SIZE, device,
+                             frame_launches=False)
+    bad = equal_planes(batched, out)
+    if bad:
+        raise SmokeFailure(f'the batched kernel differs from the '
+                           f'single-frame launches in {bad}')
+    log(f'[batch] the batched kernel on the {BATCH_FRAMES} scenes equals the '
+        'single-frame launches bit for bit (26 planes)')
+    body.set_disc_params(*discs[0])
+    args0 = device_inputs(body)
+    plain = pipeline.fused_backplanes_fn(**FLAGS)
+    check_against_plain('batch frame 0', to_numpy(
+        {k: v[0] for k, v in batched.items()}),
+        to_numpy(plain(SIZE, SIZE, *args0)), discs[0])
+    del out, batched
+
+    def plain_frames():
+        for disc, a in zip(discs, xys):
+            plain(SIZE, SIZE, f64(a, device), f64(disc, device),
+                  f64(radii, device),
+                  pipeline.anchors_from_numpy(anchors, device))
+
+    device_ms = in_turns({
+        'batched kernel': (lambda: impl.run_batch(
+            scenes_dev, SIZE, SIZE, device, frame_launches=False), 10),
+        'single-frame launches': (lambda: impl.run_batch(
+            scenes, SIZE, SIZE, device, frame_launches=True), 10),
+        'plain, frame by frame': (plain_frames, 1),
+    }, cuda_time_ms)
+
+    def entry_batch():
+        pipeline.compute_backplanes_batch(body, xys, discs, as_numpy=False)
+
+    def entry_singles():
+        for disc in discs:
+            body.set_disc_params(*disc)
+            pipeline.compute_backplanes(body, as_numpy=False)
+            torch.cuda.synchronize()
+
+    host_ms = in_turns({'compute_backplanes_batch': (entry_batch, 10),
+                        f'{BATCH_FRAMES} synchronised single calls':
+                            (entry_singles, 10)}, host_clock_ms)
+    body.set_disc_params(*keep)
+    per_frame = {k: [t / BATCH_FRAMES for t in v]
+                 for k, v in device_ms.items()}
+    ratio = np.mean(device_ms['batched kernel']) / np.mean(
+        device_ms['single-frame launches'])
+    log(f'[batch] {card} | {BATCH_FRAMES}x{SIZE}x{SIZE} device ms per call '
+        f'(CUDA events, two turns): {json.dumps(device_ms)}; per frame '
+        f'{json.dumps(per_frame)}; batched kernel / single-frame launches '
+        f'{ratio:.4f}')
+    log(f'[batch] {card} | host ms of one synchronised call (median of 10, '
+        f'two turns): {json.dumps(host_ms)}')
+
+
+def timeseries_phase(device, card: str) -> dict:
+    """
+    [timeseries]: bench.py:343's 1000 epochs at 50x50 (EMISSION and
+    LON-GRAPHIC), the call timed as a user makes it and split into the
+    anchors (CPU tensors), the packing, the kernel (device time) and the
+    copy out; 3 epochs held against per-body compute_backplanes; the same
+    1000 scenes with all 26 planes (the kernels line: every 100th frame
+    against the plain version, times beside the bound); 8 epochs at
+    2048x2048 with all planes, frame 0 against the body's own call.
+    """
+    from planetmapper_tpu_torch.parallel import (
+        backplane_time_series,
+        timeseries,
+    )
+
+    size, n = SERIES['size'], SERIES['frames']
+    names = SERIES['names']
+    body = pt.BodyXY('Jupiter', observer='EARTH', utc=UTC, sz=size,
+                     device=device)
+    body.set_disc_params(size / 2, size / 2, size * 0.4, 0.0)
+    ets = body.et + SERIES['step_s'] * np.arange(n)
+    backplane_time_series(body, ets, names=names, as_numpy=False)  # warm
+    torch.cuda.synchronize()
+    bk.reset_batch_launch_count()
+    t0 = time.perf_counter()
+    cube = backplane_time_series(body, ets + 30.0, names=names,
+                                 as_numpy=False)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    launches = bk.batch_launch_count()
+    t0 = time.perf_counter()
+    host = {k: v.cpu().numpy() for k, v in cube.items()}
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    if launches != 1:
+        raise SmokeFailure(f'the time series made {launches} batched '
+                           'launches, not one')
+    if set(host) != set(names) or any(
+            v.shape != (n, size, size) for v in host.values()):
+        raise SmokeFailure('the time series has the wrong planes or shapes')
+    if not all(np.isfinite(v).any(axis=(1, 2)).all() for v in host.values()):
+        raise SmokeFailure('a time-series frame has no finite value')
+
+    # its parts, each timed alone (host clock; the kernel by CUDA events)
+    t0 = time.perf_counter()
+    anchors, xys = timeseries._batched_pipeline_inputs(body, ets + 30.0)
+    anchors_ms = (time.perf_counter() - t0) * 1e3
+    discs = np.broadcast_to(np.asarray(body.get_disc_params()), (n, 4))
+    radii = np.asarray(body.radii, dtype=np.float64)
+    t0 = time.perf_counter()
+    scenes = bk.pack_scenes(xys, discs, radii, anchors)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    impl, _ = pipeline.select_pipeline_impl(body, size, size,
+                                            planes=tuple(names))
+    scenes_dev = torch.from_numpy(scenes).to(device)
+    kernel_ms = in_turns({'kernel': (lambda: impl.run_batch(
+        scenes_dev, size, size, device), 20)}, cuda_time_ms)['kernel']
+    log(f'[timeseries] {card} | {n} epochs at {size}x{size} ({names}): the '
+        f'call {call_ms:.1f} ms ({call_ms / n * 1e3:.2f} us a frame; '
+        f'{launches} launch), the copy to numpy {copy_ms:.2f} ms; alone: '
+        f'anchors and affines {anchors_ms:.1f} ms on '
+        f'{pt._device.scene_device(n, device)} ({anchors_ms / n * 1e3:.2f} '
+        f'us a frame), pack_scenes {pack_ms:.2f} ms, kernel {kernel_ms} ms '
+        '(CUDA events, two turns)')
+
+    # 3 epochs against per-body compute_backplanes
+    for i in range(3):
+        et = float(ets[i] + 30.0)
+        single = timeseries._body_at_time(body, et)
+        ref = pipeline.compute_backplanes(single, names=list(names))
+        got = {k: host[k][i] for k in names}
+        check_against_plain(f'time series epoch {i} vs its own body', got,
+                            ref, body.get_disc_params())
+
+    # the kernels line: the 1000 scenes with all 26 planes
+    full, _ = pipeline.select_pipeline_impl(body, size, size)
+    every = full.run_batch(scenes_dev, size, size, device)
+    plain = pipeline.fused_backplanes_fn(**FLAGS)
+    d_radii = f64(radii, device)
+    d_disc = f64(np.array(discs[0]), device)
+
+    def plain_frame(i):
+        return plain(size, size, f64(xys[i], device), d_disc, d_radii,
+                     pipeline.anchors_from_numpy(
+                         {k: v[i] for k, v in anchors.items()}, device))
+
+    errors = []
+    for i in range(0, n, 100):
+        reports = check_against_plain(
+            f'time series frame {i}, 26 planes',
+            to_numpy({k: v[i] for k, v in every.items()}),
+            to_numpy(plain_frame(i)), discs[i])
+        errors.append(max(reports[k]['max_abs_err'] for k in ANGLE_PLANES
+                          if np.isfinite(reports[k]['max_abs_err'])))
+    n_discs = torch.isfinite(every['EMISSION']).sum(dim=(1, 2)).tolist()
+    del every
+    full_ms = in_turns({
+        'kernel': (lambda: full.run_batch(scenes_dev, size, size, device),
+                   20),
+        'plain': (lambda: [plain_frame(i) for i in range(n)], 1),
+    }, cuda_time_ms)
+    bound = bounds.backplane_batch_bound(size, size, n_discs)
+    log(f'[timeseries] {card} | backplanes26_batch, {n} frames of '
+        f'{size}x{size}, 26 planes: device ms per call (CUDA events, two '
+        f'turns) {json.dumps(full_ms)}; bound {bound["ms"]:.4f} ms '
+        f'({bound["bound_by"]}: {bound["bytes"]} bytes, {bound["f64_ops"]} '
+        f'FP64 + {bound["f32_ops"]} FP32 operations, {sum(n_discs)} on-disc '
+        f'pixels); kernel at {bound["ms"] / np.mean(full_ms["kernel"]):.1%} '
+        'of it')
+
+    # 8 epochs at 2048^2, all planes
+    big = pt.BodyXY('Jupiter', observer='EARTH', utc=UTC, sz=SIZE,
+                    device=device)
+    big.set_disc_params(*DISC)
+    big_ets = big.et + SERIES['step_s'] * np.arange(BATCH_FRAMES)
+    backplane_time_series(big, big_ets, as_numpy=False)  # warm
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bk.reset_batch_launch_count()
+    bk.reset_launch_count()
+    t0 = time.perf_counter()
+    cube = backplane_time_series(big, big_ets, as_numpy=False)
+    torch.cuda.synchronize()
+    big_ms = (time.perf_counter() - t0) * 1e3
+    big_launches = (bk.launch_count(), bk.batch_launch_count())
+    peak = (torch.cuda.max_memory_allocated() - live) / 2**20
+    if big_launches != (BATCH_FRAMES, 0) or set(cube) != set(bk.PLANE_ORDER):
+        raise SmokeFailure('the 2048^2 time series is not one single-frame '
+                           'launch a frame of 26 planes')
+    check_against_plain(f'time series {SIZE}x{SIZE} epoch 0 vs its body',
+                        to_numpy({k: v[0] for k, v in cube.items()}),
+                        pipeline.compute_backplanes(big), DISC)
+    log(f'[timeseries] {card} | {BATCH_FRAMES} epochs at {SIZE}x{SIZE}, 26 '
+        f'planes: {big_ms:.1f} ms ((single-frame, batched) launches '
+        f'{big_launches}), peak {peak:.1f} MiB')
+    return dict(launches=launches, ms=float(np.mean(full_ms['kernel'])),
+                plain_ms=float(np.mean(full_ms['plain'])), bound=bound,
+                max_abs_err=float(max(errors)))
+
+
+def sharded_phase(device, card: str) -> None:
+    """
+    [sharded]: a 4-entry mesh of the one card: sharded_backplanes at
+    2048x2048 and sharded_map_img from the 1024x1024 frame onto the
+    720x1440 map ('linear' and 'cubic'), each equal to the unsharded
+    result.
+    """
+    from planetmapper_tpu_torch.parallel import (
+        make_mesh,
+        sharded_backplanes,
+        sharded_map_img,
+    )
+
+    mesh = make_mesh(4, device=device)
+    body = pt.BodyXY('Jupiter', observer='EARTH', utc=UTC, sz=SIZE,
+                     device=device)
+    body.set_disc_params(*DISC)
+    full = pipeline.compute_backplanes(body, as_numpy=False)
+    launches = bk.launch_count()
+    sharded, ms, _ = synchronised(lambda: sharded_backplanes(body, mesh))
+    if bk.launch_count() - launches != 4:
+        raise SmokeFailure('sharded_backplanes did not launch kernel 1 once '
+                           'per mesh entry')
+    bad = equal_planes(sharded, full)
+    if bad or sharded['EMISSION'].device.type != device.type:
+        raise SmokeFailure(f'sharded_backplanes differs from the unsharded '
+                           f'frame in {bad}')
+    log(f'[sharded] {card} | sharded_backplanes on {mesh}: {ms:.2f} ms, 4 '
+        f'launches of {SIZE // 4} rows, equal to compute_backplanes bit for '
+        'bit')
+    size = SHARDED_MAP_SIZE
+    mbody = pt.BodyXY('Jupiter', observer='EARTH', utc=UTC, sz=size,
+                      device=device)
+    mbody.set_disc_params(*MAP_BODIES[size])
+    img = map_images(size, size)[1]
+    for mode in ('linear', 'cubic'):
+        ref = mbody.map_img(img, interpolation=mode, as_numpy=True,
+                            **MAP_KW)
+        got, ms, _ = synchronised(lambda: sharded_map_img(
+            mbody, img, mesh, interpolation=mode, **MAP_KW))
+        if got.shape != MAP_SHAPE or not np.array_equal(
+                got, ref.astype(np.float64), equal_nan=True):
+            raise SmokeFailure(f'sharded_map_img {mode} differs from map_img')
+        log(f'[sharded] {card} | sharded_map_img {mode} from {size}^2 onto '
+            f'{MAP_SHAPE}: {ms:.2f} ms, equal to map_img bit for bit')
+
+
+def fit_phase(device, card: str) -> None:
+    """
+    [fit]: fit_disc_gradient on a card Observation of the [observation]
+    1024x1024 8-frame cube, from a disc off the truth, 150 Adam steps;
+    the time and the recovered disc against the truth.
+    """
+    from planetmapper_tpu_torch.parallel import fit_disc_gradient
+
+    truth = MAP_BODIES[OBS_SIZE]
+    with tempfile.TemporaryDirectory(prefix='fit_') as tmp:
+        path = os.path.join(tmp, 'observation_1024.fits')
+        cube = disc_cube(map_images(OBS_SIZE, OBS_SIZE)[2], truth)
+        write_observation(path, cube, truth, UTC)
+        obs = pt.Observation(path, device=device)
+    dx, dy, scale = FIT_START
+    start = (truth[0] + dx, truth[1] + dy, truth[2] * scale, truth[3])
+    obs.set_disc_params(*start)
+    fitted, ms, peak = synchronised(
+        lambda: fit_disc_gradient(obs, n_steps=FIT_STEPS))
+    # the cube's disc is a circle of radius r0; the render is the body's
+    # ellipse, whose area equals the circle's at r0 / sqrt(rp / re)
+    radii = np.asarray(obs.radii)
+    r0_equal_area = truth[2] / np.sqrt(radii[2] / radii[0])
+    err = [fitted[0] - truth[0], fitted[1] - truth[1],
+           fitted[2] / r0_equal_area - 1.0]
+    log(f'[fit] {card} | fit_disc_gradient, {FIT_STEPS} steps on the '
+        f'{OBS_SIZE}^2 {cube.shape[0]}-frame cube: {ms:.1f} ms '
+        f'({ms / FIT_STEPS:.3f} ms a step), peak {peak:.1f} MiB; from '
+        f'{start[:3]} to ({fitted[0]:.3f}, {fitted[1]:.3f}, {fitted[2]:.3f})'
+        f', truth {truth[:3]} (r0 of the ellipse of the same area '
+        f'{r0_equal_area:.3f}): x0 {err[0]:+.3f} px, y0 {err[1]:+.3f} px, '
+        f'r0 {err[2]:+.4%}')
+    if abs(err[0]) > 1.0 or abs(err[1]) > 1.0 or abs(err[2]) > 0.01 \
+            or obs.get_disc_method() != 'fit_gradient':
+        raise SmokeFailure('fit_disc_gradient did not recover the disc')
 
 
 # ---------------------------------------------------------------------------
@@ -1912,6 +2311,13 @@ def main() -> int:
                 f'{occupancy["blocks_per_sm"]} blocks per SM')
             log(f'[memory] {card} | peak device memory of the main path '
                 f'{peak / 2**20:.1f} MiB')
+            t_par = time.perf_counter()
+            batch_phase(body, card_line())
+            series = timeseries_phase(device, card_line())
+            sharded_phase(device, card_line())
+            fit_phase(device, card_line())
+            log(f'[parallel] the [batch], [timeseries], [sharded] and [fit] '
+                f'phases {time.perf_counter() - t_par:.1f} s')
             t_map = time.perf_counter()
             bodies, images, calls, map_launches, map_errors, map_peak = \
                 map_phase(device)
@@ -1967,11 +2373,16 @@ def main() -> int:
     pchip_t = map_times['150^2 smooth frame: pchip']
     log(f'[done] {time.perf_counter() - t_start:.1f} s; max_abs_err: '
         f'backplanes26 the largest angle error [deg] of the {SIZE}x{SIZE} '
-        'main path, the map kernels the largest value error of every '
-        'map_img call; ms, plain_ms, library_ms, bound_ms: backplanes26 at '
-        f'{SIZE}x{SIZE}, map_spline the 150^2 linear frame, map_smooth '
-        'the 150^2 smooth frame onto the 720x1440 map and pchip_axis its '
-        'two launches (rows, columns; bound: the box to the grid); the map '
+        'main path, backplanes26_batch that of every 100th frame of the '
+        '[timeseries] 1000 scenes, the map kernels the largest value error '
+        'of every map_img call; ms, plain_ms, library_ms, bound_ms: '
+        f'backplanes26 at {SIZE}x{SIZE}, backplanes26_batch the 1000 '
+        f'{SERIES["size"]}x{SERIES["size"]} scenes of [timeseries] with '
+        'all 26 planes (plain_ms the plain graph frame by frame; launches '
+        'those of the 1000-epoch series), map_spline the 150^2 linear '
+        'frame, map_smooth the 150^2 smooth frame onto the 720x1440 map '
+        'and pchip_axis its two launches (rows, columns; bound: the box to '
+        'the grid); the map '
         'kernels\' ms and library_ms with a cold L2, their plain_ms back to '
         'back; dsk_pairs its four ops and dsk_atan2 its one at 2048x2048 '
         'values (ms, plain_ms and library_ms the ops\' added, cold and back '
@@ -1991,6 +2402,19 @@ def main() -> int:
             plain_ms=bp_times['plain'],
             bound_ms=bp_bound['ms'],
             bound_by=bp_bound['bound_by'],
+            library_ms=None,
+        ),
+        dict(
+            name='backplanes26_batch',
+            route='cuda',
+            source='planetmapper_tpu_torch/csrc/backplanes.cu',
+            replaces='planetmapper_tpu/ops/pallas_pipeline.py:262',
+            launches=series['launches'],
+            max_abs_err=series['max_abs_err'],
+            ms=series['ms'],
+            plain_ms=series['plain_ms'],
+            bound_ms=series['bound']['ms'],
+            bound_by=series['bound']['bound_by'],
             library_ms=None,
         ),
         dict(

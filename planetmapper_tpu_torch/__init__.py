@@ -92,7 +92,7 @@ __all__ = [
 _SUBMODULES = {
     'base', 'body', 'basic_body', 'body_xy', 'progress', 'data_loader',
     'common', 'exceptions', 'pipeline', 'core', 'kernels', 'ops', 'testing',
-    'observation', 'utils', 'io',
+    'observation', 'utils', 'io', 'parallel',
 }
 
 

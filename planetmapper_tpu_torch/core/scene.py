@@ -360,8 +360,11 @@ class SceneEngine:
         ):
             out.update(self._subslr_impl(et, radii, out))
         else:
-            out['subsol_targvec'] = torch.full((3,), math.nan, dtype=torch.float64)
-            out['subsol_et'] = torch.full((), math.nan, dtype=torch.float64)
+            out['subsol_targvec'] = torch.full(
+                et.shape + (3,), math.nan, dtype=torch.float64
+            )
+            out['subsol_et'] = torch.full(et.shape, math.nan,
+                                          dtype=torch.float64)
 
         # Derived scene values (east-positive radians here; the Body layer
         # applies the W/E sign)
@@ -413,7 +416,8 @@ class SceneEngine:
             sun_bf = _matvec(rot, sun_vec)
             d_bf = -sun_bf / geom.norm(sun_bf)[..., None]
             s, found = geom.ray_ellipsoid_intercept(sun_bf, d_bf, radii)
-            spoint = torch.where(found, sun_bf + s[..., None] * d_bf, math.nan)
+            spoint = torch.where(found[..., None], sun_bf + s[..., None] * d_bf,
+                                 math.nan)
             # Distance observer -> sub-solar point sets the next epoch
             m_bf2j = self.frame_model.bodyfixed_to_j2000_matrix(tau)
             spoint_ssb = targ_pos_ssb + _matvec(m_bf2j, spoint)

@@ -42,6 +42,28 @@
 //   RADIAL-VELOCITY, which the contract returns in float64: it is stored
 //   as float64 into its own (ny, nx) buffer, so no pass widens it later.
 //
+// - Frames (the batch entry; replaces the lax.map of build_pallas_pipeline
+//   over disc sets at planetmapper_tpu/pipeline.py:1904-1908 and the vmap of
+//   parallel/timeseries.py over epochs). The per-pixel algebra is written
+//   once (backplanes_pixel), templated on where the scene comes from:
+//   backplanes26_kernel reads its scene from its parameters (ParamScene:
+//   constant-bank operands, no register holds a scene value);
+//   backplanes26_batch_kernel takes N scenes as one device array and a
+//   third grid axis of frames (blockIdx.z, strided past the grid's z limit
+//   of 65535), and reads its frame's scene through the read-only cache
+//   (GlobalScene: a broadcast __ldg per use). Output planes are (NP, N, ny,
+//   nx), so each plane of the batch is one contiguous (N, ny, nx) view. A
+//   scene read from memory costs the batched kernel registers that constant
+//   operands do not (80 registers with 64 bytes of spills, against none):
+//   1.26x the single-frame kernel's time per frame at 2048^2 and 1.04x at
+//   512^2, but 0.73x at 256^2 and 0.26 us a frame for 1000 frames of 50^2,
+//   where the launches dominate (scripts/time_backplane_batch.py on an
+//   H100, which also times scenes staged in shared memory, and volatile
+//   reads: none faster). So the wrapper sends frames of 512^2 pixels or
+//   more to backplanes26_launch_frames: N launches of the single-frame
+//   kernel from one C call (its kFrameOfBatch instance), each with its scene
+//   by value, into the same (NP, N, ny, nx) layout.
+//
 // Precision of each plane (bars: tests/test_pallas_core.py:673-696, plus
 // one float32 ulp of the stored value):
 // - float64 throughout: the ray, the light-time loop and ellipsoid
@@ -89,6 +111,7 @@ constexpr int kPlanes = 26;
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 constexpr int kMinBlocksPerSM = 3;
+constexpr int kMaxGridZ = 65535;  // the grid's z limit
 constexpr double kPi = 3.141592653589793;
 constexpr double kDegPerRad = 180.0 / kPi;
 constexpr double kClight = 299792.458;  // km/s
@@ -156,11 +179,24 @@ enum Flags {
 struct Params {
     double s[SCENE_SIZE];
     double row0;
+    unsigned long long plane_stride;  // between planes (frames of a batch)
     int nx, ny;
     int slot[kPlanes];  // output slot of each plane, -1 when not requested
     int n_lt_iters;
     int geodetic_iters;
     int flags;
+};
+
+// The batched launch's parameters: Params without the scene, which is a
+// device array of n_frames scenes.
+struct BatchParams {
+    double row0;
+    int nx, ny;
+    int slot[kPlanes];
+    int n_lt_iters;
+    int geodetic_iters;
+    int flags;
+    int n_frames;
 };
 
 struct V3 {
@@ -189,8 +225,9 @@ __device__ __forceinline__ V3 cross(V3 a, V3 b) {
             a.x * b.y - a.y * b.x};
 }
 
-__device__ __forceinline__ V3 sc3(const Params& p, int i) {
-    return {p.s[i], p.s[i + 1], p.s[i + 2]};
+template <class Sc>
+__device__ __forceinline__ V3 sc3(const Sc& sc, int i) {
+    return {sc[i], sc[i + 1], sc[i + 2]};
 }
 
 // x in (-360, 360) -> [0, 360): exact for atan2 output in degrees.
@@ -218,7 +255,8 @@ struct RayTables {
 
 // The J2000 ray of this thread's pixel: angle addition over the tables,
 // then the obsvec2angular rotation.
-__device__ __forceinline__ V3 ray_j2000(const Params& p,
+template <class Sc>
+__device__ __forceinline__ V3 ray_j2000(const Sc& sc,
                                         const RayTables& tab) {
     const int cx = threadIdx.x, ry = threadIdx.y;
     const double sra = tab.col[0][cx] * tab.row[1][ry]
@@ -230,12 +268,12 @@ __device__ __forceinline__ V3 ray_j2000(const Params& p,
     const double cdec = tab.col[3][cx] * tab.row[3][ry]
                         - tab.col[2][cx] * tab.row[2][ry];
     const V3 vec = {cra * cdec, sra * cdec, sdec};
-    return {vec.x * p.s[S_MANG + 0] + vec.y * p.s[S_MANG + 3]
-                + vec.z * p.s[S_MANG + 6],
-            vec.x * p.s[S_MANG + 1] + vec.y * p.s[S_MANG + 4]
-                + vec.z * p.s[S_MANG + 7],
-            vec.x * p.s[S_MANG + 2] + vec.y * p.s[S_MANG + 5]
-                + vec.z * p.s[S_MANG + 8]};
+    return {vec.x * sc[S_MANG + 0] + vec.y * sc[S_MANG + 3]
+                + vec.z * sc[S_MANG + 6],
+            vec.x * sc[S_MANG + 1] + vec.y * sc[S_MANG + 4]
+                + vec.z * sc[S_MANG + 7],
+            vec.x * sc[S_MANG + 2] + vec.y * sc[S_MANG + 5]
+                + vec.z * sc[S_MANG + 8]};
 }
 
 // Rotation J2000 -> body-fixed at tau0 + dt (second-order Taylor).
@@ -243,13 +281,14 @@ struct Rot {
     double m[9];
 };
 
-__device__ __forceinline__ Rot rot_at(const Params& p, double dt) {
+template <class Sc>
+__device__ __forceinline__ Rot rot_at(const Sc& sc, double dt) {
     const double dt2 = dt * dt;
     Rot r;
 #pragma unroll
     for (int k = 0; k < 9; ++k) {
-        r.m[k] = p.s[S_ROT0 + k] + p.s[S_ROT1 + k] * dt
-                 + p.s[S_ROT2H + k] * dt2;
+        r.m[k] = sc[S_ROT0 + k] + sc[S_ROT1 + k] * dt
+                 + sc[S_ROT2H + k] * dt2;
     }
     return r;
 }
@@ -267,21 +306,23 @@ __device__ __forceinline__ V3 apply_t(const Rot& r, V3 v) {
 }
 
 // Inverse of the time derivative of the rotation at tau0 + dt, applied to v.
-__device__ __forceinline__ V3 rot_dot_transpose_apply(const Params& p,
+template <class Sc>
+__device__ __forceinline__ V3 rot_dot_transpose_apply(const Sc& sc,
                                                       double dt, V3 v) {
     Rot r;
 #pragma unroll
     for (int k = 0; k < 9; ++k) {
-        r.m[k] = p.s[S_ROT1 + k] + 2.0 * p.s[S_ROT2H + k] * dt;
+        r.m[k] = sc[S_ROT1 + k] + 2.0 * sc[S_ROT2H + k] * dt;
     }
     return apply_t(r, v);
 }
 
 // Smallest non-negative ray parameter of the ellipsoid intercept
 // (core/geometry.py ray_ellipsoid_intercept): recentred discriminant.
-__device__ __forceinline__ bool ray_ellipsoid(const Params& p, V3 origin,
+template <class Sc>
+__device__ __forceinline__ bool ray_ellipsoid(const Sc& sc, V3 origin,
                                               V3 dir, double* s_out) {
-    const V3 rinv = sc3(p, S_RINV);
+    const V3 rinv = sc3(sc, S_RINV);
     const V3 o = hadamard(origin, rinv);
     const V3 d = hadamard(dir, rinv);
     const double a_inv = 1.0 / dot(d, d);
@@ -301,100 +342,111 @@ __device__ __forceinline__ bool ray_ellipsoid(const Params& p, V3 origin,
 // (or near) the (re, f) spheroid: Bowring's form from the reduced latitude
 // plus `iters` float64 refinement steps (0 is exact on the spheroid; 4 for
 // triaxial bodies' off-spheroid surface points).
-__device__ __forceinline__ double bowring_lat_deg(const Params& p, double rho,
+template <class Sc>
+__device__ __forceinline__ double bowring_lat_deg(const Sc& sc, double rho,
                                                   double z, int iters) {
-    const double omf = p.s[S_OMF];
+    const double omf = sc[S_OMF];
     const double w = rho * omf;
     const double rb = rsqrt(z * z + w * w);
     double sb = z * rb;
     double cb = w * rb;
-    double num = z + p.s[S_EP2_RE_OMF] * sb * sb * sb;
-    double den = rho - p.s[S_E2_RE] * cb * cb * cb;
+    double num = z + sc[S_EP2_RE_OMF] * sb * sb * sb;
+    double den = rho - sc[S_E2_RE] * cb * cb * cb;
     for (int i = 0; i < iters; ++i) {
         const double rr = rsqrt(num * num + den * den);
         const double sl = num * rr;
         const double cl = den * rr;
-        const double rb2 = rsqrt(p.s[S_OMF2] * sl * sl + cl * cl);
+        const double rb2 = rsqrt(sc[S_OMF2] * sl * sl + cl * cl);
         sb = omf * sl * rb2;
         cb = cl * rb2;
-        num = z + p.s[S_EP2_RE_OMF] * sb * sb * sb;
-        den = rho - p.s[S_E2_RE] * cb * cb * cb;
+        num = z + sc[S_EP2_RE_OMF] * sb * sb * sb;
+        den = rho - sc[S_E2_RE] * cb * cb * cb;
     }
     return atan2_deg(num, den);
 }
 
 // Altitude above the (re, f) spheroid of an exterior point (ring plane):
 // trig-free Bowring, geocentric start, two refinement steps; float64.
-__device__ __forceinline__ double exterior_alt(const Params& p, double rho,
+template <class Sc>
+__device__ __forceinline__ double exterior_alt(const Sc& sc, double rho,
                                                double z) {
-    const double omf = p.s[S_OMF];
+    const double omf = sc[S_OMF];
     const double w = rho * omf;
     const double rb = rsqrt(z * z + w * w);
     double sb = z * rb;
     double cb = w * rb;
     for (int i = 0; i < 2; ++i) {
-        const double num = z + p.s[S_EP2_RE_OMF] * sb * sb * sb;
-        const double den = rho - p.s[S_E2_RE] * cb * cb * cb;
+        const double num = z + sc[S_EP2_RE_OMF] * sb * sb * sb;
+        const double den = rho - sc[S_E2_RE] * cb * cb * cb;
         const double rr = rsqrt(num * num + den * den);
         const double sl = num * rr;
         const double cl = den * rr;
-        const double rb2 = rsqrt(p.s[S_OMF2] * sl * sl + cl * cl);
+        const double rb2 = rsqrt(sc[S_OMF2] * sl * sl + cl * cl);
         sb = omf * sl * rb2;
         cb = cl * rb2;
     }
-    const double num = z + p.s[S_EP2_RE_OMF] * sb * sb * sb;
-    const double den = rho - p.s[S_E2_RE] * cb * cb * cb;
+    const double num = z + sc[S_EP2_RE_OMF] * sb * sb * sb;
+    const double den = rho - sc[S_E2_RE] * cb * cb * cb;
     const double rr = rsqrt(num * num + den * den);
     const double sl = num * rr;
     const double cl = den * rr;
-    const double k = 1.0 - p.s[S_E2] * sl * sl;
-    const double n = p.s[S_RE] * rsqrt(k);
+    const double k = 1.0 - sc[S_E2] * sl * sl;
+    const double n = sc[S_RE] * rsqrt(k);
     return rho * cl + z * sl - n * k;
 }
 
 // Body-fixed vector of an observer-frame point, retargeted in time about
 // the sub-observer point (pipeline.py _obsvec2targvec_lin).
-__device__ __forceinline__ V3 obsvec2targvec(const Params& p, V3 obsvec) {
-    const V3 off = obsvec - sc3(p, S_SP_OBSVEC);
+template <class Sc>
+__device__ __forceinline__ V3 obsvec2targvec(const Sc& sc, V3 obsvec) {
+    const V3 off = obsvec - sc3(sc, S_SP_OBSVEC);
     const double dist_offset =
-        norm(off - sc3(p, S_SP_RAYVEC)) - p.s[S_SP_DIST];
-    const double tau0 = p.s[S_TAU0];
+        norm(off - sc3(sc, S_SP_RAYVEC)) - sc[S_SP_DIST];
+    const double tau0 = sc[S_TAU0];
     const double dt = (tau0 - dist_offset * kInvClight) - tau0;
-    return sc3(p, S_SP_TARGVEC) + apply(rot_at(p, dt), off);
+    return sc3(sc, S_SP_TARGVEC) + apply(rot_at(sc, dt), off);
 }
 
-__global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocksPerSM)
-backplanes26_kernel(float* __restrict__ out, double* __restrict__ rv_out,
-                    const __grid_constant__ Params p) {
-    // ---- the block's ray tables: sin/cos of the column and row parts ---
-    __shared__ RayTables tab;
+// The block's ray tables: sin/cos of the column and row parts of the two
+// ray angles, built by the first 80 threads of the block.
+template <class Sc, class P>
+__device__ __forceinline__ void build_ray_tables(const Sc& sc, const P& p,
+                                                 RayTables& tab) {
     const int t = threadIdx.y * kBlockX + threadIdx.x;
     if (t < 2 * kBlockX) {
         const int c = t % kBlockX;
         const int k = t / kBlockX;  // 0: ra, 1: dec
         const double x = (double)(blockIdx.x * kBlockX + c);
         double sv, cv;
-        sincospi((k ? p.s[S_RAY + 3] : p.s[S_RAY + 0]) * x, &sv, &cv);
+        sincospi((k ? sc[S_RAY + 3] : sc[S_RAY + 0]) * x, &sv, &cv);
         tab.col[2 * k][c] = sv;
         tab.col[2 * k + 1][c] = cv;
     } else if (t < 2 * kBlockX + 2 * kBlockY) {
         const int r = (t - 2 * kBlockX) % kBlockY;
         const int k = (t - 2 * kBlockX) / kBlockY;
         const double y = (double)(blockIdx.y * kBlockY + r) + p.row0;
-        const double arg = k ? p.s[S_RAY + 4] * y + p.s[S_RAY + 5]
-                             : p.s[S_RAY + 1] * y + p.s[S_RAY + 2];
+        const double arg = k ? sc[S_RAY + 4] * y + sc[S_RAY + 5]
+                             : sc[S_RAY + 1] * y + sc[S_RAY + 2];
         double sv, cv;
         sincospi(arg, &sv, &cv);
         tab.row[2 * k][r] = sv;
         tab.row[2 * k + 1][r] = cv;
     }
-    __syncthreads();
+}
 
+// All requested planes of this thread's pixel: the per-pixel algebra of
+// both kernels, written once. `sc` is the frame's scene, `p` the launch's
+// shape, slot table and flags; plane k of the pixel goes to
+// out[k * plane_stride + pix], RADIAL-VELOCITY to rv_out[pix].
+template <class Sc, class P>
+__device__ __forceinline__ void backplanes_pixel(
+        const Sc& sc, const P& p, const RayTables& tab,
+        float* __restrict__ out, double* __restrict__ rv_out,
+        size_t plane_stride) {
     const int col = blockIdx.x * kBlockX + threadIdx.x;
     const int row = blockIdx.y * kBlockY + threadIdx.y;
     if (col >= p.nx || row >= p.ny) return;
 
-    const size_t plane_stride = (size_t)p.nx * (size_t)p.ny;
     const size_t pix = (size_t)row * (size_t)p.nx + (size_t)col;
     auto store = [&](int plane, double v) {
         const int k = p.slot[plane];
@@ -422,30 +474,30 @@ backplanes26_kernel(float* __restrict__ out, double* __restrict__ rv_out,
     }
     bool off = false;
     if (p.flags & F_OPTIMIZE_SPEED) {
-        const double dx = xg - p.s[S_DISC + 0];
-        const double dy = yg - p.s[S_DISC + 1];
-        off = dx * dx + dy * dy > p.s[S_DISC + 2];
+        const double dx = xg - sc[S_DISC + 0];
+        const double dy = yg - sc[S_DISC + 1];
+        off = dx * dx + dy * dy > sc[S_DISC + 2];
     }
     double dist_surface = nan;  // ring occlusion (NaN: nothing hides it)
     bool found = false;
     if (need_chain && !off) {
-        const V3 d = ray_j2000(p, tab);
-        const V3 targ_rel0 = sc3(p, S_TARG_REL0);
-        const V3 targ_vel0 = sc3(p, S_TARG_VEL0);
-        const double target_lt = p.s[S_TARGET_LT];
+        const V3 d = ray_j2000(sc, tab);
+        const V3 targ_rel0 = sc3(sc, S_TARG_REL0);
+        const V3 targ_vel0 = sc3(sc, S_TARG_VEL0);
+        const double target_lt = sc[S_TARGET_LT];
         double lt = target_lt;
         double s_hit = 0.0;
         V3 spoint = {0.0, 0.0, 0.0};
         for (int it = 0; it <= p.n_lt_iters; ++it) {
-            const double dt = p.s[S_ET_TAU0] - lt;
-            const Rot r = rot_at(p, dt);
+            const double dt = sc[S_ET_TAU0] - lt;
+            const Rot r = rot_at(sc, dt);
             const V3 o_bf = -apply(r, targ_rel0 + targ_vel0 * dt);
             const V3 d_bf = apply(r, d);
-            found = ray_ellipsoid(p, o_bf, d_bf, &s_hit);
+            found = ray_ellipsoid(sc, o_bf, d_bf, &s_hit);
             spoint = o_bf + d_bf * s_hit;
             lt = found ? s_hit * kInvClight : target_lt;
         }
-        const double dt = p.s[S_ET_TAU0] - lt;
+        const double dt = sc[S_ET_TAU0] - lt;
 
         if (found) {
             dist_surface = lt * kClight;
@@ -455,7 +507,7 @@ backplanes26_kernel(float* __restrict__ out, double* __restrict__ rv_out,
             store(LON_GRAPHIC, wrap360(lon_sign * lon_e * kDegPerRad));
             if (wanted(LAT_GRAPHIC)) {
                 store(LAT_GRAPHIC,
-                      bowring_lat_deg(p, rho, spoint.z, p.geodetic_iters));
+                      bowring_lat_deg(sc, rho, spoint.z, p.geodetic_iters));
             }
             store(LON_CENTRIC, wrap360(lon_e * kDegPerRad));
             store(LAT_CENTRIC, atan2_deg(spoint.z, rho));
@@ -465,7 +517,7 @@ backplanes26_kernel(float* __restrict__ out, double* __restrict__ rv_out,
                 // lon_e and the solar longitude lie in [-pi, pi]: the
                 // argument lies in [-12, 36] and wraps with one add
                 const double spin_sign = (p.flags & F_PROGRADE) ? 1.0 : -1.0;
-                double lst = 12.0 + spin_sign * (lon_e - p.s[S_SOLAR_LON])
+                double lst = 12.0 + spin_sign * (lon_e - sc[S_SOLAR_LON])
                                         * kHoursPerRad;
                 lst = lst < 0.0 ? lst + 24.0 : (lst >= 24.0 ? lst - 24.0 : lst);
                 if (p.flags & F_LST_QUANT) {
@@ -475,7 +527,7 @@ backplanes26_kernel(float* __restrict__ out, double* __restrict__ rv_out,
             }
 
             // -- illumination vectors (one rotation at the final epoch) ---
-            const Rot r = rot_at(p, dt);
+            const Rot r = rot_at(sc, dt);
             const V3 point_j = apply_t(r, spoint);
             const V3 drift = targ_vel0 * dt;
             const V3 srfvec_j2000 = (targ_rel0 + drift) + point_j;
@@ -483,20 +535,20 @@ backplanes26_kernel(float* __restrict__ out, double* __restrict__ rv_out,
             V3 sun_bf = {nan, nan, nan};
             if (p.flags & F_HAVE_SUN) {
                 // sun_pos - point_ssb, about the target centre at tau0
-                const V3 to_sun0 = sc3(p, S_SUN_REL0) - (drift + point_j);
+                const V3 to_sun0 = sc3(sc, S_SUN_REL0) - (drift + point_j);
                 const double lt_s = norm(to_sun0) * kInvClight;
-                const double sun_dt = (p.s[S_SUN_OFF] - lt) - lt_s;
-                sun_bf = apply(r, to_sun0 + sc3(p, S_SUN_VEL0) * sun_dt);
+                const double sun_dt = (sc[S_SUN_OFF] - lt) - lt_s;
+                sun_bf = apply(r, to_sun0 + sc3(sc, S_SUN_VEL0) * sun_dt);
             }
 
             // -- state ----------------------------------------------------
             store(DISTANCE, dist_surface);
             if (wanted(RADIAL_VELOCITY) || wanted(DOPPLER)) {
                 const V3 p_vel =
-                    targ_vel0 + rot_dot_transpose_apply(p, dt, spoint);
+                    targ_vel0 + rot_dot_transpose_apply(sc, dt, spoint);
                 const V3 rhat =
                     srfvec_j2000 * rsqrt(dot(srfvec_j2000, srfvec_j2000));
-                const V3 obs_vel = sc3(p, S_OBS_VEL);
+                const V3 obs_vel = sc3(sc, S_OBS_VEL);
                 const double rv_t = dot(rhat, p_vel);
                 const double rv_o = dot(rhat, obs_vel);
                 const double dltdt = (rv_t - rv_o) / (kClight + rv_t);
@@ -507,7 +559,7 @@ backplanes26_kernel(float* __restrict__ out, double* __restrict__ rv_out,
             }
 
             // -- illumination angles --------------------------------------
-            const V3 normal_raw = hadamard(spoint, sc3(p, S_RINV2));
+            const V3 normal_raw = hadamard(spoint, sc3(sc, S_RINV2));
             const V3 normal =
                 normal_raw * rsqrt(dot(normal_raw, normal_raw));
             store(PHASE, angle_deg(sun_bf, to_obs));
@@ -542,36 +594,36 @@ backplanes26_kernel(float* __restrict__ out, double* __restrict__ rv_out,
     // the ray again, from the tables: the barrier keeps the compiler from
     // merging these reads with the chain's and holding the ray through it
     asm volatile("" ::: "memory");
-    const V3 d = ray_j2000(p, tab);
+    const V3 d = ray_j2000(sc, tab);
     const double d_norm2 = dot(d, d);
     const double rho_d = sqrt(d.x * d.x + d.y * d.y);
     store(RA, wrap360(atan2_deg(d.y, d.x)));
     store(DEC, atan2_deg(d.z, rho_d));
     store(PIXEL_X, xg);
     store(PIXEL_Y, yg);
-    store(KM_X, p.s[S_KM + 0] * xg + p.s[S_KM + 1] * yg + p.s[S_KM + 2]);
-    store(KM_Y, p.s[S_KM + 3] * xg + p.s[S_KM + 4] * yg + p.s[S_KM + 5]);
+    store(KM_X, sc[S_KM + 0] * xg + sc[S_KM + 1] * yg + sc[S_KM + 2]);
+    store(KM_Y, sc[S_KM + 3] * xg + sc[S_KM + 4] * yg + sc[S_KM + 5]);
     store(ANGULAR_X,
-          p.s[S_ANGULAR + 0] * xg + p.s[S_ANGULAR + 1] * yg
-              + p.s[S_ANGULAR + 2]);
+          sc[S_ANGULAR + 0] * xg + sc[S_ANGULAR + 1] * yg
+              + sc[S_ANGULAR + 2]);
     store(ANGULAR_Y,
-          p.s[S_ANGULAR + 3] * xg + p.s[S_ANGULAR + 4] * yg
-              + p.s[S_ANGULAR + 5]);
+          sc[S_ANGULAR + 3] * xg + sc[S_ANGULAR + 4] * yg
+              + sc[S_ANGULAR + 5]);
 
     // ---- limb: nearest point of the ray to the target centre ----------
     if (wanted(LIMB_DISTANCE) || wanted(LIMB_LON_GRAPHIC)
         || wanted(LIMB_LAT_GRAPHIC)) {
-        const V3 target_obsvec = sc3(p, S_TARGET_OBSVEC);
+        const V3 target_obsvec = sc3(sc, S_TARGET_OBSVEC);
         const V3 dn = d * rsqrt(d_norm2);
         const V3 near = dn * dot(target_obsvec, dn);
         const double near_dist = norm(near - target_obsvec);
-        const V3 near_targvec = obsvec2targvec(p, near);
-        const V3 scaled = hadamard(near_targvec, sc3(p, S_RINV));
+        const V3 near_targvec = obsvec2targvec(sc, near);
+        const V3 scaled = hadamard(near_targvec, sc3(sc, S_RINV));
         const V3 limb = near_targvec * rsqrt(dot(scaled, scaled));
         store(LIMB_LON_GRAPHIC, wrap360(lon_sign * atan2_deg(limb.y, limb.x)));
         if (wanted(LIMB_LAT_GRAPHIC)) {
             store(LIMB_LAT_GRAPHIC,
-                  bowring_lat_deg(p, sqrt(limb.x * limb.x + limb.y * limb.y),
+                  bowring_lat_deg(sc, sqrt(limb.x * limb.x + limb.y * limb.y),
                                   limb.z, p.geodetic_iters));
         }
         store(LIMB_DISTANCE, near_dist - norm(limb));
@@ -580,8 +632,8 @@ backplanes26_kernel(float* __restrict__ out, double* __restrict__ rv_out,
     // ---- ring plane ----------------------------------------------------
     if (wanted(RING_RADIUS) || wanted(RING_LON_GRAPHIC)
         || wanted(RING_DISTANCE)) {
-        const V3 ring_n = sc3(p, S_RING_N);
-        const double ring_c = p.s[S_RING_C];
+        const V3 ring_n = sc3(sc, S_RING_N);
+        const double ring_c = sc[S_RING_C];
         const double denom = dot(d, ring_n);
         const bool degenerate = fabs(denom) <= 1e-12 * sqrt(d_norm2);
         const bool in_plane = degenerate && fabs(ring_c) <= 1e-9 * fabs(ring_c);
@@ -597,13 +649,74 @@ backplanes26_kernel(float* __restrict__ out, double* __restrict__ rv_out,
             store(RING_LON_GRAPHIC, nan);
             store(RING_DISTANCE, nan);
         } else {
-            const V3 rt = obsvec2targvec(p, intercept);
+            const V3 rt = obsvec2targvec(sc, intercept);
             store(RING_RADIUS,
-                  exterior_alt(p, sqrt(rt.x * rt.x + rt.y * rt.y), rt.z)
-                      + p.s[S_RE]);
+                  exterior_alt(sc, sqrt(rt.x * rt.x + rt.y * rt.y), rt.z)
+                      + sc[S_RE]);
             store(RING_LON_GRAPHIC, wrap360(lon_sign * atan2_deg(rt.y, rt.x)));
             store(RING_DISTANCE, ring_distance);
         }
+    }
+}
+
+// The single-frame scene: the kernel's parameters, read as constant-bank
+// operands.
+struct ParamScene {
+    const Params& p;
+    __device__ __forceinline__ double operator[](int i) const {
+        return p.s[i];
+    }
+};
+
+// A batched frame's scene, read from device memory through the read-only
+// data cache (every thread of a block reads the same address: one
+// broadcast load per warp).
+struct GlobalScene {
+    const double* s;
+    __device__ __forceinline__ double operator[](int i) const {
+        return __ldg(s + i);
+    }
+};
+
+// kFrameOfBatch: the frame is one of a batch's (backplanes26_launch_frames)
+// and its planes lie Params::plane_stride apart; otherwise nx * ny apart,
+// computed in the kernel (reading the stride from the parameters instead
+// costs the main path's frame 1.2-2%: scripts/time_backplane_batch.py).
+template <bool kFrameOfBatch>
+__global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocksPerSM)
+backplanes26_kernel(float* __restrict__ out, double* __restrict__ rv_out,
+                    const __grid_constant__ Params p) {
+    __shared__ RayTables tab;
+    const ParamScene sc{p};
+    build_ray_tables(sc, p, tab);
+    __syncthreads();
+    backplanes_pixel(sc, p, tab, out, rv_out,
+                     kFrameOfBatch ? (size_t)p.plane_stride
+                                   : (size_t)p.nx * (size_t)p.ny);
+}
+
+// N frames of one shape: frame f's scene is scenes[f * SCENE_SIZE ...] in
+// device memory; plane k of frame f is out[k][f] of an (NP, N, ny, nx)
+// float32 array, RADIAL-VELOCITY rv_out[f] of an (N, ny, nx) float64 one.
+// blockIdx.z walks the frames (strided by gridDim.z past the grid's z
+// limit); each block rebuilds its ray tables for each of its frames.
+__global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocksPerSM)
+backplanes26_batch_kernel(float* __restrict__ out, double* __restrict__ rv_out,
+                          const double* __restrict__ scenes,
+                          const __grid_constant__ BatchParams p) {
+    __shared__ RayTables tab;
+    const size_t frame_size = (size_t)p.nx * (size_t)p.ny;
+    const size_t plane_stride = frame_size * (size_t)p.n_frames;
+    for (int f = blockIdx.z; f < p.n_frames; f += gridDim.z) {
+        const GlobalScene sc{scenes + (size_t)f * SCENE_SIZE};
+        build_ray_tables(sc, p, tab);
+        __syncthreads();
+        backplanes_pixel(sc, p, tab, out + (size_t)f * frame_size,
+                         rv_out == nullptr ? nullptr
+                                           : rv_out + (size_t)f * frame_size,
+                         plane_stride);
+        // the next frame's tables overwrite these
+        __syncthreads();
     }
 }
 
@@ -615,17 +728,20 @@ int backplanes26_scene_size(void) { return SCENE_SIZE; }
 
 int backplanes26_n_planes(void) { return kPlanes; }
 
-// Registers and local (spill) bytes per thread of the compiled kernel, and
-// its resident blocks per SM at its block size. Returns a cudaError_t.
-int backplanes26_occupancy(int* registers, int* local_bytes,
+// Registers and local (spill) bytes per thread of the compiled kernel
+// (batch 0: the single-frame kernel, 1: the batched one), and its resident
+// blocks per SM at its block size. Returns a cudaError_t.
+int backplanes26_occupancy(int batch, int* registers, int* local_bytes,
                            int* blocks_per_sm) {
+    const void* kernel = batch ? (const void*)backplanes26_batch_kernel
+                               : (const void*)backplanes26_kernel<false>;
     cudaFuncAttributes attr;
-    cudaError_t rc = cudaFuncGetAttributes(&attr, backplanes26_kernel);
+    cudaError_t rc = cudaFuncGetAttributes(&attr, kernel);
     if (rc != cudaSuccess) return (int)rc;
     *registers = attr.numRegs;
     *local_bytes = (int)attr.localSizeBytes;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, backplanes26_kernel, kBlockX * kBlockY, 0);
+        blocks_per_sm, kernel, kBlockX * kBlockY, 0);
 }
 
 // Launch the kernel on `stream`. `scene` is a host array of SCENE_SIZE
@@ -644,14 +760,79 @@ int backplanes26_launch(const double* scene, float* out, double* rv_out,
     p.nx = nx;
     p.ny = ny;
     p.row0 = row0;
+    p.plane_stride = (unsigned long long)nx * (unsigned long long)ny;
     for (int k = 0; k < kPlanes; ++k) p.slot[k] = slots[k];
     p.n_lt_iters = n_lt_iters;
     p.geodetic_iters = geodetic_iters;
     p.flags = flags;
     const dim3 block(kBlockX, kBlockY);
     const dim3 grid((nx + kBlockX - 1) / kBlockX, (ny + kBlockY - 1) / kBlockY);
-    backplanes26_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(out, rv_out,
-                                                                  p);
+    backplanes26_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
+        out, rv_out, p);
+    return (int)cudaGetLastError();
+}
+
+// N frames of nx x ny as N launches of the single-frame kernel, each with
+// its scene by value, into the batched layout (out: n_float32_planes x
+// n_frames x ny x nx float32; rv_out: n_frames x ny x nx float64, or null).
+// `scenes` is a host array of n_frames x SCENE_SIZE float64 values; the
+// rest as for backplanes26_launch. For frames large enough that the
+// batched kernel's scene reads cost more than a launch. Returns the first
+// non-zero cudaGetLastError(), or 0.
+int backplanes26_launch_frames(const double* scenes, float* out,
+                               double* rv_out, int nx, int ny, int n_frames,
+                               double row0, const int* slots, int n_lt_iters,
+                               int geodetic_iters, int flags, void* stream) {
+    Params p;
+    p.nx = nx;
+    p.ny = ny;
+    p.row0 = row0;
+    const unsigned long long frame_size =
+        (unsigned long long)nx * (unsigned long long)ny;
+    p.plane_stride = frame_size * (unsigned long long)n_frames;
+    for (int k = 0; k < kPlanes; ++k) p.slot[k] = slots[k];
+    p.n_lt_iters = n_lt_iters;
+    p.geodetic_iters = geodetic_iters;
+    p.flags = flags;
+    const dim3 block(kBlockX, kBlockY);
+    const dim3 grid((nx + kBlockX - 1) / kBlockX, (ny + kBlockY - 1) / kBlockY);
+    for (int f = 0; f < n_frames; ++f) {
+        memcpy(p.s, scenes + (size_t)f * SCENE_SIZE, sizeof(p.s));
+        backplanes26_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+            out + f * frame_size,
+            rv_out == nullptr ? nullptr : rv_out + f * frame_size, p);
+        const cudaError_t rc = cudaGetLastError();
+        if (rc != cudaSuccess) return (int)rc;
+    }
+    return 0;
+}
+
+// Launch the batched kernel on `stream` over `n_frames` frames of nx x ny.
+// `scenes` is a device array of n_frames x SCENE_SIZE float64 values;
+// `out` (n_float32_planes x n_frames x ny x nx float32) and `rv_out`
+// (n_frames x ny x nx float64, or null when RADIAL-VELOCITY is not
+// requested) are device pointers; `slots`, `row0`, the iteration counts and
+// the flags as for backplanes26_launch, shared by every frame. Returns
+// cudaGetLastError() after the launch.
+int backplanes26_launch_batch(const double* scenes, float* out, double* rv_out,
+                              int nx, int ny, int n_frames, double row0,
+                              const int* slots, int n_lt_iters,
+                              int geodetic_iters, int flags, void* stream) {
+    BatchParams p;
+    p.nx = nx;
+    p.ny = ny;
+    p.row0 = row0;
+    for (int k = 0; k < kPlanes; ++k) p.slot[k] = slots[k];
+    p.n_lt_iters = n_lt_iters;
+    p.geodetic_iters = geodetic_iters;
+    p.flags = flags;
+    p.n_frames = n_frames;
+    const dim3 block(kBlockX, kBlockY);
+    const int z = n_frames < kMaxGridZ ? n_frames : kMaxGridZ;
+    const dim3 grid((nx + kBlockX - 1) / kBlockX, (ny + kBlockY - 1) / kBlockY,
+                    z);
+    backplanes26_batch_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        out, rv_out, scenes, p);
     return (int)cudaGetLastError();
 }
 

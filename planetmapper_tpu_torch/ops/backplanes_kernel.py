@@ -26,6 +26,16 @@ out and the precision of each plane. Here:
   anchors, so its call copies nothing from the device. RADIAL-VELOCITY is
   stored by the kernel in float64 (the contract's type), the other planes
   in float32.
+- Frames: :func:`pack_scenes` packs N scenes at once (a leading frame axis;
+  each frame word for word :func:`pack_scene`'s), :func:`with_frames` only
+  the affines and discs of N frames over one packed scene. ``impl.run_batch
+  (scenes, nx, ny, device, row0)`` computes N frames as (N, ny, nx) planes:
+  one launch of the batched kernel (:func:`batch_launch_count`), or, for
+  frames of :data:`FRAME_LAUNCH_PIXELS` or more, one launch of the
+  single-frame kernel a frame from one C call. ``impl.batch(nx, ny,
+  xy2angulars, discs, radii, anchors)`` is the batch's contract on
+  tensors: the kernel on CUDA tensors, the plain graph frame by frame on CPU
+  tensors.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ import numpy as np
 import torch
 
 from ..core.ephemeris import CLIGHT
+from ..pipeline import ANCHOR_SHAPES as _ANCHOR_SHAPES
 from .cuda_build import CudaLibrary, check_launch
 
 DEG = math.pi / 180.0
@@ -92,8 +103,18 @@ def _configure(lib) -> None:
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p,  # slots, iterations, flags, stream
     ]
+    for name in ('backplanes26_launch_batch', 'backplanes26_launch_frames'):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # scenes, outs
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # nx, ny, frames
+            ctypes.c_double, ctypes.POINTER(ctypes.c_int),  # row0, slots
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # iterations, flags
+            ctypes.c_void_p,  # stream
+        ]
     lib.backplanes26_occupancy.restype = ctypes.c_int
-    lib.backplanes26_occupancy.argtypes = [
+    lib.backplanes26_occupancy.argtypes = [ctypes.c_int] + [
         ctypes.POINTER(ctypes.c_int)] * 3
     if lib.backplanes26_scene_size() != SCENE_SIZE:
         raise RuntimeError(
@@ -111,15 +132,39 @@ reset_launch_count = LIBRARY.reset_launch_count
 ptxas_log = LIBRARY.ptxas_log
 
 
-def occupancy() -> dict[str, int]:
+#: Launches of the batched kernel (the library's own count is the
+#: single-frame kernel's).
+_batch_launches = 0
+
+#: Frames of this many pixels or more take one launch of the single-frame
+#: kernel each in a batch (``run_batch``): its scene is constant-bank
+#: operands, while the batched kernel's scene reads cost it 1.26x per frame
+#: at 2048x2048 and 1.04x at 512x512, and save it 27% at 256x256, where
+#: launches dominate (scripts/time_backplane_batch.py on an H100).
+FRAME_LAUNCH_PIXELS = 512 * 512
+
+
+def batch_launch_count() -> int:
+    """Launches of the batched kernel so far in this process."""
+    return _batch_launches
+
+
+def reset_batch_launch_count() -> None:
+    global _batch_launches
+    _batch_launches = 0
+
+
+def occupancy(batch: bool = False) -> dict[str, int]:
     """
-    ``dict(registers, local_bytes, blocks_per_sm)`` of the compiled kernel
-    on the current CUDA device: registers and local (spill) bytes per
-    thread, and resident blocks of 256 threads per SM.
+    ``dict(registers, local_bytes, blocks_per_sm)`` of the compiled
+    single-frame kernel (``batch=True``: the batched one) on the current
+    CUDA device: registers and local (spill) bytes per thread, and resident
+    blocks of 256 threads per SM.
     """
     lib = load_library()
     values = [ctypes.c_int() for _ in range(3)]
-    check_launch(lib.backplanes26_occupancy(*values), 'backplane occupancy')
+    check_launch(lib.backplanes26_occupancy(int(batch), *values),
+                 'backplane occupancy')
     return dict(zip(('registers', 'local_bytes', 'blocks_per_sm'),
                     (v.value for v in values)))
 
@@ -142,35 +187,41 @@ def _host_values(xy2angular, disc, radii, anchors) -> dict[str, np.ndarray]:
     return out
 
 
-def pack_scene(xy2angular, disc, radii, anchors) -> np.ndarray:
+def _frame_parts(a, disc, radii, angular2km, target_lt) -> dict:
     """
-    The kernel's float64 scene in the order of ``_SCENE_LAYOUT``, computed
-    with numpy on the host from numpy arrays or tensors (CUDA tensors are
-    brought to the host in one copy first).
+    The frame-dependent scene values from ``xy2angular`` matrices ``a``
+    (..., 3, 3), discs (..., 4) and the radii and anchors they combine
+    with: one frame, or N along a leading axis.
     """
-    v = _host_values(xy2angular, disc, radii, anchors)
-    a, radii = v['xy2angular'], v['radii']
-    re, rp = radii[0], radii[2]
+    re = radii[..., 0]
+    # ray angles in half turns (the kernel's sincospi), affine in (x, y):
+    # the plain graph's -ang_x / 3600 * DEG and ang_y / 3600 * DEG over pi
+    ray = np.concatenate([-a[..., 0, :], a[..., 1, :]], axis=-1) * (
+        DEG / 3600.0 / math.pi)
+    # angular2km @ a[:2], summed in index order
+    km = (angular2km[..., :, 0, None] * a[..., None, 0, :]
+          + angular2km[..., :, 1, None] * a[..., None, 1, :])
+    km_per_arcsec = 2.0 * re / (
+        2.0 * 60.0 * 60.0 / DEG * np.arcsin(re / (target_lt * CLIGHT))
+    )
+    r_cut = disc[..., 2] * np.max(radii, axis=-1) / re * 1.05 + 1.0
+    return dict(
+        ray=ray,
+        km=km,
+        angular=km / np.asarray(km_per_arcsec)[..., None, None],
+        disc=np.stack([disc[..., 0], disc[..., 1], r_cut * r_cut], axis=-1),
+    )
+
+
+def _scene_parts(radii, v) -> dict:
+    """The scene values of N frames that depend on the radii and anchors."""
+    re, rp = radii[..., 0], radii[..., 2]
     flattening = (re - rp) / re
     omf = 1.0 - flattening
     e2 = flattening * (2.0 - flattening)
     ep2 = e2 / (1.0 - e2)
-    # ray angles in half turns (the kernel's sincospi), affine in (x, y):
-    # the plain graph's -ang_x / 3600 * DEG and ang_y / 3600 * DEG over pi
-    ray = np.concatenate([-a[0], a[1]]) * (DEG / 3600.0 / math.pi)
-    km = v['angular2km'] @ a[:2]
-    km_per_arcsec = 2.0 * re / (
-        2.0 * 60.0 * 60.0 / DEG * np.arcsin(re / (v['target_lt'] * CLIGHT))
-    )
-    disc = v['disc']
-    r_cut = disc[2] * np.max(radii) / re * 1.05 + 1.0
-    if not abs(float(v['solar_lon_e'])) <= math.pi:
-        raise ValueError('solar_lon_e must lie in [-pi, pi]')
-    parts = dict(
-        ray=ray,
+    return dict(
         m_ang=v['obsvec2angular'],
-        km=km,
-        angular=km / km_per_arcsec,
         et_tau0=v['et'] - v['tau0'],
         tau0=v['tau0'],
         target_lt=v['target_lt'],
@@ -187,7 +238,6 @@ def pack_scene(xy2angular, disc, radii, anchors) -> np.ndarray:
         e2=e2,
         ep2_re_omf=ep2 * (re * omf),
         e2_re=e2 * re,
-        disc=np.array([disc[0], disc[1], r_cut * r_cut]),
         sun_rel0=v['sun_pos0'] - v['targ_pos0'],
         sun_vel0=v['sun_vel0'],
         sun_off=v['et'] - v['sun_epoch0'],
@@ -201,6 +251,120 @@ def pack_scene(xy2angular, disc, radii, anchors) -> np.ndarray:
         ring_plane_normal=v['ring_plane_normal'],
         ring_plane_constant=v['ring_plane_constant'],
     )
+
+
+def _fill(scenes: np.ndarray, parts: dict) -> None:
+    """Write ``parts`` (each (N, ...)) into their slots of ``scenes``."""
+    n = scenes.shape[0]
+    start = 0
+    for name, size in _SCENE_LAYOUT:
+        if name in parts:
+            value = np.asarray(parts[name], dtype=np.float64).reshape(n, -1)
+            if value.shape[1] != size:
+                raise ValueError(f'scene value {name!r} has '
+                                 f'{value.shape[1]} elements, expected '
+                                 f'{size}')
+            scenes[:, start:start + size] = value
+        start += size
+
+
+def _frames(n: int, values: dict) -> dict:
+    """Each anchor (or radii) value broadcast to a leading axis of ``n``."""
+    shapes = dict(_ANCHOR_SHAPES, radii=(3,))
+    out = {}
+    for key, shape in shapes.items():
+        value = np.asarray(values[key], dtype=np.float64)
+        if value.shape == shape:
+            value = np.broadcast_to(value, (n,) + shape)
+        if value.shape != (n,) + shape:
+            raise ValueError(f'{key} has shape {value.shape}, expected '
+                             f'{shape} or {(n,) + shape}')
+        out[key] = value
+    if not np.all(np.abs(out['solar_lon_e']) <= math.pi):
+        raise ValueError('solar_lon_e must lie in [-pi, pi]')
+    return out
+
+
+def _frame_inputs(xy2angulars, discs) -> tuple[np.ndarray, np.ndarray]:
+    """The (N, 3, 3) affines and (N, 4) discs of N >= 1 frames, float64."""
+    a = np.asarray(xy2angulars, dtype=np.float64)
+    disc = np.asarray(discs, dtype=np.float64)
+    if (a.ndim != 3 or a.shape[1:] != (3, 3) or disc.shape != (len(a), 4)
+            or not len(a)):
+        raise ValueError(f'xy2angulars must be (N, 3, 3) and discs (N, 4) '
+                         f'with N >= 1, got {a.shape} and {disc.shape}')
+    return a, disc
+
+
+def pack_scenes(xy2angulars, discs, radii, anchors) -> np.ndarray:
+    """
+    The kernel's float64 scenes of N frames, (N, :data:`SCENE_SIZE`), in the
+    order of ``_SCENE_LAYOUT``, computed with numpy on the host:
+    ``xy2angulars`` (N, 3, 3) and ``discs`` (N, 4) per frame; ``radii``
+    (3,) and each anchor either shared (its own shape) or per frame (a
+    leading axis of N). Frame i equals ``pack_scene`` of frame i's values
+    word for word: each step is elementwise over the frame axis.
+    """
+    a, disc = _frame_inputs(xy2angulars, discs)
+    n = len(a)
+    v = _frames(n, dict(anchors, radii=radii))
+    scenes = np.empty((n, SCENE_SIZE), dtype=np.float64)
+    _fill(scenes, _scene_parts(v['radii'], v))
+    _fill(scenes, _frame_parts(a, disc, v['radii'], v['angular2km'],
+                               v['target_lt']))
+    return scenes
+
+
+def with_frames(base: np.ndarray, xy2angulars, discs, radii,
+                anchors) -> np.ndarray:
+    """
+    The scenes of N frames that share one scene's anchors: ``base`` (a
+    packed scene of these ``radii`` and shared ``anchors``) repeated, with
+    each frame's ray, km and angular affines and disc written in. Equals
+    :func:`pack_scenes` of the same values word for word, without packing
+    the anchors again.
+    """
+    a, disc = _frame_inputs(xy2angulars, discs)
+    n = len(a)
+    scenes = np.repeat(np.asarray(base, dtype=np.float64)[None], n, axis=0)
+    radii = np.broadcast_to(np.asarray(radii, dtype=np.float64), (n, 3))
+    angular2km = np.broadcast_to(
+        np.asarray(anchors['angular2km'], dtype=np.float64), (n, 2, 2))
+    target_lt = np.broadcast_to(
+        np.asarray(anchors['target_lt'], dtype=np.float64), (n,))
+    _fill(scenes, _frame_parts(a, disc, radii, angular2km, target_lt))
+    return scenes
+
+
+def pack_scene(xy2angular, disc, radii, anchors) -> np.ndarray:
+    """
+    The kernel's float64 scene of one frame in the order of
+    ``_SCENE_LAYOUT``, computed with numpy on the host from numpy arrays or
+    tensors (CUDA tensors are brought to the host in one copy first). The
+    same arithmetic as :func:`pack_scenes`, step for step, without its
+    frame axis (the main path's call packs one scene and pays for every
+    microsecond here).
+    """
+    v = _host_values(xy2angular, disc, radii, anchors)
+    if not abs(float(v['solar_lon_e'])) <= math.pi:
+        raise ValueError('solar_lon_e must lie in [-pi, pi]')
+    a, radii, a2k = v['xy2angular'], v['radii'], v['angular2km']
+    re = radii[0]
+    # _frame_parts of one frame, written for one (no frame axis to
+    # broadcast over), step for step
+    km = a2k[:, 0, None] * a[0] + a2k[:, 1, None] * a[1]
+    km_per_arcsec = 2.0 * re / (
+        2.0 * 60.0 * 60.0 / DEG * np.arcsin(re / (v['target_lt'] * CLIGHT))
+    )
+    disc = v['disc']
+    r_cut = disc[2] * np.max(radii) / re * 1.05 + 1.0
+    parts = _scene_parts(radii, v)
+    parts.update(
+        ray=np.concatenate([-a[0], a[1]]) * (DEG / 3600.0 / math.pi),
+        km=km,
+        angular=km / km_per_arcsec,
+        disc=np.array([disc[0], disc[1], r_cut * r_cut]),
+    )
     flat = []
     for name, size in _SCENE_LAYOUT:
         value = np.asarray(parts[name], dtype=np.float64).reshape(-1)
@@ -208,7 +372,7 @@ def pack_scene(xy2angular, disc, radii, anchors) -> np.ndarray:
             raise ValueError(f'scene value {name!r} has {value.size} '
                              f'elements, expected {size}')
         flat.append(value)
-    return np.ascontiguousarray(np.concatenate(flat))
+    return np.concatenate(flat)
 
 
 def _check_inputs(xy2angular, disc, radii, anchors) -> torch.device:
@@ -309,22 +473,123 @@ def build_backplanes_kernel(
         planes['RADIAL-VELOCITY'] = rv
         return {name: planes[name] for name in requested}
 
+    def run_batch(scenes, nx, ny, device, row0=0.0, frame_launches=None):
+        """
+        The requested planes of N frames, each (N, ny, nx), from their
+        scenes packed by :func:`pack_scenes` ((N, SCENE_SIZE) float64, host
+        numpy or a tensor on ``device``), on the CUDA ``device``. Each plane
+        is a contiguous view of one (NP, N, ny, nx) float32 allocation;
+        RADIAL-VELOCITY has its own (N, ny, nx) float64 one.
+
+        Frames of fewer than :data:`FRAME_LAUNCH_PIXELS` pixels are one
+        launch of the batched kernel (counted by :func:`batch_launch_count`);
+        larger frames are N launches of the single-frame kernel from one C
+        call, each with its scene by value (counted by
+        :func:`launch_count`), because there the batched kernel's scene
+        reads cost more than a launch. ``frame_launches`` forces one route
+        (for tests and timing).
+        """
+        global _batch_launches
+        device = torch.device(device)
+        if device.type != 'cuda':
+            raise ValueError(f'no backplane kernel for device {device}')
+        if device.index is None:
+            device = torch.device('cuda', torch.cuda.current_device())
+        if nx <= 0 or ny <= 0:
+            raise ValueError(f'image size must be positive, got {nx}x{ny}')
+        if frame_launches is None:
+            frame_launches = nx * ny >= FRAME_LAUNCH_PIXELS
+        if frame_launches:
+            if isinstance(scenes, torch.Tensor):
+                scenes = scenes.cpu().numpy()
+            scenes = np.ascontiguousarray(scenes, dtype=np.float64)
+        elif isinstance(scenes, np.ndarray):
+            scenes = torch.from_numpy(
+                np.ascontiguousarray(scenes, dtype=np.float64)
+            ).to(device, non_blocking=True)
+        if (scenes.dtype not in (np.float64, torch.float64)
+                or scenes.ndim != 2 or scenes.shape[1] != SCENE_SIZE
+                or scenes.shape[0] < 1
+                or (isinstance(scenes, torch.Tensor) and (
+                    scenes.device != device or not scenes.is_contiguous()))):
+            raise ValueError(
+                f'scenes must be a contiguous float64 (N, {SCENE_SIZE}) '
+                f'array with N >= 1 (pack_scenes), got {tuple(scenes.shape)}'
+            )
+        n = int(scenes.shape[0])
+        stacked = torch.empty((len(stacked_names), n, ny, nx),
+                              dtype=torch.float32, device=device)
+        rv = None
+        if 'RADIAL-VELOCITY' in requested:
+            rv = torch.empty((n, ny, nx), dtype=torch.float64, device=device)
+        lib = load_library()
+        launch = (lib.backplanes26_launch_frames if frame_launches
+                  else lib.backplanes26_launch_batch)
+        scene_ptr = (scenes.ctypes.data if frame_launches
+                     else scenes.data_ptr())
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = launch(
+                scene_ptr, stacked.data_ptr(),
+                None if rv is None else rv.data_ptr(), int(nx), int(ny), n,
+                float(row0), slots, int(n_lt_iters), int(geodetic_iters),
+                flags, stream,
+            )
+        check_launch(rc, 'batched backplane')
+        if frame_launches:
+            LIBRARY.launches += n
+        else:
+            _batch_launches += 1
+        planes = dict(zip(stacked_names, stacked))
+        planes['RADIAL-VELOCITY'] = rv
+        return {name: planes[name] for name in requested}
+
+    def plain_fn():
+        from ..pipeline import fused_backplanes_fn
+
+        return fused_backplanes_fn(
+            positive_west=positive_west, prograde=prograde,
+            have_sun=have_sun, optimize_speed=optimize_speed,
+            precision='mixed', robust_geodetic=geodetic_iters > 0,
+        )
+
     def impl(nx, ny, xy2angular, disc, radii, anchors, row0=0.0):
         device = _check_inputs(xy2angular, disc, radii, anchors)
         if device.type == 'cpu':
-            from ..pipeline import fused_backplanes_fn
-
-            plain = fused_backplanes_fn(
-                positive_west=positive_west, prograde=prograde,
-                have_sun=have_sun, optimize_speed=optimize_speed,
-                precision='mixed', robust_geodetic=geodetic_iters > 0,
-            )
-            out = plain(nx, ny, xy2angular, disc, radii, anchors, row0=row0)
+            out = plain_fn()(nx, ny, xy2angular, disc, radii, anchors,
+                             row0=row0)
             return {name: out[name] for name in requested}
         if device.type != 'cuda':
             raise ValueError(f'no backplane kernel for device {device}')
         return run(pack_scene(xy2angular, disc, radii, anchors), nx, ny,
                    device, row0)
 
+    def batch(nx, ny, xy2angulars, discs, radii, anchors, row0=0.0):
+        """
+        The requested planes of N frames, each (N, ny, nx): ``xy2angulars``
+        (N, 3, 3) and ``discs`` (N, 4) per frame, ``radii`` (3,), each
+        anchor shared or per frame (a leading axis of N); float64 tensors
+        on one device. CUDA tensors: one launch of the batched kernel on
+        scenes packed on the host (one copy from the card first). CPU
+        tensors: the plain graph, frame by frame.
+        """
+        device = radii.device
+        if device.type == 'cpu':
+            plain = plain_fn()
+            frames = []
+            for i in range(xy2angulars.shape[0]):
+                frame = {k: v[i] if v.ndim > len(_ANCHOR_SHAPES[k]) else v
+                         for k, v in anchors.items()}
+                frames.append(plain(nx, ny, xy2angulars[i], discs[i], radii,
+                                    frame, row0=row0))
+            return {name: torch.stack([f[name] for f in frames])
+                    for name in requested}
+        v = _host_values(xy2angulars, discs, radii, anchors)
+        scenes = pack_scenes(v['xy2angular'], v['disc'], v['radii'],
+                             {k: v[k] for k in _ANCHOR_SHAPES})
+        return run_batch(scenes, nx, ny, device, row0)
+
     impl.run = run
+    impl.run_batch = run_batch
+    impl.batch = batch
     return impl

@@ -21,6 +21,11 @@ pixel grid (port of ``planetmapper_tpu.pipeline``).
     it reports LON-CENTRIC in [0, 360) like the kernel, so CPU and CUDA
     bodies agree without a wrap.
 
+:func:`compute_backplanes_batch` computes N disc sets over one body's
+anchors with the kernel's frame axis (``impl.run_batch``); the time series
+of :mod:`.parallel.timeseries` batch the anchors themselves over epochs
+(:func:`_anchor_core` is elementwise over any leading time axis).
+
 The JAX package's progressive cold start, AOT prewarm, session warm thread
 and shape buckets exist for a remote TPU compile service and have no
 counterpart here: ``precompile`` builds and loads the CUDA library, and
@@ -63,12 +68,24 @@ ANCHOR_SHAPES: dict[str, tuple[int, ...]] = dict(
 )
 
 
+def _time_derivative(fn):
+    """``t -> d fn / d t`` by forward mode, elementwise over ``t``'s axes."""
+    def derivative(t):
+        return torch.func.jvp(fn, (t,), (torch.ones_like(t),))[1]
+
+    return derivative
+
+
 def _anchor_core(engine, et, tau0, target_lt) -> dict[str, torch.Tensor]:
-    """Time-dependent anchor values (CPU float64 tensors)."""
+    """
+    Time-dependent anchor values (float64 tensors), elementwise over any
+    leading axes of ``et``, ``tau0`` and ``target_lt`` (one epoch, or a
+    time series).
+    """
     rot_fn = engine.frame_model.j2000_to_bodyfixed_matrix
     r0 = rot_fn(tau0)
-    r1 = torch.func.jacfwd(rot_fn)(tau0)
-    r2 = torch.func.jacfwd(torch.func.jacfwd(rot_fn))(tau0)
+    r1 = _time_derivative(rot_fn)(tau0)
+    r2 = _time_derivative(_time_derivative(rot_fn))(tau0)
     targ_state = engine._pos_t(tau0)
     obs_state = engine._pos_o(et)
     if engine._pos_s is not None:
@@ -80,7 +97,8 @@ def _anchor_core(engine, et, tau0, target_lt) -> dict[str, torch.Tensor]:
         sun_state = engine._pos_s(sun_epoch)
     else:
         sun_epoch = tau0
-        sun_state = torch.full((6,), math.nan, dtype=torch.float64)
+        sun_state = torch.full(tau0.shape + (6,), math.nan,
+                               dtype=torch.float64, device=tau0.device)
     solar_lon = engine.solar_longitude(et - target_lt)
     return dict(
         rot0=r0, rot1=r1, rot2=r2,
@@ -520,19 +538,29 @@ def _lt_iters() -> int:
 
 
 def select_pipeline_impl(body, nx: int, ny: int,
-                         use_kernel: bool | None = None,
-                         planes: tuple[str, ...] | None = None):
+                         use_pallas: bool | None = None,
+                         planes: tuple[str, ...] | None = None,
+                         interpret: bool = False):
     """
-    Build the per-pixel pipeline impl for a body: ``(impl, use_kernel)``
+    Build the per-pixel pipeline impl for a body: ``(impl, use_pallas)``
     where ``impl(nx, ny, xy2angular, disc, radii, anchors, row0=...)``
-    computes the planes for rows ``[row0, row0 + ny)``.
+    computes the planes for rows ``[row0, row0 + ny)`` and ``use_pallas``
+    says whether it launches the CUDA kernel. The keywords are the JAX
+    package's, read for the card:
 
-    The CUDA kernel is taken on a CUDA device when the precision is
-    ``'mixed'`` and the kernel's geodetic solve holds for the body's shape
-    (the JAX package's rule for its TPU kernel); it masks its own ragged
-    edge, so every image shape qualifies. CPU devices, ``'double'``
-    precision and shapes inside the evolute margin take the plain graph. A
-    forced kernel (``use_kernel=True``) on such a shape raises.
+    - ``use_pallas=None`` (default): the CUDA kernel on a CUDA device when
+      the precision is ``'mixed'`` and the kernel's geodetic solve holds for
+      the body's shape (the JAX package's rule for its TPU kernel; the
+      kernel masks its own ragged edge, so every image shape qualifies);
+      the plain float64 graph on the CPU, at ``'double'`` precision and for
+      shapes inside the evolute margin.
+    - ``use_pallas=True`` forces the kernel: it raises for a shape inside
+      the evolute margin and for a body off CUDA. ``False`` takes the plain
+      graph.
+    - ``interpret=True`` takes the plain graph on any device: the kernel's
+      function computed without the kernel (what interpret mode is to the
+      JAX package's Pallas kernel), at the kernel's conventions
+      (``'mixed'``: LON-CENTRIC in [0, 360)).
 
     ``planes`` restricts the kernel to a subset (a run-time plane mask);
     the plain graph computes every plane and the caller filters.
@@ -541,22 +569,30 @@ def select_pipeline_impl(body, nx: int, ny: int,
 
     precision = getattr(body, '_pipeline_precision', DEFAULT_PRECISION)
     geodetic_iters = _kernel_geodetic_iters(body)
-    if use_kernel is None:
-        use_kernel = (
+    if use_pallas and geodetic_iters is None:
+        # a forced kernel path must refuse rather than run 0 Bowring
+        # iterations on a shape whose surface points sit inside the
+        # evolute (garbage graphic latitudes)
+        raise ValueError(
+            'the CUDA kernel cannot hold the geodetic error budget for '
+            'this body shape (middle axis inside the evolute margin); '
+            'use the plain graph (use_pallas=False)'
+        )
+    if interpret:
+        use_pallas = False
+    elif use_pallas is None:
+        use_pallas = (
             body.device.type == 'cuda'
             and precision == 'mixed'
             and geodetic_iters is not None
         )
-    if use_kernel:
-        if geodetic_iters is None:
-            # a forced kernel path must refuse rather than run 0 Bowring
-            # iterations on a shape whose surface points sit inside the
-            # evolute (garbage graphic latitudes)
-            raise ValueError(
-                'the CUDA kernel cannot hold the geodetic error budget for '
-                'this body shape (middle axis inside the evolute margin); '
-                'use the plain graph (use_kernel=False)'
-            )
+    elif use_pallas and body.device.type != 'cuda':
+        raise ValueError(
+            f'use_pallas=True needs a body on a CUDA device, not '
+            f'{body.device}; interpret=True computes the kernel\'s '
+            'function with the plain graph'
+        )
+    if use_pallas:
         impl = backplanes_kernel.build_backplanes_kernel(
             positive_west=body.positive_longitude_direction == 'W',
             prograde=body.prograde,
@@ -573,10 +609,12 @@ def select_pipeline_impl(body, nx: int, ny: int,
             prograde=body.prograde,
             have_sun=body._engine._pos_s is not None,
             optimize_speed=bool(body._optimize_speed),
-            precision='mixed' if precision == 'mixed' else 'double',
+            precision=(
+                'mixed' if precision == 'mixed' or interpret else 'double'
+            ),
             robust_geodetic=_robust_geodetic(body),
         )
-    return impl, use_kernel
+    return impl, use_pallas
 
 
 def _lst_quantization() -> bool:
@@ -612,11 +650,11 @@ def get_fused_pipeline(body, nx: int, ny: int,
     to the body's device.
     """
     planes = _canonical_planes(planes)
-    impl, use_kernel = select_pipeline_impl(body, nx, ny, planes=planes)
+    impl, use_pallas = select_pipeline_impl(body, nx, ny, planes=planes)
     dev = body.device
 
     def fn(xy2angular, disc, radii, anchors):
-        if use_kernel:
+        if use_pallas:
             from .ops.backplanes_kernel import pack_scene
 
             out = impl.run(pack_scene(xy2angular, disc, radii, anchors),
@@ -629,7 +667,7 @@ def get_fused_pipeline(body, nx: int, ny: int,
         return out
 
     def precompile():
-        if use_kernel:
+        if use_pallas:
             from .ops import backplanes_kernel
 
             backplanes_kernel.load_library()
@@ -702,3 +740,57 @@ def compute_backplanes(
         return out, checksum
     return out
 
+
+
+def compute_backplanes_batch(
+    body, xy2angulars, discs, *, as_numpy: bool = True
+) -> dict[str, Any]:
+    """
+    All default backplanes for N disc-parameter sets over one body's
+    anchors: ``out[name]`` has shape ``(N, ny, nx)``. On a CUDA body the N
+    frames are one launch of the batched kernel; elsewhere the plain graph
+    runs frame by frame on the body's device. The natural shape for
+    disc-fit parameter sweeps and GUI scrubbing.
+
+    ``xy2angulars``: (N, 3, 3) pixel->angular affines (one per disc
+    parameter set, see :meth:`BodyXY._get_xy2angular_matrix`);
+    ``discs``: (N, 4) arrays of (x0, y0, r0, rotation).
+
+    The part of the kernel's scene that the frames share (everything but
+    the affines and the disc) is packed once per body and cached with its
+    anchors; a call packs only what changes per frame.
+    """
+    from .ops import backplanes_kernel
+
+    nx, ny = body.get_img_size()
+    if nx <= 0 or ny <= 0:
+        raise ValueError('nx and ny must be positive to generate backplanes')
+    xy2angulars, discs = backplanes_kernel._frame_inputs(xy2angulars, discs)
+    impl, use_pallas = select_pipeline_impl(body, nx, ny)
+    radii = np.asarray(body.radii, dtype=np.float64)
+    anchors = body._get_pipeline_anchors()
+    dev = body.device
+    if use_pallas:
+        base = body._stable_cache.get('pipeline scene (packed)')
+        if base is None:
+            base = backplanes_kernel.pack_scene(
+                body._get_xy2angular_matrix(),
+                np.asarray(body.get_disc_params(), dtype=np.float64),
+                radii, anchors,
+            )
+            body._stable_cache['pipeline scene (packed)'] = base
+        scenes = backplanes_kernel.with_frames(
+            base, xy2angulars, discs, radii, anchors
+        )
+        out = impl.run_batch(scenes, nx, ny, dev)
+    else:
+        radii_t = f64(radii, dev)
+        anchors_t = anchors_from_numpy(anchors, dev)
+        frames = [
+            impl(nx, ny, f64(a, dev), f64(d, dev), radii_t, anchors_t)
+            for a, d in zip(xy2angulars, discs)
+        ]
+        out = {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
+    if as_numpy:
+        return {k: v.cpu().numpy() for k, v in out.items()}
+    return out

@@ -174,6 +174,34 @@ def backplane_bound(nx: int, ny: int, n_disc: int, *,
     return dict(ms=ms, bound_by=by, bytes=n_bytes, f64_ops=f64, f32_ops=f32)
 
 
+#: Bytes of one frame's packed scene, which the batched kernel reads from
+#: device memory (106 float64 values).
+BACKPLANE_SCENE_BYTES = 106 * 8
+
+
+def backplane_batch_bound(nx: int, ny: int, n_discs, *,
+                          n_lt_iters: int = 2) -> dict:
+    """
+    The bound of one batched backplanes26 launch over ``len(n_discs)``
+    frames of ``nx`` x ``ny`` with ``n_discs[i]`` on-disc pixels in frame
+    ``i``: :func:`backplane_bound`'s work of every frame, and its stores,
+    plus the frames' scenes read once from device memory. ``dict(ms,
+    bound_by, bytes, f64_ops, f32_ops, frames)``.
+    """
+    n_discs = [int(n) for n in n_discs]
+    if not n_discs:
+        raise ValueError('a batch has at least one frame')
+    frames = [backplane_bound(nx, ny, n, n_lt_iters=n_lt_iters)
+              for n in n_discs]
+    f64 = sum(f['f64_ops'] for f in frames)
+    f32 = sum(f['f32_ops'] for f in frames)
+    n_bytes = sum(f['bytes'] for f in frames) \
+        + BACKPLANE_SCENE_BYTES * len(n_discs)
+    ms, by = roofline_ms(n_bytes, f64, f32)
+    return dict(ms=ms, bound_by=by, bytes=n_bytes, f64_ops=f64, f32_ops=f32,
+                frames=len(n_discs))
+
+
 # ---------------------------------------------------------------------------
 # map_spline and map_smooth: the map kernels of BodyXY.map_img
 # ---------------------------------------------------------------------------

@@ -179,6 +179,166 @@ def test_compute_backplanes_launches_kernel(kernel_path, device):
 
 
 # ---------------------------------------------------------------------------
+# The batched backplane kernel and the meshes of parallel/
+# ---------------------------------------------------------------------------
+
+def _sweep(body, n):
+    """``n`` disc sets about the body's disc and their xy2angular
+    matrices."""
+    x0, y0, r0, rot = body.get_disc_params()
+    discs, xys = [], []
+    for i in range(n):
+        disc = (x0 + 0.7 * i, y0 - 0.4 * i, r0 * (1 + 0.02 * i), rot + 7 * i)
+        body.set_disc_params(*disc)
+        discs.append(disc)
+        xys.append(np.array(body._get_xy2angular_matrix()))
+    body.set_disc_params(x0, y0, r0, rot)
+    return np.array(xys), np.array(discs)
+
+
+def _equal(got, ref):
+    assert set(got) == set(ref)
+    for name, plane in ref.items():
+        assert torch.equal(torch.isnan(got[name]), torch.isnan(plane)), name
+        assert torch.equal(torch.nan_to_num(got[name]),
+                           torch.nan_to_num(plane)), name
+
+
+@pytest.mark.parametrize('planes', [None, ('EMISSION', 'RADIAL-VELOCITY',
+                                           'RING-RADIUS', 'LIMB-DISTANCE')])
+@pytest.mark.parametrize('row0', [0.0, 17.0])
+@pytest.mark.parametrize('frame_launches', [False, True])
+def test_batched_kernel_equals_single_launches(kernel_path, device, planes,
+                                               row0, frame_launches):
+    """Both routes of a batch (the batched kernel, and one single-frame
+    launch a frame from one C call) at a ragged shape and a plane subset,
+    frame by frame."""
+    nx, ny = 101, 67
+    body, _ = _body(nx, ny, (50.3, 30.7, 28.0, 12.3), device)
+    xys, discs = _sweep(body, 5)
+    anchors = body._get_pipeline_anchors()
+    radii = np.asarray(body.radii)
+    kernel = bk.build_backplanes_kernel(
+        optimize_speed=True, lst_quant=True, planes=planes, **FLAGS,
+    )
+    scenes = bk.pack_scenes(xys, discs, radii, anchors)
+    before = (bk.launch_count(), bk.batch_launch_count())
+    got = kernel.run_batch(scenes, nx, ny, device, row0,
+                           frame_launches=frame_launches)
+    torch.cuda.synchronize()
+    assert (bk.launch_count(), bk.batch_launch_count()) == (
+        (before[0] + 5, before[1]) if frame_launches
+        else (before[0], before[1] + 1))
+    for i in range(len(discs)):
+        single = kernel.run(np.ascontiguousarray(scenes[i]), nx, ny, device,
+                            row0)
+        _equal({k: v[i] for k, v in got.items()}, single)
+    if planes is not None:
+        assert tuple(got) == tuple(n for n in bk.PLANE_ORDER if n in planes)
+    assert got[next(iter(got))].shape == (5, ny, nx)
+
+
+def test_batched_kernel_walks_frames_past_the_grid_z_limit(kernel_path,
+                                                            device):
+    body, _ = _body(5, 3, (2.0, 1.0, 1.5, 0.0), device)
+    n = 65535 + 40
+    scene = bk.pack_scene(*pipeline.pipeline_inputs(body))
+    scenes = np.repeat(scene[None], n, axis=0)
+    kernel = bk.build_backplanes_kernel(
+        optimize_speed=True, lst_quant=True,
+        planes=('EMISSION', 'RADIAL-VELOCITY', 'RA'), **FLAGS,
+    )
+    got = kernel.run_batch(scenes, 5, 3, device)
+    single = kernel.run(scene, 5, 3, device)
+    for name, plane in single.items():
+        every = got[name].reshape(n, -1)
+        ref = plane.reshape(1, -1).expand_as(every)
+        assert torch.equal(torch.isnan(every), torch.isnan(ref)), name
+        assert torch.equal(torch.nan_to_num(every), torch.nan_to_num(ref)), \
+            name
+
+
+def test_batched_kernel_matches_plain_version(kernel_path, device):
+    nx, ny = 128, 64
+    body, args = _body(nx, ny, (64.3, 32.3, 28.8, 12.3), device)
+    xys, discs = _sweep(body, 3)
+    anchors = pipeline.anchors_from_numpy(body._get_pipeline_anchors(),
+                                          device)
+    kernel = bk.build_backplanes_kernel(
+        optimize_speed=True, lst_quant=True, **FLAGS,
+    )
+    plain = pipeline.fused_backplanes_fn(**FLAGS)
+    got = kernel.batch(nx, ny, f64(xys, device), f64(discs, device), args[2],
+                       anchors)
+    for i in range(3):
+        ref = _numpy(plain(nx, ny, f64(xys[i], device), f64(discs[i], device),
+                           args[2], anchors))
+        reports = compare.compare_backplanes(
+            _numpy({k: v[i] for k, v in got.items()}), ref, float32_ulps=1,
+        )
+        assert not compare.failures(reports), compare.failures(reports)
+
+
+def test_compute_backplanes_batch_is_one_launch(kernel_path, device):
+    body, _ = _body(96, 80, (47.6, 40.2, 30.0, 12.3), device)
+    xys, discs = _sweep(body, 4)
+    bk.reset_launch_count()
+    bk.reset_batch_launch_count()
+    out = pipeline.compute_backplanes_batch(body, xys, discs,
+                                            as_numpy=False)
+    assert (bk.batch_launch_count(), bk.launch_count()) == (1, 0)
+    for i, disc in enumerate(discs):
+        body.set_disc_params(*disc)
+        _equal({k: v[i] for k, v in out.items()},
+               pipeline.compute_backplanes(body, as_numpy=False))
+
+
+def test_mesh_of_one_card_matches_unsharded(kernel_path, device):
+    """sharded_backplanes and sharded_map_img on 4 entries of cuda:0."""
+    from planetmapper_tpu_torch.parallel import (
+        make_mesh,
+        sharded_backplanes,
+        sharded_map_img,
+    )
+
+    mesh = make_mesh(4, device=device)
+    body, _ = _body(90, 75, (44.6, 37.2, 30.0, 12.3), device)
+    bk.reset_launch_count()
+    sharded = sharded_backplanes(body, mesh)
+    assert bk.launch_count() == 4
+    _equal(sharded, pipeline.compute_backplanes(body, as_numpy=False))
+    img = np.random.default_rng(3).normal(size=(75, 90))
+    img[20:23, 30:32] = np.nan
+    for mode in ('linear', 'cubic'):
+        ref = body.map_img(img, interpolation=mode, as_numpy=True,
+                           degree_interval=5)
+        got = sharded_map_img(body, img, mesh, interpolation=mode,
+                              degree_interval=5)
+        np.testing.assert_array_equal(got, ref.astype(np.float64))
+
+
+def test_time_series_is_one_launch_on_the_card(kernel_path, device):
+    from planetmapper_tpu_torch.parallel import (
+        backplane_time_series,
+        make_mesh,
+    )
+
+    body, _ = _body(40, 30, (20.0, 15.0, 11.0, 0.0), device)
+    ets = body.et + 60.0 * np.arange(8)
+    bk.reset_batch_launch_count()
+    out = backplane_time_series(body, ets, names=['EMISSION', 'RA'],
+                                as_numpy=False)
+    assert bk.batch_launch_count() == 1
+    assert out['EMISSION'].shape == (8, 30, 40)
+    assert out['EMISSION'].device.type == 'cuda'
+    meshed = backplane_time_series(body, ets, names=['EMISSION', 'RA'],
+                                   mesh=make_mesh(4, device=device),
+                                   as_numpy=False)
+    assert bk.batch_launch_count() == 1 + 4
+    _equal(meshed, out)
+
+
+# ---------------------------------------------------------------------------
 # Map kernels
 # ---------------------------------------------------------------------------
 

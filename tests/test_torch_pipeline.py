@@ -409,8 +409,8 @@ def test_kernel_wrapper_runs_plain_version_on_cpu(bodies):
 def test_selection_takes_plain_graph_on_cpu(bodies):
     _, t_body = bodies
     backplanes_kernel.reset_launch_count()
-    impl, use_kernel = t_pipeline.select_pipeline_impl(t_body, NX, NY)
-    assert not use_kernel
+    impl, use_pallas = t_pipeline.select_pipeline_impl(t_body, NX, NY)
+    assert not use_pallas
     full = t_pipeline.compute_backplanes(t_body)
     subset = t_pipeline.compute_backplanes(
         t_body, names=['EMISSION', 'LON-GRAPHIC']
@@ -433,7 +433,7 @@ def test_forced_kernel_refuses_pathological_shape():
 
     assert t_pipeline._kernel_geodetic_iters(Fake()) is None
     with pytest.raises(ValueError, match='evolute'):
-        t_pipeline.select_pipeline_impl(Fake(), 128, 64, use_kernel=True)
+        t_pipeline.select_pipeline_impl(Fake(), 128, 64, use_pallas=True)
     assert t_pipeline._kernel_geodetic_iters(
         type('B', (), {'radii': np.array([1050.0, 840.0, 537.0])})()
     ) == 4
@@ -501,6 +501,167 @@ def test_pack_scene_from_numpy_and_tensors(bodies):
     bad = dict(host[3], solar_lon_e=np.float64(4.0))
     with pytest.raises(ValueError, match='solar_lon_e'):
         backplanes_kernel.pack_scene(*host[:3], bad)
+
+
+# ---------------------------------------------------------------------------
+# The batch entry: N disc sets over one body's anchors
+# ---------------------------------------------------------------------------
+
+BATCH_NX, BATCH_NY = 48, 40
+
+
+@pytest.fixture(scope='module')
+def batch_bodies(bodies):
+    """(JAX BodyXY, port BodyXY) of 48x40 and three seeded disc sets with
+    their xy2angular matrices (the bodies keep their first disc)."""
+    j_body = jpm.BodyXY('Jupiter', observer='EARTH', utc=UTC, nx=BATCH_NX,
+                        ny=BATCH_NY)
+    t_body = tpm.BodyXY('Jupiter', observer='EARTH', utc=UTC, nx=BATCH_NX,
+                        ny=BATCH_NY, device='cpu')
+    rng = np.random.default_rng(7)
+    discs = np.stack([
+        23.5 + rng.uniform(-2.0, 2.0, 3), 19.5 + rng.uniform(-2.0, 2.0, 3),
+        14.0 + rng.uniform(-1.0, 1.0, 3), rng.uniform(0.0, 360.0, 3),
+    ], axis=1)
+    xys = []
+    for disc in discs:
+        t_body.set_disc_params(*disc)
+        xys.append(np.array(t_body._get_xy2angular_matrix()))
+    for body in (j_body, t_body):
+        body.set_disc_params(*discs[0])
+    return j_body, t_body, np.array(xys), discs
+
+
+def test_compute_backplanes_batch_matches_jax_and_single_calls(batch_bodies):
+    j_body, t_body, xys, discs = batch_bodies
+    got = t_pipeline.compute_backplanes_batch(t_body, xys, discs)
+    assert set(got) == set(backplanes_kernel.PLANE_ORDER)
+    assert all(v.shape == (3, BATCH_NY, BATCH_NX) for v in got.values())
+    # both packages' float64 graphs, at the float64 parity bars of
+    # assert_f64_parity (the JAX mixed graph's float32 chains would only
+    # bound the comparison by their own rounding)
+    for body in (j_body, t_body):
+        body._pipeline_precision = 'double'
+    try:
+        ref = j_pipeline.compute_backplanes_batch(j_body, xys, discs)
+        double = t_pipeline.compute_backplanes_batch(t_body, xys, discs)
+    finally:
+        for body in (j_body, t_body):
+            del body._pipeline_precision
+    assert '__CHECKSUM__' not in ref and set(ref) == set(got)
+    for i, disc in enumerate(discs):
+        assert_f64_parity({k: v[i] for k, v in double.items()},
+                          {k: np.asarray(v)[i] for k, v in ref.items()},
+                          disc, own_anchors=True)
+        t_body.set_disc_params(*disc)
+        single = t_pipeline.compute_backplanes(t_body)
+        for name, plane in single.items():
+            np.testing.assert_array_equal(got[name][i], plane, err_msg=name)
+    t_body.set_disc_params(*discs[0])
+    on_device = t_pipeline.compute_backplanes_batch(t_body, xys, discs,
+                                                    as_numpy=False)
+    assert isinstance(on_device['EMISSION'], torch.Tensor)
+    with pytest.raises(ValueError, match=r'\(N, 4\)'):
+        t_pipeline.compute_backplanes_batch(t_body, xys, discs[:2])
+
+
+def test_pack_scenes_equals_pack_scene_word_for_word(batch_bodies):
+    _, t_body, xys, discs = batch_bodies
+    radii = np.asarray(t_body.radii, dtype=np.float64)
+    anchors = t_body._get_pipeline_anchors()
+    scenes = backplanes_kernel.pack_scenes(xys, discs, radii, anchors)
+    assert scenes.shape == (3, backplanes_kernel.SCENE_SIZE)
+    for i in range(3):
+        np.testing.assert_array_equal(
+            scenes[i],
+            backplanes_kernel.pack_scene(xys[i], discs[i], radii, anchors))
+    base = backplanes_kernel.pack_scene(xys[0], discs[0], radii, anchors)
+    np.testing.assert_array_equal(
+        backplanes_kernel.with_frames(base, xys, discs, radii, anchors),
+        scenes)
+    # per-frame anchors (a time series): each frame its own
+    from planetmapper_tpu_torch.parallel import timeseries
+
+    ets = t_body.et + 3600.0 * np.arange(3)
+    series, series_xys = timeseries._batched_pipeline_inputs(t_body, ets)
+    per_frame = backplanes_kernel.pack_scenes(series_xys, discs, radii,
+                                              series)
+    for i in range(3):
+        np.testing.assert_array_equal(
+            per_frame[i], backplanes_kernel.pack_scene(
+                series_xys[i], discs[i], radii,
+                {k: v[i] for k, v in series.items()}))
+    with pytest.raises(ValueError, match='rot0'):
+        backplanes_kernel.pack_scenes(
+            xys, discs, radii, dict(anchors, rot0=np.zeros((2, 3, 3))))
+
+
+def test_batch_wrapper_runs_plain_version_on_cpu(batch_bodies):
+    _, t_body, xys, discs = batch_bodies
+    anchors = t_pipeline.anchors_from_numpy(
+        t_body._get_pipeline_anchors(), 'cpu')
+    radii = f64(np.asarray(t_body.radii))
+    backplanes_kernel.reset_launch_count()
+    backplanes_kernel.reset_batch_launch_count()
+    planes = ('EMISSION', 'RADIAL-VELOCITY', 'RA')
+    wrapper = backplanes_kernel.build_backplanes_kernel(
+        positive_west=True, prograde=True, have_sun=True,
+        optimize_speed=True, lst_quant=True, planes=planes,
+    )
+    got = wrapper.batch(BATCH_NX, BATCH_NY, f64(xys), f64(discs), radii,
+                        anchors)
+    assert tuple(got) == ('RA', 'EMISSION', 'RADIAL-VELOCITY')  # PLANE_ORDER
+    for i in range(3):
+        single = wrapper(BATCH_NX, BATCH_NY, f64(xys[i]), f64(discs[i]),
+                         radii, anchors)
+        for name in planes:
+            torch.testing.assert_close(got[name][i], single[name], rtol=0,
+                                       atol=0, equal_nan=True)
+    assert backplanes_kernel.launch_count() == 0
+    assert backplanes_kernel.batch_launch_count() == 0
+    with pytest.raises(ValueError, match='no backplane kernel'):
+        wrapper.run_batch(np.zeros((2, backplanes_kernel.SCENE_SIZE)),
+                          BATCH_NX, BATCH_NY, 'cpu')
+
+
+def test_select_pipeline_impl_takes_the_jax_keywords(batch_bodies):
+    """use_pallas forces the kernel (off CUDA it raises); interpret takes
+    the plain graph at the kernel's conventions on any device."""
+    _, t_body, _, _ = batch_bodies
+    with pytest.raises(ValueError, match='CUDA device'):
+        t_pipeline.select_pipeline_impl(t_body, 16, 16, use_pallas=True)
+    impl, use_pallas = t_pipeline.select_pipeline_impl(
+        t_body, BATCH_NX, BATCH_NY, use_pallas=True, interpret=True)
+    assert not use_pallas and not hasattr(impl, 'run')
+    t_body._pipeline_precision = 'double'
+    try:
+        _, use_pallas = t_pipeline.select_pipeline_impl(
+            t_body, BATCH_NX, BATCH_NY, interpret=True)
+        lon = impl(BATCH_NX, BATCH_NY, *(
+            f64(v) for v in t_pipeline.pipeline_inputs(t_body)[:3]),
+            t_pipeline.anchors_from_numpy(
+                t_body._get_pipeline_anchors(), 'cpu'))['LON-CENTRIC']
+    finally:
+        del t_body._pipeline_precision
+    assert not use_pallas
+    finite = lon[torch.isfinite(lon)]
+    assert bool(((finite >= 0.0) & (finite < 360.0)).all())
+
+
+@pytest.mark.parametrize('frames', [1, 3, 1000])
+def test_backplane_batch_bound_counts_every_frame(frames):
+    rng = np.random.default_rng(frames)
+    n_discs = rng.integers(0, 50 * 50, frames)
+    got = bounds.backplane_batch_bound(50, 50, n_discs)
+    singles = [bounds.backplane_bound(50, 50, int(n)) for n in n_discs]
+    assert got['frames'] == frames
+    assert got['f64_ops'] == sum(s['f64_ops'] for s in singles)
+    assert got['f32_ops'] == sum(s['f32_ops'] for s in singles)
+    assert got['bytes'] == sum(s['bytes'] for s in singles) + 848 * frames
+    assert (got['ms'], got['bound_by']) == bounds.roofline_ms(
+        got['bytes'], got['f64_ops'], got['f32_ops'])
+    with pytest.raises(ValueError):
+        bounds.backplane_batch_bound(50, 50, [])
 
 
 @pytest.mark.parametrize('nx, ny, n_disc', [

@@ -73,10 +73,11 @@ def kernel_files(tmp_path_factory):
 
 @pytest.mark.parametrize('blocked', [False, True])
 def test_import_pulls_in_no_jax_or_matplotlib(blocked):
-    """Importing every module (the plotting ones too) loads no JAX, no
-    matplotlib and no PIL; with matplotlib made unimportable the package
-    still imports, and a CPU BodyXY still builds and moves its disc (its
-    matplotlib transforms are made on first use only)."""
+    """Importing every module (the plotting ones and ``parallel`` too)
+    loads no JAX, no optax, no matplotlib and no PIL; with matplotlib made
+    unimportable the package still imports, and a CPU BodyXY still builds
+    and moves its disc (its matplotlib transforms are made on first use
+    only)."""
     code = (
         ('sys_block = __import__("sys")\n'
          'sys_block.modules["matplotlib"] = None\n' if blocked else '')
@@ -88,6 +89,9 @@ def test_import_pulls_in_no_jax_or_matplotlib(blocked):
         'from planetmapper_tpu_torch import observation, utils\n'
         'from planetmapper_tpu_torch import _body_plotting, _body_xy_plotting\n'
         'from planetmapper_tpu_torch.io import fits, wcs\n'
+        'from planetmapper_tpu_torch.parallel import (fit, multihost,\n'
+        '    sharding, timeseries)\n'
+        'parallel = [getattr(pt.parallel, n) for n in pt.parallel.__all__]\n'
         'exports = [getattr(pt, name) for name in pt.__all__]\n'
         'lazy = [getattr(pt, name) for name in sorted(pt._SUBMODULES)]\n'
         'assert not pt.DEFAULT_WIREFRAME_FORMATTING._materialised\n'
@@ -100,7 +104,8 @@ def test_import_pulls_in_no_jax_or_matplotlib(blocked):
         '    b.set_disc_params(8, 8, 5, 10)\n'
         '    b.limb_xy(npts=12)\n'
         '    pt.clear_kernels()\n'
-        'bad = [m for m in ("jax", "matplotlib", "PIL", "planetmapper_tpu") '
+        'bad = [m for m in ("jax", "optax", "matplotlib", "PIL",\n'
+        '                   "planetmapper_tpu") '
         'if sys.modules.get(m) is not None]\n'
         'print(bad)\n'
         'sys.exit(1 if bad else 0)\n'
