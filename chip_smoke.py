@@ -86,6 +86,32 @@ from the Earth on 2005-01-01 (synthetic SPICE kernels written at run time):
   back beside its bound, its plain version and one PyTorch call (the
   float64 op over the same bytes for the pairs, ``torch.atan2`` in
   float32).
+- cli: ``cli.main(['--prewarm', '512', '1024', '2048'])`` in this process
+  (the libraries built or loaded; per size one backplane kernel launch and
+  at least one map spline launch, counted from 0), the 2048x2048 planes
+  against kernel 1's plain version; then on each prewarm body a cubic
+  1-degree ``map_img`` of a seeded source with a NaN block, every map
+  spline call held against its plain version (the 512x512 source is the
+  TPU's kernel 2 work, the 1024x1024 and 2048x2048 ones kernel 3's) with
+  the wrapper's launch plan logged; ``python -m planetmapper_tpu_torch
+  --version``; one cold ``--prewarm 2048`` subprocess, timed start to
+  exit (``scripts/time_cold_start.py`` times it with the session warm off
+  and on).
+- gui: ``GUI(allow_open=False)`` over a card ``Observation`` of the
+  [observation] phase's 1024x1024 8-frame file; every disc-finding routine
+  of the registry (reset, centre, rotate north, the four WCS routines, the
+  position, radius and gradient fits) run as its button runs it, timed,
+  each disc bit for bit with the direct call on a fresh Observation of the
+  file; click coordinates (values, JSON and formatted strings) on and off
+  the disc against a CPU Observation's GUI. Nothing is drawn; whether the
+  host has tkinter and matplotlib is logged.
+- tle: synthetic kernels with the SPK type 10 segments (HST, -48);
+  ``BodyXY('Jupiter', observer='HST')`` at 2048x2048 on the card, its
+  scalar ephemeris calls timed, HST's distance from the Earth's centre
+  checked, ``compute_backplanes`` (one kernel 1 launch) against its plain
+  version, a 256x256 card body's planes against a 256x256 CPU body's;
+  which DAF reader read the SPK, and both readers' parse times on it and
+  on a 32 MiB SPK of 13 segments (a planetary ephemeris's size).
 
 Prints the card's name and power limit, one JSON line describing each
 kernel, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -125,6 +151,7 @@ from planetmapper_tpu_torch.testing.observation_files import (
 )
 from planetmapper_tpu_torch.testing.synthetic_kernels import (
     AU_KM,
+    write_sized_spk,
     write_synthetic_kernels,
 )
 from planetmapper_tpu_torch.testing.timing import (
@@ -174,6 +201,10 @@ TRIAXIAL_SCALE = (1.0, 0.98, 0.935)
 #: Kernel against plain version: the JAX package's own TPU bars relative
 #: to max(scale, 1) (tests/test_pallas_core.py:727-732, :775-780, :812-817)
 MAP_BARS = {('spline', 150): 3e-5, ('spline', 1024): 5e-5,
+            # the [cli] phase's prewarm sources: 512^2 under the TPU's
+            # 640 px gate (kernel 2, :727-732's bar), 2048^2 past it
+            # (kernel 3, :775-780's bar)
+            ('spline', 512): 3e-5, ('spline', 2048): 5e-5,
             ('smooth', 150): 1e-4,
             # the JAX package states one bar for its smooth sampler, at
             # any frame size: the [observation] phase's 1024^2 cube
@@ -2055,6 +2086,435 @@ def wireframe_phase(device, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# [cli], [gui], [tle]: the shells and SPK type 10
+# ---------------------------------------------------------------------------
+
+PREWARM_SIZES = (512, 1024, 2048)
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+class LineClock:
+    """A stdout stand-in that keeps each line written, with the kernel
+    libraries' launch counts and the host clock at the time it was written."""
+
+    def __init__(self):
+        self.lines = []
+        self._buffer = ''
+
+    def write(self, text):
+        self._buffer += text
+        while '\n' in self._buffer:
+            line, self._buffer = self._buffer.split('\n', 1)
+            self.lines.append((line, bk.launch_count(),
+                               msp.LIBRARY.launch_count()))
+        return len(text)
+
+    def flush(self):
+        pass
+
+
+def prewarm_subprocess(kernel_dir) -> tuple[float, list[str]]:
+    """Host-clock seconds of one cold ``python -m planetmapper_tpu_torch
+    --prewarm 2048`` (start to exit) and its output lines."""
+    env = dict(os.environ, PLANETMAPPER_KERNEL_PATH=kernel_dir)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'planetmapper_tpu_torch', '--prewarm', '2048'],
+        capture_output=True, text=True, timeout=300, cwd=REPO, env=env,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SmokeFailure(f'--prewarm 2048 subprocess failed:\n'
+                           f'{proc.stdout}\n{proc.stderr}')
+    return seconds, proc.stdout.splitlines()
+
+
+def prewarm_source(size: int) -> np.ndarray:
+    """A seeded ``size`` x ``size`` source with a NaN block near its centre,
+    for the map kernel's comparison after ``--prewarm`` (which maps
+    zeros)."""
+    img = np.random.default_rng(size).normal(size=(size, size))
+    img[size // 2 - 40: size // 2 - 36, size // 2 + 30: size // 2 + 35] = \
+        np.nan
+    return img
+
+
+def spline_plan(args, kwargs) -> str:
+    """The map spline wrapper's launch plan for one recorded call: how each
+    axis finds its knot interval and the launch's shared memory."""
+    ty, tx, coeffs = args[3], args[4], args[5]
+    axis_y, axis_x, shared = msp.launch_plan(ty.shape[0], tx.shape[0],
+                                             kwargs.get('uniform'))
+
+    def how(axis):
+        if axis.uniform:
+            return 'arithmetic (unit-spaced knots)'
+        return 'search, knots in ' + ('shared' if axis.staged else 'global') \
+            + ' memory'
+
+    return (f'coefficients {tuple(coeffs.shape)}, degrees (ky, kx) = '
+            f'({kwargs["ky"]}, {kwargs["kx"]}); y {how(axis_y)}, x '
+            f'{how(axis_x)}; {shared} B shared')
+
+
+def prewarm_map_checks(bodies) -> float:
+    """On each prewarm body, a cubic 1-degree ``map_img`` of
+    :func:`prewarm_source`; every map spline call held against its plain
+    version at ``MAP_BARS``. The largest error."""
+    worst = 0.0
+    for body in bodies:
+        size = body.get_img_size()[0]
+        recorder = KernelCalls()
+        with recorder.recording(f'cli {size}^2'):
+            body.map_img(prewarm_source(size), interpolation='cubic',
+                         degree_interval=1, as_numpy=False)
+        torch.cuda.synchronize()
+        spline = [c for c in recorder.calls if c[1] == 'spline']
+        if not spline or len(spline) != len(recorder.calls):
+            raise SmokeFailure(f'cubic map_img of {size}^2 made the calls '
+                               f'{[c[1] for c in recorder.calls]}')
+        for label, kind, args, kwargs, out in spline:
+            log(f'[cli] {label} cubic map_img onto the 180x360 map: '
+                f'{spline_plan(args, kwargs)}')
+            worst = max(worst, compare_with_plain(
+                f'{label} cubic', kind, size, args, kwargs, out,
+                phase='cli'))
+        del recorder, spline
+    return worst
+
+
+def cli_phase(device, kernel_dir, card: str) -> dict:
+    """
+    [cli]: ``cli.main(['--prewarm', '512', '1024', '2048'])`` in this
+    process (kernel 1 launched once a size, the map spline kernel at least
+    once a size), the 2048^2 planes held against kernel 1's plain version;
+    the map spline kernel on each prewarm body held against its plain
+    version (:func:`prewarm_map_checks`); ``python -m
+    planetmapper_tpu_torch --version``; one cold ``--prewarm 2048``
+    subprocess.
+    """
+    from planetmapper_tpu_torch import cli
+
+    seen = []
+    compute = pipeline.compute_backplanes
+
+    def recording(body, **kw):
+        out = compute(body, **kw)
+        seen.append((body, out))
+        return out
+
+    clock = LineClock()
+    bk.reset_launch_count()
+    msp.LIBRARY.reset_launch_count()
+    pipeline.compute_backplanes = recording
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(clock):
+            cli.main(['--prewarm', *map(str, PREWARM_SIZES)])
+    finally:
+        pipeline.compute_backplanes = compute
+    total = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    for line, *_ in clock.lines:
+        log(f'[cli] {line}')
+    launches = dict(backplanes26=bk.launch_count(),
+                    map_spline=msp.LIBRARY.launch_count())
+    log(f'[cli] {card} | cli.main --prewarm {" ".join(map(str, PREWARM_SIZES))}'
+        f' {total:.3f} s in this process; launches {json.dumps(launches)}')
+    # each size's launches: the counts at its map line less those at the
+    # line before it
+    marks = [(line, b, m) for line, b, m in clock.lines
+             if 'map reprojection' in line]
+    per_size, last = {}, (0, 0)
+    for size, (_, b, m) in zip(PREWARM_SIZES, marks):
+        per_size[size] = dict(backplanes26=b - last[0], map_spline=m - last[1])
+        last = (b, m)
+    log(f'[cli] launches per size: {json.dumps(per_size)}')
+    if len(marks) != len(PREWARM_SIZES) or any(
+            n['backplanes26'] != 1 or n['map_spline'] < 1
+            for n in per_size.values()):
+        raise SmokeFailure(f'--prewarm launched {per_size}')
+    bodies = [b for b, _ in seen]
+    if [b.get_img_size() for b in bodies] != [
+            (size, size) for size in PREWARM_SIZES] or any(
+            b.device.type != device.type for b in bodies):
+        raise SmokeFailure(f'--prewarm did not run its bodies on {device}')
+    body, out = seen[-1]
+    size = PREWARM_SIZES[-1]
+    plain = pipeline.fused_backplanes_fn(**FLAGS)
+    check_against_plain(f'cli {size}x{size}', to_numpy(out),
+                        to_numpy(plain(size, size, *device_inputs(body))),
+                        body.get_disc_params())
+    del seen, out, body
+    spline_err = prewarm_map_checks(bodies)
+    del bodies
+
+    proc = subprocess.run(
+        [sys.executable, '-m', 'planetmapper_tpu_torch', '--version'],
+        capture_output=True, text=True, timeout=120, cwd=REPO,
+    )
+    if proc.returncode != 0 or proc.stdout.strip() != \
+            f'planetmapper_tpu_torch {pt.__version__}':
+        raise SmokeFailure(f'--version: {proc.stdout!r} {proc.stderr!r}')
+    log(f'[cli] python -m planetmapper_tpu_torch --version: '
+        f'{proc.stdout.strip()}')
+    seconds, lines = prewarm_subprocess(kernel_dir)
+    log(f'[cli] {card} | cold subprocess --prewarm 2048: {seconds:.3f} s; '
+        + '; '.join(lines))
+    return dict(launches=launches, per_size=per_size, cold=seconds,
+                spline_err=spline_err)
+
+
+#: The registry routines [gui] runs, each from gui_start on the GUI's
+#: Observation and on a fresh Observation of the file (the 'header' row
+#: needs PLANMAP cards, which the file lacks)
+GUI_ROUTINES = (
+    'Reset all disc parameters', 'Centre disc in image',
+    'Rotate north to top', 'Use WCS position, rotation & scale',
+    'Use WCS position', 'Use WCS rotation', 'Use WCS plate scale',
+    'Fit disc position', 'Fit disc radius', 'Fit disc (gradient descent)',
+)
+
+
+def gui_start(disc) -> tuple:
+    """The disc the user has nudged to before each routine: ``disc`` (the
+    file's) moved and enlarged as the [fit] phase's start (FIT_START). From
+    a disc also turned by 1.7 deg, the gradient fit returns NaN and
+    fit_disc_radius 3.55 px on this cube, in both packages (ROADMAP Queue
+    3)."""
+    dx, dy, scale = FIT_START
+    return (disc[0] + dx, disc[1] + dy, disc[2] * scale, disc[3])
+
+
+def gui_clicks(disc, size) -> tuple:
+    """Click pixels: on the disc, near its limb, off it."""
+    x0, y0, r0, _ = disc
+    return ((x0 + 0.0008 * r0, y0 + 0.046 * r0), (x0 - 0.79 * r0, y0),
+            (0.03 * size, 0.97 * size))
+
+
+def gui_direct_call(obs, label):
+    """The Observation method a registry row stands for."""
+    wcs = dict(suppress_warnings=True, validate=False,
+               use_header_offsets=False)
+    from planetmapper_tpu_torch.parallel import fit_disc_gradient
+
+    return {
+        'Reset all disc parameters': obs.reset_disc_params,
+        'Centre disc in image': obs.centre_disc,
+        'Rotate north to top': obs.rotate_north_to_top,
+        'Use WCS position, rotation & scale':
+            lambda: obs.disc_from_wcs(**wcs),
+        'Use WCS position': lambda: obs.position_from_wcs(**wcs),
+        'Use WCS rotation': lambda: obs.rotation_from_wcs(**wcs),
+        'Use WCS plate scale': lambda: obs.plate_scale_from_wcs(**wcs),
+        'Fit disc position': obs.fit_disc_position,
+        'Fit disc radius': obs.fit_disc_radius,
+        'Fit disc (gradient descent)': lambda: fit_disc_gradient(obs),
+    }[label]
+
+
+def click_checks(card_gui, cpu_gui, clicks) -> None:
+    """Click coordinates (their values, the JSON and formatted strings) of
+    the card GUI against the CPU GUI's at the card-vs-CPU bars."""
+    distance = cpu_gui.get_observation().target_distance
+    for xy in clicks:
+        got = card_gui._get_coords_for_location(*xy)
+        ref = cpu_gui._get_coords_for_location(*xy)
+        if set(got) != set(ref):
+            raise SmokeFailure(f'click {xy}: keys {sorted(got)} against '
+                               f'{sorted(ref)}')
+        worst = {}
+        for key, value in ref.items():
+            bar = (compare.F64_POSITION_RELATIVE * distance
+                   if key in ('limb_distance', 'ring_radius')
+                   else compare.F64_CARD_ANGLE)
+            worst[key] = abs(got[key] - value)
+            if not worst[key] <= bar:
+                raise SmokeFailure(f'click {xy} {key}: {got[key]} against '
+                                   f'{value} (bar {bar})')
+        strings = (card_gui.make_click_json_string(got),
+                   card_gui.make_click_formatted_string(
+                       card_gui.get_click_coords_formatted_strings(got)))
+        if strings != (cpu_gui.make_click_json_string(ref),
+                       cpu_gui.make_click_formatted_string(
+                           cpu_gui.get_click_coords_formatted_strings(ref))):
+            raise SmokeFailure(f'click {xy}: strings differ: {strings}')
+        log(f'[gui] click {xy} ({"on" if "lon" in got else "off"} the disc): '
+            f'{strings[0]}; largest difference from the CPU GUI '
+            f'{max(worst.values()):.3e}')
+
+
+def gui_phase(device, card: str) -> dict:
+    """
+    [gui]: the GUI without a window over the [observation] phase's
+    1024^2 8-frame card Observation: every disc-finding routine of the
+    registry timed, each disc bit for bit with the direct call on a fresh
+    Observation of the file; click coordinates against a CPU Observation's
+    GUI. Nothing is drawn.
+    """
+    import importlib.util
+
+    from planetmapper_tpu_torch import gui as pt_gui
+
+    log('[gui] planetmapper_tpu_torch.gui imported; on this host tkinter '
+        f'{"is" if importlib.util.find_spec("tkinter") else "is not"} '
+        'installed, matplotlib '
+        f'{"is" if importlib.util.find_spec("matplotlib") else "is not"}')
+    times = {}
+    with tempfile.TemporaryDirectory(prefix='gui_') as tmp:
+        path = os.path.join(tmp, 'observation_1024.fits')
+        cube = disc_cube(map_images(OBS_SIZE, OBS_SIZE)[2],
+                         MAP_BODIES[OBS_SIZE])
+        write_observation(path, cube, MAP_BODIES[OBS_SIZE], UTC)
+        g = pt_gui.GUI(allow_open=False)
+        g.set_observation(pt.Observation(path, device=device))
+        routines = {label: fn for rows in g.disc_finding_routines.values()
+                    for fn, label, _, _ in rows}
+        start = gui_start(MAP_BODIES[OBS_SIZE])
+        for label in GUI_ROUTINES:
+            obs = g.get_observation()
+            obs.set_disc_params(*start)
+            button = g.make_disc_finding_fn(routines[label])
+            _, times[label], _ = synchronised(button)
+            direct = pt.Observation(path, device=device)
+            direct.set_disc_params(*start)
+            synchronised(gui_direct_call(direct, label))
+            got, ref = obs.get_disc_params(), direct.get_disc_params()
+            if got != ref:
+                raise SmokeFailure(f'[gui] {label}: {got} against the '
+                                   f'direct call\'s {ref}')
+            log(f'[gui] {card} | {label}: {times[label]:.1f} ms; disc '
+                f'{tuple(round(v, 4) for v in got)} bit for bit with the '
+                'direct call')
+        cpu_gui = pt_gui.GUI(allow_open=False, device='cpu')
+        cpu_gui.set_observation(pt.Observation(path, device='cpu'))
+        for gui in (g, cpu_gui):
+            gui.get_observation().set_disc_params(*MAP_BODIES[OBS_SIZE])
+        click_checks(g, cpu_gui, gui_clicks(MAP_BODIES[OBS_SIZE], OBS_SIZE))
+    return times
+
+
+#: [tle]: the HST frame (the main path's size and disc) and the card-vs-CPU
+#: pair
+TLE_SMALL = 256
+TLE_SMALL_DISC = (*(v / 8 for v in DISC[:3]), DISC[3])
+
+
+def daf_readers(paths) -> dict:
+    """Which DAF reader ``daf.read_daf`` takes, and the two readers' parse
+    times (median of 20, ms) on each of ``paths``, each checked against the
+    other word for word."""
+    from planetmapper_tpu_torch.kernels import daf, daf_native
+
+    t0 = time.perf_counter()
+    lib = daf_native._get_lib()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    if lib is None:
+        raise SmokeFailure('the native DAF reader did not build')
+    reader = 'native C++' if daf_native.native_requested() else 'pure Python'
+    times = {}
+    for path in paths:
+        out = {}
+        for name, fn in (('native', daf_native.read_daf_native),
+                         ('python', daf.read_daf_python)):
+            runs = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                parsed = fn(path)
+                runs.append((time.perf_counter() - t0) * 1e3)
+            out[name] = (float(np.median(runs)), parsed)
+        native, python = out['native'][1], out['python'][1]
+        if native is None or native.summaries != python.summaries or \
+                not np.array_equal(native._data, python._data):
+            raise SmokeFailure(f'the native DAF reader differs from the '
+                               f'Python parser on {path}')
+        name = os.path.basename(path)
+        times[name] = dict(native=out['native'][0], python=out['python'][0])
+        log(f'[tle] {name} ({os.path.getsize(path)} bytes, '
+            f'{len(python.summaries)} segments): parse '
+            f'{out["native"][0]:.4f} ms native against '
+            f'{out["python"][0]:.4f} ms pure Python (median of 20), word '
+            'for word equal')
+    log(f'[tle] read_daf takes the {reader} reader (the native library '
+        f'built or loaded in {build_ms:.1f} ms)')
+    return dict(reader=reader, times=times)
+
+
+def tle_phase(device, card: str) -> dict:
+    """
+    [tle]: Jupiter seen from HST (SPK type 10, SGP4) on the card: the
+    scalar ephemeris calls timed, the observer's distance from the Earth's
+    centre, ``compute_backplanes`` at 2048^2 (one kernel 1 launch, held
+    against its plain version), a 256^2 card body's planes against a
+    256^2 CPU body's; which DAF reader parsed the kernel.
+    """
+    from planetmapper_tpu_torch.core.ephemeris import get_ephemeris
+
+    with tempfile.TemporaryDirectory(prefix='synthetic_kernels_tle_') as kdir:
+        files = write_synthetic_kernels(kdir, seed=0, satellites=True,
+                                        tle=True)
+        pt.clear_kernels()
+        pt.set_kernel_path(kdir)
+        readers = daf_readers(
+            [files[2], write_sized_spk(os.path.join(kdir, 'sized.bsp'))])
+        t0 = time.perf_counter()
+        body = pt.BodyXY('Jupiter', observer='HST', utc=UTC, sz=SIZE,
+                         device=device)
+        body.set_disc_params(*DISC)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        eph = get_ephemeris()
+        et = f64(body.et)
+        t0 = time.perf_counter()
+        hst = eph.position_fn(-48, 399, body.et)(et)
+        geometric_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        state, lt = eph.state_function(599, -48, body.aberration_correction,
+                                       body.et)(et)
+        apparent_ms = (time.perf_counter() - t0) * 1e3
+        radius = float(torch.linalg.vector_norm(hst[:3]))
+        log(f'[tle] {card} | BodyXY(Jupiter, observer=HST, {SIZE}x{SIZE}) '
+            f'{build_ms:.1f} ms; HST about the Earth (type 10, two SGP4 '
+            f'sets blended) {geometric_ms:.3f} ms on {hst.device}: '
+            f'{radius:.3f} km from the centre, '
+            f'{float(torch.linalg.vector_norm(hst[3:])):.4f} km/s; Jupiter '
+            f'from HST ({body.aberration_correction}) {apparent_ms:.3f} ms: '
+            f'{float(torch.linalg.vector_norm(state[:3])) / AU_KM:.6f} AU')
+        if not 6500.0 < radius < 7500.0:
+            raise SmokeFailure(f'HST is {radius} km from the Earth\'s centre')
+        bk.reset_launch_count()
+        out, main_ms, peak = synchronised(
+            lambda: pipeline.compute_backplanes(body, as_numpy=False))
+        launches = bk.launch_count()
+        log(f'[tle] {card} | compute_backplanes of the HST frame '
+            f'{main_ms:.1f} ms, kernel launches {launches}, peak '
+            f'{peak:.1f} MiB')
+        if launches != 1:
+            raise SmokeFailure(f'the HST frame launched kernel 1 {launches} '
+                               'times')
+        plain = pipeline.fused_backplanes_fn(**FLAGS)
+        check_against_plain(f'tle {SIZE}x{SIZE}', to_numpy(out),
+                            to_numpy(plain(SIZE, SIZE, *device_inputs(body))),
+                            DISC)
+        del out
+        card_body, cpu_body = (
+            pt.BodyXY('Jupiter', observer='HST', utc=UTC, sz=TLE_SMALL,
+                      device=where)
+            for where in (device, torch.device('cpu'))
+        )
+        for b in (card_body, cpu_body):
+            b.set_disc_params(*TLE_SMALL_DISC)
+        check_against_plain(
+            f'tle {TLE_SMALL}x{TLE_SMALL} card body against CPU body',
+            to_numpy(pipeline.compute_backplanes(card_body, as_numpy=False)),
+            pipeline.compute_backplanes(cpu_body), TLE_SMALL_DISC,
+        )
+        pt.clear_kernels()
+    return dict(readers, build_ms=build_ms, geometric_ms=geometric_ms,
+                apparent_ms=apparent_ms, main_ms=main_ms, radius=radius)
+
+
+# ---------------------------------------------------------------------------
 # [dsk]: the double-single kernels of ops/dsk.py (csrc/dsk.cu)
 # ---------------------------------------------------------------------------
 
@@ -2357,6 +2817,17 @@ def main() -> int:
             t_wf = time.perf_counter()
             wireframe_phase(device, card_line())
             log(f'[wireframe] phase {time.perf_counter() - t_wf:.1f} s')
+            t_cli = time.perf_counter()
+            cli_out = cli_phase(device, kdir, card_line())
+            map_errors['spline'] = max(map_errors['spline'],
+                                       cli_out['spline_err'])
+            log(f'[cli] phase {time.perf_counter() - t_cli:.1f} s')
+            t_gui = time.perf_counter()
+            gui_phase(device, card_line())
+            log(f'[gui] phase {time.perf_counter() - t_gui:.1f} s')
+            t_tle = time.perf_counter()
+            tle_phase(device, card_line())
+            log(f'[tle] phase {time.perf_counter() - t_tle:.1f} s')
             pt.clear_kernels()
         t_dsk = time.perf_counter()
         dsk_out = dsk_phase(device, card_line())

@@ -22,9 +22,12 @@ pipeline, the map coordinates, ``map_img``, the plots and the wireframe
 overlays), ``BasicBody``, ``Observation`` (FITS and image input, disc
 fitting on the body's device, ``save_observation`` and
 ``save_mapped_observation`` with their WIREFRAME HDU), the FITS/WCS
-readers and writer (:mod:`.io`), :mod:`.utils`, the kernel-path functions
-and :mod:`.pipeline`. matplotlib is imported only by the functions that
-draw. The rest of the JAX package's API is listed in ROADMAP.md.
+readers and writer (:mod:`.io`), :mod:`.utils`, the kernel-path functions,
+:mod:`.pipeline`, :mod:`.parallel`, the SPICE kernels of SPK types 2, 3,
+5, 9, 10 (SGP4), 13 and 17, the command line (``python -m
+planetmapper_tpu_torch``, :mod:`.cli`), the GUI (:func:`run_gui`,
+:mod:`.gui`) and :mod:`.kernel_downloader`. matplotlib and tkinter are
+imported only by the functions that draw or open a window.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ from .kernels.pool import (
 from .observation import Observation
 
 __all__ = [
+    'run_gui',
     'set_kernel_path',
     'get_kernel_path',
     'load_kernels',
@@ -79,8 +83,10 @@ __all__ = [
     'LonLatGridKwargs',
     'MapKwargs',
     'base',
-    'data_loader',
+    'gui',
     'utils',
+    'kernel_downloader',
+    'data_loader',
     'pipeline',
     'CITATION_STRING',
     'CITATION_DOI',
@@ -92,11 +98,25 @@ __all__ = [
 _SUBMODULES = {
     'base', 'body', 'basic_body', 'body_xy', 'progress', 'data_loader',
     'common', 'exceptions', 'pipeline', 'core', 'kernels', 'ops', 'testing',
-    'observation', 'utils', 'io', 'parallel',
+    'observation', 'utils', 'io', 'parallel', 'kernel_downloader', 'cli',
 }
 
 
 def __getattr__(name: str):
+    # The GUI module loads tkinter and matplotlib only when a window is
+    # built; without tkinter, using it raises an informative error (the
+    # reference's mock-module pattern)
+    if name in ('gui', 'run_gui'):
+        import importlib
+
+        try:
+            gui = importlib.import_module('.gui', __name__)
+        except ImportError as e:
+            from ._mock_gui_no_tk import get_mocks as _get_mocks
+
+            gui_mock, run_gui_mock = _get_mocks(e)
+            return gui_mock if name == 'gui' else run_gui_mock
+        return gui if name == 'gui' else gui.run_gui
     if name in _SUBMODULES:
         import importlib
 

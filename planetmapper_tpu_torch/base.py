@@ -225,6 +225,14 @@ class SpiceBase:
                 kernel_path=kernel_path, manual_kernels=manual_kernels
             )
 
+        # Create the CUDA context on a thread while the scene is built; a
+        # no-op after the first call and for a body off the card (a
+        # BodyXY sets its device before this runs; see the _session_warm
+        # module docstring)
+        from ._session_warm import start_session_warm
+
+        start_session_warm(getattr(self, 'device', None))
+
     # -- infrastructure shared with the reference API ----------------------
     def __repr__(self) -> str:
         return self._generate_repr()

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .._device import f64
+from ..kernels import sgp4 as sgp4_mod
 from ..kernels.pool import KernelPool
 from ..kernels.spk import (
     ChebyshevData,
@@ -128,11 +129,7 @@ class Ephemeris:
             pos, vel = _jvp_time(lambda t: equinoctial_position(data, t), et)
             state = torch.cat([pos, vel], dim=-1)
         elif isinstance(data, TleData):
-            raise NotImplementedError(
-                f'SPK type 10 (two-line elements, segment for body '
-                f'{seg.target} in {seg.source!r}) is not ported yet: see '
-                'ROADMAP.md, Queue 1, "kernels/sgp4.py"'
-            )
+            state = self._tle_state(data, et)
         elif isinstance(data, LagrangeData):
             if data.hermite:
                 # type 13: velocity is the Hermite interpolant's exact
@@ -156,6 +153,35 @@ class Ephemeris:
             vel = state[..., 3:] @ rot.T
             state = torch.cat([pos, vel], dim=-1)
         return state
+
+    def _tle_state(self, data: TleData, et):
+        """
+        Type 10: propagate the bracketing element sets with SGP4 and blend
+        linearly between their epochs (single set outside the covered span).
+        Packet selection is a ``searchsorted`` on the device of ``et``.
+        """
+        params = getattr(data, '_sgp4_params', None)
+        if params is None:
+            params = sgp4_mod.sgp4_init_packets(data.constants, data.packets)
+            data._sgp4_params = params  # type: ignore[attr-defined]
+
+        epochs = f64(data.epochs, et.device)
+        n = len(data.epochs)
+        hi = torch.clamp(
+            torch.searchsorted(epochs, et.detach().contiguous()), 0, n - 1
+        )
+        lo = torch.clamp(hi - 1, 0, n - 1)
+        state_lo = sgp4_mod.tle_state_j2000_at_index(
+            data.constants, params, lo, et
+        )
+        state_hi = sgp4_mod.tle_state_j2000_at_index(
+            data.constants, params, hi, et
+        )
+        e_lo = epochs[lo]
+        e_hi = epochs[hi]
+        gap = torch.where(e_hi > e_lo, e_hi - e_lo, torch.ones_like(e_hi))
+        w = torch.clamp((et - e_lo) / gap, 0.0, 1.0)[..., None]
+        return state_lo * (1.0 - w) + state_hi * w
 
     def _two_body_state(self, data: TwoBodyData, et):
         """

@@ -8,8 +8,12 @@ summary-record linked list, and packed segment summaries. This replaces the
 CSPICE file layer behind ``spice.furnsh``/``spkezr`` in the reference
 (planetmapper/base.py:828).
 
-The port reads DAF files with the pure-Python parser only; the JAX
-package's ctypes fast path (``kernels/daf_native.py``) is not ported yet.
+This module's pure-Python parser reads every DAF by default. The JAX
+package's C++ reader (``native/daf_reader.cpp`` of this package, built and
+bound by :mod:`.daf_native`) gives the same words but is opt-in here
+(``PLANETMAPPER_TPU_NATIVE=1``): it copies the file twice where the parser
+views one read in place, and was the slower of the two on the 1.3 MB
+synthetic SPK and on a 32 MiB one (``chip_smoke.py``'s ``[tle]`` phase).
 """
 
 from __future__ import annotations
@@ -50,7 +54,17 @@ class DAFFile:
 
 
 def read_daf(path: str) -> DAFFile:
-    """Read a DAF file with the pure-Python parser."""
+    """
+    Read a DAF file with the pure-Python parser, or with
+    ``PLANETMAPPER_TPU_NATIVE=1`` the native C++ reader when it builds (see
+    :mod:`.daf_native`).
+    """
+    from . import daf_native
+
+    if daf_native.native_requested():
+        native = daf_native.read_daf_native(path)
+        if native is not None:
+            return native
     return read_daf_python(path)
 
 

@@ -13,8 +13,7 @@ used in practice):
 - Type 3: Chebyshev position and velocity
 - Type 5:  discrete two-body-propagated states
 - Type 9/13: Lagrange / Hermite interpolation of discrete states
-- Type 10: Space Command two-line elements (SGP4): parsed, but evaluation
-  is not ported yet (ROADMAP.md, Queue 1) and raises NotImplementedError
+- Type 10: Space Command two-line elements (SGP4), see ``sgp4.py``
 - Type 17: equinoctial elements
 """
 

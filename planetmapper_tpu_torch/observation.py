@@ -17,8 +17,7 @@ getters. ``data`` and ``header`` stay numpy and :class:`io.fits.Header`.
 Both saves write the WIREFRAME overlay HDU by default
 (``include_wireframe=True``), which needs matplotlib to render: without it
 they raise the ``ImportError`` before any work and write no file.
-
-Not yet ported: the GUI (``run_gui`` raises).
+``run_gui`` opens the GUI (:mod:`.gui`) on this observation.
 """
 
 from __future__ import annotations
@@ -1018,12 +1017,13 @@ class Observation(BodyXY):
             header.remove(key, ignore_missing=True, remove_all=True)
 
     def run_gui(self) -> list[tuple[float, float]]:
-        """The interactive GUI is not ported yet (ROADMAP.md Queue 1 item 7,
-        the shells): raises :class:`NotImplementedError`."""
-        raise NotImplementedError(
-            'run_gui: the GUI is not ported to planetmapper_tpu_torch yet '
-            '(ROADMAP.md Queue 1 item 7, shells and peripherals)'
-        )
+        """Run the interactive GUI to fit this observation in place."""
+        from .gui import GUI
+
+        gui = GUI(allow_open=False)
+        gui.set_observation(self)
+        gui.run()
+        return gui.click_locations
 
 
 def _try_get_header_value(

@@ -29,8 +29,22 @@ sampled every :data:`SATELLITE_STEP_S` seconds relative to Jupiter:
 - Amalthea (505), a = 181,366 km, period 0.498 d, with no ``RADII``, so
   that ``Body.create_other_body`` falls back to a ``BasicBody``.
 
-The Sun, Earth and Jupiter segments are the same words either way, and the
-default files are byte for byte those written without the flag.
+With ``tle=True`` the SPK also carries SPK type 10 (two-line element)
+segments about the Earth (399), in the generic-segment layout of
+CSPICE's ``spkw10`` (NMETA 17) with the WGS-72 constants of Spacetrack
+Report #3 (:data:`TLE_CONSTANTS`):
+
+- the Hubble Space Telescope (-48): an HST-like near-earth series at
+  28.47 deg, 15.09 rev/day and e = 2.7e-4, one element set every
+  :data:`TLE_STEP_S` seconds across the coverage, each advanced from the
+  first by SGP4's secular rates, so that an evaluation blends two sets;
+- two deep-space resonant objects for the tests (:data:`DEEP_TLE_IDS`): a
+  geosynchronous set (24 h, 1:1 resonance, 0.03 deg: the Lyddane branch)
+  and a Molniya set (12 h, 2:1 resonance, e = 0.7), each three element
+  sets a week apart about 2005-01-01.
+
+The Sun, Earth and Jupiter segments are the same words whatever the
+flags, and the default files are byte for byte those written without them.
 
 The constants are public IAU/NAIF values; nothing is downloaded. These
 kernels are not real ephemerides: they exist so that the geometry code
@@ -57,6 +71,22 @@ STEP_S = 3600.0
 #: Sampling step of the satellite segments: Io moves 0.025 rad a step, so
 #: the Hermite window interpolates its orbit to ~1e-12 km
 SATELLITE_STEP_S = 600.0
+
+#: The WGS-72 geophysical constants of the type 10 segments: J2, J3, J4,
+#: KE [ER^1.5/min], QO, SO, ER [km], AE (Spacetrack Report #3)
+TLE_CONSTANTS = (1.082616e-3, -2.53881e-6, -1.65597e-6, 0.0743669161,
+                 120.0, 78.0, 6378.135, 1.0)
+#: Spacing of the HST element sets
+TLE_STEP_S = 2 * 86400.0
+#: The HST series' first element set: (B* [1/ER], inclination, node,
+#: eccentricity, argument of perigee, mean anomaly [deg], mean motion
+#: [rev/day])
+HST_ELEMENTS = (1.5e-5, 28.47, 120.0, 2.7e-4, 80.0, 200.0, 15.09)
+#: The deep-space test objects: NAIF ID -> elements as HST_ELEMENTS
+DEEP_TLE_IDS = {-9001: (0.0, 0.03, 80.0, 2.0e-4, 30.0, 200.0, 1.0027379),
+                -9002: (0.0, 63.4, 120.0, 0.7, 270.0, 10.0, 2.0056)}
+#: Epochs of the deep-space element sets, days from 2005-01-01
+DEEP_TLE_DAYS = (-7.0, 0.0, 7.0)
 
 #: Circular satellite orbits about Jupiter: NAIF ID -> (radius [km],
 #: period [days], argument of latitude on 2005-01-01T00:00 TDB [deg])
@@ -240,6 +270,104 @@ def _type13_words(epochs: np.ndarray, states: np.ndarray) -> np.ndarray:
     ])
 
 
+def _nutation(t: np.ndarray) -> np.ndarray:
+    """
+    (n, 4) nutation words of type 10 packets at epochs ``t``: obliquity,
+    longitude [rad] and their rates [rad/s], from the 18.6-year lunar-node
+    term alone (9.2 and -17.2 arcsec).
+    """
+    arcsec = math.pi / (180.0 * 3600.0)
+    rate = -math.radians(0.0529538) / 86400.0  # the Moon's node [rad/s]
+    node = math.radians(125.04) + rate * t
+    return np.stack([
+        9.2 * arcsec * np.cos(node), -17.2 * arcsec * np.sin(node),
+        -9.2 * arcsec * rate * np.sin(node),
+        -17.2 * arcsec * rate * np.cos(node),
+    ], axis=-1)
+
+
+def tle_packets(elements, epochs: np.ndarray) -> np.ndarray:
+    """
+    (n, 14) type 10 packets (CSPICE ``spkw10`` order: NDT20, NDD60, B*,
+    inclination, node, eccentricity, argument of perigee, mean anomaly,
+    mean motion [rad/min], epoch, then the nutation words) of one object
+    with ``elements`` (as :data:`HST_ELEMENTS`) at ``epochs[0]``; the later
+    sets advance the node, the perigee and the mean anomaly by SGP4's
+    secular rates.
+    """
+    from ..kernels.sgp4 import sgp4_init_packets
+
+    bstar, incl, node, ecc, argp, mean_anom, rev_day = elements
+    deg = math.pi / 180.0
+    epochs = np.asarray(epochs, dtype=np.float64)
+    first = np.array([[
+        0.0, 0.0, bstar, incl * deg, node * deg, ecc, argp * deg,
+        mean_anom * deg, rev_day * 2.0 * math.pi / 1440.0, epochs[0],
+        0.0, 0.0, 0.0, 0.0,
+    ]])
+    rates = sgp4_init_packets(np.asarray(TLE_CONSTANTS), first)
+    minutes = (epochs - epochs[0]) / 60.0
+    packets = np.repeat(first, epochs.size, axis=0)
+    twopi = 2.0 * math.pi
+    for col, key in ((4, 'nodedot'), (6, 'argpdot'), (7, 'mdot')):
+        packets[:, col] = np.mod(first[0, col] + rates[key][0] * minutes,
+                                 twopi)
+    packets[:, 9] = epochs
+    packets[:, 10:] = _nutation(epochs)
+    return packets
+
+
+def _type10_words(packets: np.ndarray) -> np.ndarray:
+    """
+    Type 10 payload, a generic segment (NAIF "generic segments"): the
+    constants, the packets, their epochs as reference values, the
+    reference directory (every 100th epoch), then the 17 meta items with
+    0-based bases (the parsers read neither directory type).
+    """
+    n, size = packets.shape
+    epochs = packets[:, 9]
+    directory = epochs[99::100][: (n - 1) // 100]
+    pktbas = len(TLE_CONSTANTS)
+    refbas = pktbas + n * size
+    rdrbas = refbas + n
+    pdrbas = rdrbas + directory.size
+    meta = [
+        0, len(TLE_CONSTANTS),  # CONBAS, NCON
+        rdrbas, directory.size, 0,  # RDRBAS, NRDR, RDRTYP
+        refbas, n,  # REFBAS, NREF
+        pdrbas, 0, 0,  # PDRBAS, NPDR, PDRTYP
+        pktbas, n,  # PKTBAS, NPKT
+        pdrbas, 0,  # RSVBAS, NRSV
+        size, 0,  # PKTSZ, PKTOFF
+        17,  # NMETA
+    ]
+    return np.concatenate([
+        TLE_CONSTANTS, packets.reshape(-1), epochs, directory,
+        np.asarray(meta, dtype=np.float64),
+    ])
+
+
+def tle_segments() -> list[tuple]:
+    """The type 10 segments that ``tle=True`` adds (see the module's
+    docstring), as ``_daf_bytes`` takes them."""
+    start, end = coverage()
+    epochs = start + TLE_STEP_S * np.arange(
+        int(round((end - start) / TLE_STEP_S)) + 1
+    )
+    segments = [(-48, 399, 1, 10, float(epochs[0]), float(epochs[-1]),
+                 'SYNTHETIC HST', _type10_words(
+                     tle_packets(HST_ELEMENTS, epochs)))]
+    t_ref = calendar_to_j2000_seconds(2005, 1, 1)
+    deep_epochs = t_ref + 86400.0 * np.asarray(DEEP_TLE_DAYS)
+    for body, elements in DEEP_TLE_IDS.items():
+        segments.append(
+            (body, 399, 1, 10, float(deep_epochs[0]), float(deep_epochs[-1]),
+             f'SYNTHETIC {body}',
+             _type10_words(tle_packets(elements, deep_epochs)))
+        )
+    return segments
+
+
 def _daf_bytes(segments: list[tuple]) -> bytes:
     """
     Little-endian DAF/SPK bytes: file record, one summary record, one name
@@ -284,6 +412,23 @@ def _daf_bytes(segments: list[tuple]) -> bytes:
     return bytes(record) + summary.tobytes() + bytes(names) + data.tobytes()
 
 
+def write_sized_spk(path: str | os.PathLike, mib: int = 32,
+                    n_segments: int = 13, seed: int = 0) -> str:
+    """
+    Write a DAF/SPK of ``n_segments`` type 13 segments (seeded words, not
+    an ephemeris) filling about ``mib`` MiB, for timing the DAF readers at
+    a planetary ephemeris's size (a de440s-like file: 32 MiB, 14
+    segments; one summary record holds 13). Returns the path.
+    """
+    rng = np.random.default_rng(seed)
+    words = mib * 2**20 // 8 // n_segments
+    segments = [(k, 0, 1, 13, 0.0, 1.0, f'SIZED {k}', rng.normal(size=words))
+                for k in range(1, n_segments + 1)]
+    with open(path, 'wb') as f:
+        f.write(_daf_bytes(segments))
+    return os.fspath(path)
+
+
 def _epochs(step: float) -> np.ndarray:
     start, end = coverage()
     return start + step * np.arange(int(round((end - start) / step)) + 1)
@@ -291,10 +436,12 @@ def _epochs(step: float) -> np.ndarray:
 
 def write_synthetic_kernels(
     dirpath: str | os.PathLike, seed: int = 0, satellites: bool = False,
+    tle: bool = False,
 ) -> list[str]:
     """
     Write the synthetic LSK, PCK and SPK into ``dirpath`` (created if
-    missing) and return their paths; ``satellites`` adds Io and Amalthea
+    missing) and return their paths; ``satellites`` adds Io and Amalthea,
+    ``tle`` the type 10 segments of HST and the deep-space test objects
     (see the module's docstring).
     """
     dirpath = os.fspath(dirpath)
@@ -323,6 +470,8 @@ def write_synthetic_kernels(
                 (body, 599, 1, 13, float(epochs[0]), float(epochs[-1]),
                  f'SYNTHETIC {body}', _type13_words(epochs, moon))
             )
+    if tle:
+        segments.extend(tle_segments())
     spk = os.path.join(dirpath, 'synthetic.bsp')
     with open(spk, 'wb') as f:
         f.write(_daf_bytes(segments))

@@ -601,8 +601,9 @@ def test_getters_copy_each_plane_once(bodies):
 # Exports and BasicBody
 # ---------------------------------------------------------------------------
 
-#: The JAX package's exports whose modules are not ported yet (ROADMAP)
-NOT_PORTED = {'run_gui', 'gui', 'kernel_downloader'}
+#: The JAX package's exports whose modules are not ported (none since the
+#: GUI, the CLI and the kernel downloader were ported)
+NOT_PORTED = set()
 
 
 def test_exports_match_jax():
@@ -611,11 +612,11 @@ def test_exports_match_jax():
         assert getattr(tpm, name) is not None, name
     for name in ('body', 'basic_body', 'body_xy', 'base', 'core', 'kernels',
                  'ops', 'progress', 'common', 'exceptions', 'data_loader',
-                 'observation', 'utils', 'io'):
+                 'observation', 'utils', 'io', 'gui', 'kernel_downloader',
+                 'cli'):
         assert getattr(tpm, name).__name__ == f'planetmapper_tpu_torch.{name}'
     assert tpm.Observation is tpm.observation.Observation
-    with pytest.raises(AttributeError):
-        tpm.gui
+    assert tpm.run_gui is tpm.gui.run_gui
     assert tpm.BodyBase is tpm.base.BodyBase
     for name in ('AngularCoordinateKwargs', 'WireframeKwargs',
                  'LonLatGridKwargs'):

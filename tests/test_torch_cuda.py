@@ -1139,3 +1139,54 @@ def test_dsk_faults_raise(device):
     before = dsk_kernel.launch_count('dsk_pairs')
     dsk_kernel.pairs('div', a, a)
     assert dsk_kernel.launch_count('dsk_pairs') == before + 1
+
+
+# ---------------------------------------------------------------------------
+# The shells and SPK type 10 on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope='module')
+def tle_kernel_path(tmp_path_factory, device):
+    """Synthetic kernels with the type 10 segments (HST, -48)."""
+    path = tmp_path_factory.mktemp('synthetic_kernels_tle')
+    write_synthetic_kernels(path, seed=0, tle=True)
+    previous, source = tpm.get_kernel_path(return_source=True)
+    tpm.clear_kernels()
+    tpm.set_kernel_path(path)
+    yield path
+    tpm.clear_kernels()
+    tpm.set_kernel_path(previous if source == 'set_kernel_path()' else None)
+
+
+def test_hst_body_kernel_planes_match_cpu_body(tle_kernel_path, device):
+    """Jupiter seen from HST (the observer on the type 10 chain): the card
+    body's kernel 1 planes against a CPU body's plain version."""
+    disc = (64.3, 60.7, 50.2, 33.0)
+    bodies = [tpm.BodyXY('Jupiter', observer='HST',
+                         utc='2005-01-01T00:00:00', nx=128, ny=120,
+                         device=d) for d in (device, 'cpu')]
+    for body in bodies:
+        body.set_disc_params(*disc)
+    before = bk.launch_count()
+    got = _numpy(pipeline.compute_backplanes(bodies[0], as_numpy=False))
+    assert bk.launch_count() == before + 1
+    ref = pipeline.compute_backplanes(bodies[1])
+    reports = compare.compare_backplanes(got, ref, float32_ulps=1)
+    assert not compare.failures(reports), compare.failures(reports)
+    assert np.isfinite(got['EMISSION']).sum() > 1000
+
+
+def test_prewarm_runs_the_kernels_on_the_card(kernel_path, device, capsys):
+    """``--prewarm 64``: the libraries built or loaded, kernel 1 and the map
+    spline kernel launched, the steps' lines printed."""
+    from planetmapper_tpu_torch import cli
+
+    before = bk.launch_count(), msp.LIBRARY.launch_count()
+    cli.main(['--prewarm', '64'])
+    assert bk.launch_count() == before[0] + 1
+    assert msp.LIBRARY.launch_count() > before[1]
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith('prewarm: 4 kernel libraries built or loaded')
+    assert lines[1].startswith('prewarm JUPITER/EARTH 64x64: backplane')
+    assert lines[2].startswith('prewarm 64x64: map reprojection ran in')
+    assert lines[3].startswith('kernel build directory: ')

@@ -36,6 +36,7 @@ import gzip
 import os
 import subprocess
 import sys
+import unittest.mock as mock
 
 import jax  # noqa: F401  (the JAX package under test runs on it)
 import numpy as np
@@ -655,9 +656,18 @@ def test_append_to_header_matches_jax(observations):
 
 
 def test_gui_raises_before_any_file(navigated, tmp_path):
+    """``run_gui`` (it raised before the GUI was ported) builds the GUI
+    as the JAX package does, with the GUI class mocked: no window, no
+    file."""
     _, t_obs = navigated
-    with pytest.raises(NotImplementedError, match='Queue 1 item 7'):
-        t_obs.run_gui()
+    with mock.patch('planetmapper_tpu_torch.gui.GUI') as mock_gui:
+        instance = mock_gui.return_value
+        instance.click_locations = [(1.0, 2.0)]
+        out = t_obs.run_gui()
+    mock_gui.assert_called_once_with(allow_open=False)
+    instance.set_observation.assert_called_once_with(t_obs)
+    instance.run.assert_called_once_with()
+    assert out == [(1.0, 2.0)]
     assert not any(tmp_path.iterdir())
 
 

@@ -2,8 +2,8 @@
 The PyTorch port's scene layer against the JAX package, on the synthetic
 SPICE kernels written by ``planetmapper_tpu_torch.testing``:
 
-- importing the port, its exports and its lazy submodules pulls in
-  neither JAX nor matplotlib;
+- importing the port, its exports and its lazy submodules (the GUI, the
+  CLI and SGP4 among them) pulls in neither JAX, matplotlib nor tkinter;
 - the synthetic kernels load with the JAX package's own readers and
   reproduce the analytic states they were written from;
 - SPK evaluators, apparent states (``spkezr``), IAU frame rotations and the
@@ -39,8 +39,12 @@ from planetmapper_tpu_torch.core import scene as t_scene
 from planetmapper_tpu_torch.kernels import pool as t_pool
 from planetmapper_tpu_torch.kernels import spk as t_spk
 from planetmapper_tpu_torch.testing.synthetic_kernels import (
+    HST_ELEMENTS,
+    TLE_CONSTANTS,
+    TLE_STEP_S,
     coverage,
     synthetic_states,
+    tle_packets,
     write_synthetic_kernels,
 )
 
@@ -73,8 +77,9 @@ def kernel_files(tmp_path_factory):
 
 @pytest.mark.parametrize('blocked', [False, True])
 def test_import_pulls_in_no_jax_or_matplotlib(blocked):
-    """Importing every module (the plotting ones and ``parallel`` too)
-    loads no JAX, no optax, no matplotlib and no PIL; with matplotlib made
+    """Importing every module (the plotting ones, ``parallel``, the GUI,
+    the CLI and SGP4 too) loads no JAX, no optax, no matplotlib, no tkinter
+    and no PIL; with matplotlib made
     unimportable the package still imports, and a CPU BodyXY still builds
     and moves its disc (its matplotlib transforms are made on first use
     only)."""
@@ -91,6 +96,9 @@ def test_import_pulls_in_no_jax_or_matplotlib(blocked):
         'from planetmapper_tpu_torch.io import fits, wcs\n'
         'from planetmapper_tpu_torch.parallel import (fit, multihost,\n'
         '    sharding, timeseries)\n'
+        'from planetmapper_tpu_torch import (gui, cli, kernel_downloader,\n'
+        '    _session_warm, _assets, _mock_gui_no_tk)\n'
+        'from planetmapper_tpu_torch.kernels import sgp4, daf_native\n'
         'parallel = [getattr(pt.parallel, n) for n in pt.parallel.__all__]\n'
         'exports = [getattr(pt, name) for name in pt.__all__]\n'
         'lazy = [getattr(pt, name) for name in sorted(pt._SUBMODULES)]\n'
@@ -105,7 +113,7 @@ def test_import_pulls_in_no_jax_or_matplotlib(blocked):
         '    b.limb_xy(npts=12)\n'
         '    pt.clear_kernels()\n'
         'bad = [m for m in ("jax", "optax", "matplotlib", "PIL",\n'
-        '                   "planetmapper_tpu") '
+        '                   "tkinter", "planetmapper_tpu") '
         'if sys.modules.get(m) is not None]\n'
         'print(bad)\n'
         'sys.exit(1 if bad else 0)\n'
@@ -230,10 +238,28 @@ def test_segment_states_match_jax(kind):
 
 
 def test_tle_segments_raise_not_implemented():
-    data = t_spk.TleData(np.zeros(8), np.zeros(1), np.zeros((1, 9)))
-    seg = t_spk.SpkSegment(-5, 399, 1, 10, 0.0, 1.0, data, 'x.bsp')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        t_eph.Ephemeris(t_pool.KernelPool()).segment_state(seg, 0.5)
+    """Type 10 segments evaluate (they raised before SGP4 was ported):
+    the synthetic HST series' bracketing-set blend against the JAX
+    package's, inside, at and outside the element sets' epochs."""
+    epochs = ET_2005 + TLE_STEP_S * np.arange(4)
+    data = dict(constants=np.asarray(TLE_CONSTANTS), epochs=epochs,
+                packets=tle_packets(HST_ELEMENTS, epochs))
+    j_seg = j_spk.SpkSegment(-48, 399, 1, 10, 0.0, 1.0, j_spk.TleData(**data))
+    t_seg = t_spk.SpkSegment(-48, 399, 1, 10, 0.0, 1.0, t_spk.TleData(**data))
+    t = np.concatenate([
+        epochs[0] + np.random.default_rng(5).uniform(-4e4, 3.5 * TLE_STEP_S,
+                                                     9),
+        epochs,
+    ])
+    j_state = np.asarray(
+        j_eph.Ephemeris(j_pool.KernelPool()).segment_state(j_seg, t)
+    )
+    t_state = t_eph.Ephemeris(t_pool.KernelPool()).segment_state(
+        t_seg, t
+    ).numpy()
+    np.testing.assert_allclose(t_state[:, :3], j_state[:, :3], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(t_state[:, 3:], j_state[:, 3:], rtol=0, atol=1e-9)
+    assert np.all(np.abs(np.linalg.norm(t_state[:, :3], axis=1) - 6915) < 30)
 
 
 # ---------------------------------------------------------------------------
