@@ -5,7 +5,9 @@ Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds the port's five kernel libraries (``planetmapper_tpu_torch/csrc/
 *.cu``) with nvcc, one process each, all at once, and prints each kernel
-instance's registers and spills. Then, on Jupiter seen
+instance's registers and spills, and the resident blocks of the
+backplane kernels (single-frame, batched in linear blocks and in tiles),
+the PCHIP kernel and map_smooth. Then, on Jupiter seen
 from the Earth on 2005-01-01 (synthetic SPICE kernels written at run time):
 
 - backplanes: drives ``pipeline.compute_backplanes`` on a 2048x2048 BodyXY
@@ -16,14 +18,17 @@ from the Earth on 2005-01-01 (synthetic SPICE kernels written at run time):
 - batch: ``pipeline.compute_backplanes_batch`` of 8 disc sets at
   2048x2048 (frames this large take one single-frame launch each), each
   frame bit for bit against a single call; the batched kernel forced on
-  the same scenes, bit for bit with the single-frame launches and against
-  its plain version; both routes by device time and the entry point
-  against 8 synchronised single calls, in turns.
+  the same scenes (in 32x8 tiles), bit for bit with the single-frame
+  launches and against its plain version, and at 640x640 and 768x768 (the
+  two sides of the route's threshold) bit for bit with single-frame
+  launches; both routes by device time and the entry point against 8
+  synchronised single calls, in turns.
 - timeseries: ``parallel.backplane_time_series`` of bench.py:343's 1000
-  epochs at 50x50 (one launch of the batched kernel), the call split into
-  the anchors, the packing, the kernel and the copy out; 3 epochs against
-  per-body calls; the 1000 scenes with all 26 planes against the plain
-  version and timed beside the bound; 8 epochs at 2048x2048.
+  epochs at 50x50 (one launch of the batched kernel, in linear blocks),
+  the call split into the anchors, the packing, the kernel and the copy
+  out; 3 epochs against per-body calls; the 1000 scenes with all 26 planes
+  bit for bit with 1000 single-frame launches, against the plain version
+  and timed beside the bound; 8 epochs at 2048x2048.
 - sharded: a 4-entry mesh of the one card, ``sharded_backplanes`` at
   2048x2048 and ``sharded_map_img`` from the 1024x1024 frame, bit for bit
   with the unsharded calls; fit: ``fit_disc_gradient`` on the
@@ -294,10 +299,16 @@ def build_phase() -> None:
                 op = re.search(r'(dsk_pairs|dsk_atan2)(?:ILi(\d)E)?', line)
                 entry = f'<kx={degrees[1]}, ky={degrees[2]}> ' if degrees \
                     else ''
-                if 'backplanes26_batch_kernel' in line:
-                    entry = 'batched '
+                if 'backplanes26_batch_kernelILb0E' in line:
+                    entry = 'batched, linear blocks '
+                elif 'backplanes26_batch_kernelILb1E' in line:
+                    entry = 'batched, tiles '
                 elif 'backplanes26_kernelILb1E' in line:
                     entry = 'frame of a batch '
+                elif 'pchip_axis_kernelILi1E' in line:
+                    entry = 'a line a block '
+                elif 'pchip_axis_kernelILi4E' in line:
+                    entry = '4 adjacent lines a block '
                 if op:
                     entry = (f'{op[1]}<{dskk.OPS[int(op[2])]}> ' if op[2]
                              else f'{op[1]} ')
@@ -307,8 +318,11 @@ def build_phase() -> None:
                 log(f'[build] {library.name} {entry}ptxas: '
                     f'{line.split(":", 1)[-1].strip()}; {spills}')
     occ = bk.occupancy()
-    for name, kernel in (('backplanes26', occ),
-                         ('backplanes26_batch', bk.occupancy(batch=True))):
+    for name, kernel in (
+            ('backplanes26', occ),
+            ('backplanes26_batch, linear blocks', bk.occupancy('linear')),
+            ('backplanes26_batch, tiles', bk.occupancy('tiles')),
+            ('pchip_axis, 4 adjacent lines a block', pk.occupancy())):
         log(f'[build] {name} on {torch.cuda.get_device_name(0)}: '
             f'{kernel["registers"]} registers, {kernel["local_bytes"]} bytes '
             f'of local memory per thread, {kernel["blocks_per_sm"]} resident '
@@ -528,6 +542,9 @@ def timing_phase(body, args, card: str) -> dict[str, float]:
 
 #: The disc sweep of [batch]: 8 disc sets about the main path's disc
 BATCH_FRAMES = 8
+#: [batch]: frame sizes on each side of the route's threshold
+#: (ops/backplanes_kernel.FRAME_LAUNCH_PIXELS)
+ROUTE_SIZES = (640, 768)
 #: bench.py:343's time series: 1000 epochs 60 s apart of a 50x50 frame
 SERIES = dict(frames=1000, size=50, step_s=60.0, names=('EMISSION',
                                                         'LON-GRAPHIC'))
@@ -567,6 +584,40 @@ def equal_planes(got: dict, ref: dict) -> list[str]:
                                torch.nan_to_num(ref[k]))]
 
 
+def route_checks(device) -> None:
+    """
+    [batch]: on each side of the route's threshold (ROUTE_SIZES), the disc
+    sweep's frames through the batched kernel and through single-frame
+    launches, bit for bit (26 planes); the route and layout each size
+    takes.
+    """
+    for size in ROUTE_SIZES:
+        body = pt.BodyXY('Jupiter', observer='EARTH', utc=UTC, sz=size,
+                         device=device)
+        scale = size / SIZE
+        disc = (*(v * scale for v in DISC[:3]), DISC[3])
+        body.set_disc_params(*disc)
+        discs = sweep_discs(disc)
+        scenes = bk.pack_scenes(affines(body, discs), discs,
+                                np.asarray(body.radii, dtype=np.float64),
+                                body._get_pipeline_anchors())
+        impl, _ = pipeline.select_pipeline_impl(body, size, size)
+        frames = impl.run_batch(scenes, size, size, device,
+                                frame_launches=True)
+        batched = impl.run_batch(scenes, size, size, device,
+                                 frame_launches=False)
+        bad = equal_planes(batched, frames)
+        if bad:
+            raise SmokeFailure(f'{size}x{size}: the batched kernel differs '
+                               f'from the single-frame launches in {bad}')
+        plan = bk.batch_plan(BATCH_FRAMES, size, size)
+        log(f'[batch] {BATCH_FRAMES}x{size}x{size}: the batched kernel '
+            f'({"tiles" if plan.tiles else "linear blocks"}) equals the '
+            'single-frame launches bit for bit (26 planes); the route takes '
+            + ('single-frame launches' if bk.frame_route(size, size)
+               else 'the batched kernel'))
+
+
 def batch_phase(body, card: str) -> None:
     """
     [batch]: compute_backplanes_batch of the disc sweep at 2048x2048, all
@@ -581,7 +632,7 @@ def batch_phase(body, card: str) -> None:
     xys = affines(body, discs)
     keep = body.get_disc_params()
     device = body.device
-    frame_route = SIZE * SIZE >= bk.FRAME_LAUNCH_PIXELS
+    frame_route = bk.frame_route(SIZE, SIZE)
     torch.cuda.synchronize()
     live = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -619,15 +670,17 @@ def batch_phase(body, card: str) -> None:
     anchors = body._get_pipeline_anchors()
     radii = np.asarray(body.radii, dtype=np.float64)
     scenes = bk.pack_scenes(xys, discs, radii, anchors)
-    scenes_dev = torch.from_numpy(scenes).to(device)
-    batched = impl.run_batch(scenes_dev, SIZE, SIZE, device,
+    batched = impl.run_batch(scenes, SIZE, SIZE, device,
                              frame_launches=False)
     bad = equal_planes(batched, out)
     if bad:
         raise SmokeFailure(f'the batched kernel differs from the '
                            f'single-frame launches in {bad}')
-    log(f'[batch] the batched kernel on the {BATCH_FRAMES} scenes equals the '
-        'single-frame launches bit for bit (26 planes)')
+    plan = bk.batch_plan(BATCH_FRAMES, SIZE, SIZE)
+    log(f'[batch] the batched kernel on the {BATCH_FRAMES} scenes '
+        f'({"tiles" if plan.tiles else "linear blocks"}, {len(plan.launches)} '
+        'launch) equals the single-frame launches bit for bit (26 planes)')
+    route_checks(device)
     body.set_disc_params(*discs[0])
     args0 = device_inputs(body)
     plain = pipeline.fused_backplanes_fn(**FLAGS)
@@ -644,7 +697,7 @@ def batch_phase(body, card: str) -> None:
 
     device_ms = in_turns({
         'batched kernel': (lambda: impl.run_batch(
-            scenes_dev, SIZE, SIZE, device, frame_launches=False), 10),
+            scenes, SIZE, SIZE, device, frame_launches=False), 10),
         'single-frame launches': (lambda: impl.run_batch(
             scenes, SIZE, SIZE, device, frame_launches=True), 10),
         'plain, frame by frame': (plain_frames, 1),
@@ -748,9 +801,21 @@ def timeseries_phase(device, card: str) -> dict:
         check_against_plain(f'time series epoch {i} vs its own body', got,
                             ref, body.get_disc_params())
 
-    # the kernels line: the 1000 scenes with all 26 planes
+    # the kernels line: the 1000 scenes with all 26 planes, bit for bit
+    # against single-frame launches
     full, _ = pipeline.select_pipeline_impl(body, size, size)
     every = full.run_batch(scenes_dev, size, size, device)
+    bad = equal_planes(every, full.run_batch(scenes, size, size, device,
+                                             frame_launches=True))
+    if bad:
+        raise SmokeFailure(f'the {n} batched frames differ from single-frame '
+                           f'launches in {bad}')
+    plan = bk.batch_plan(n, size, size)
+    log(f'[timeseries] the {n} scenes with 26 planes through the batched '
+        f'kernel ({"tiles" if plan.tiles else "linear blocks"} of '
+        f'{plan.threads} threads, {plan.blocks_per_frame} blocks a frame, '
+        f'{len(plan.launches)} launch) equal {n} single-frame launches bit '
+        'for bit')
     plain = pipeline.fused_backplanes_fn(**FLAGS)
     d_radii = f64(radii, device)
     d_disc = f64(np.array(discs[0]), device)

@@ -43,26 +43,48 @@
 //   as float64 into its own (ny, nx) buffer, so no pass widens it later.
 //
 // - Frames (the batch entry; replaces the lax.map of build_pallas_pipeline
-//   over disc sets at planetmapper_tpu/pipeline.py:1904-1908 and the vmap of
-//   parallel/timeseries.py over epochs). The per-pixel algebra is written
-//   once (backplanes_pixel), templated on where the scene comes from:
-//   backplanes26_kernel reads its scene from its parameters (ParamScene:
-//   constant-bank operands, no register holds a scene value);
-//   backplanes26_batch_kernel takes N scenes as one device array and a
-//   third grid axis of frames (blockIdx.z, strided past the grid's z limit
-//   of 65535), and reads its frame's scene through the read-only cache
-//   (GlobalScene: a broadcast __ldg per use). Output planes are (NP, N, ny,
-//   nx), so each plane of the batch is one contiguous (N, ny, nx) view. A
-//   scene read from memory costs the batched kernel registers that constant
-//   operands do not (80 registers with 64 bytes of spills, against none):
-//   1.26x the single-frame kernel's time per frame at 2048^2 and 1.04x at
-//   512^2, but 0.73x at 256^2 and 0.26 us a frame for 1000 frames of 50^2,
-//   where the launches dominate (scripts/time_backplane_batch.py on an
-//   H100, which also times scenes staged in shared memory, and volatile
-//   reads: none faster). So the wrapper sends frames of 512^2 pixels or
-//   more to backplanes26_launch_frames: N launches of the single-frame
-//   kernel from one C call (its kFrameOfBatch instance), each with its scene
-//   by value, into the same (NP, N, ny, nx) layout.
+//   over disc sets at planetmapper_tpu/pipeline.py:1904-1908 and the vmap
+//   of parallel/timeseries.py:100 over epochs). The per-pixel algebra is
+//   written once (backplanes_pixel), templated on where the scene comes
+//   from (ParamScene: the single-frame kernel's parameters, constant-bank
+//   operands; BlockScene, GlobalScene: below). Output planes are (NP, N,
+//   ny, nx), so each plane of the batch is one contiguous (N, ny, nx)
+//   view. The wrapper's launch plan (ops/backplanes_kernel.py batch_plan)
+//   picks the layout by the frame:
+//   - backplanes26_batch_tiles_kernel: frames of 128^2 or more whose 32x8
+//     tiles fill 85% of their lanes. The single-frame kernel's tiles and
+//     ray tables, a frame a grid layer, 38 frames a launch with their
+//     scenes in the launch's parameters (32,224 of its 32,764 bytes): an
+//     indexed constant-bank read that every thread of a warp shares. 0
+//     bytes of spills, against 8 when the tiles read their scenes from
+//     memory (__ldg): 8 frames of 512^2 0.220 ms against 0.255 and 0.241
+//     for 8 single-frame launches; 2048^2 1.13x the launches against
+//     1.28x.
+//   - backplanes26_batch_kernel: narrower frames (the time series' 50x50,
+//     whose tiles keep 70% of their lanes: a 2x7 grid for 2,500 pixels,
+//     18 of 32 lanes live in the second column). Linear blocks: block b of
+//     the launch is 256 consecutive pixels of frame b / blocks_per_frame in
+//     row-major order (the frame's last block masked), so every warp but a
+//     frame's last is full and stores 32 consecutive values a plane; each
+//     pixel computes its own ray trigonometry (4 sincospi); the scenes an
+//     (N, 106) device array read through the read-only cache, one launch
+//     for any N. 80 registers, 16 bytes of spills. 1000 frames of 50x50,
+//     26 planes: 0.393-0.396 ms against the first design's 0.550-0.555 ms
+//     (32x8 tiles reading their scenes with __ldg, frames on blockIdx.z).
+//   Candidates that lost (scripts/time_backplane_batch.py, H100 80GB HBM3
+//   at 700 W, in turns): the linear blocks' scenes in a __constant__ bank
+//   of 77 (a device-to-device copy and a launch a chunk: 200 bytes of
+//   spills, 0.66-0.69 ms) or in the parameters (38 a launch: 200 bytes of
+//   spills, 0.68-0.69 ms), the linear blocks' trigonometry from tables of
+//   their rows and columns (a barrier; 0.2-2.9% slower at every size), the
+//   tiles reading their scenes with __ldg (above).
+//   In tiles the batched kernel beats 8 single-frame launches up to 640^2
+//   (0.64x at 256^2, 0.91x at 512^2, 0.996x at 640^2) and loses from
+//   768^2 (1.04x; 1.08x at 1024^2, 1.13x at 2048^2), so the wrapper sends
+//   frames of 768^2 pixels or more to backplanes26_launch_frames: N
+//   launches of the single-frame kernel from one C call (its
+//   kFrameOfBatch instance), each with its scene by value, into the same
+//   (NP, N, ny, nx) layout.
 //
 // Precision of each plane (bars: tests/test_pallas_core.py:673-696, plus
 // one float32 ulp of the stored value):
@@ -111,7 +133,8 @@ constexpr int kPlanes = 26;
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 constexpr int kMinBlocksPerSM = 3;
-constexpr int kMaxGridZ = 65535;  // the grid's z limit
+constexpr int kBatchThreads = 256;  // threads of a batched block at most
+constexpr int kBlockScenes = 38;  // scenes in a tiled launch's parameters
 constexpr double kPi = 3.141592653589793;
 constexpr double kDegPerRad = 180.0 / kPi;
 constexpr double kClight = 299792.458;  // km/s
@@ -187,16 +210,19 @@ struct Params {
     int flags;
 };
 
-// The batched launch's parameters: Params without the scene, which is a
-// device array of n_frames scenes.
+// The batched launch's parameters: Params without the scene (a device
+// array of scenes), and where the launch's frames lie in the batch.
 struct BatchParams {
     double row0;
+    unsigned long long plane_stride;  // n_frames * frame_size
+    long long first_frame;  // the launch's first frame in the batch
     int nx, ny;
+    int frame_size;  // nx * ny
+    int blocks_per_frame;
     int slot[kPlanes];
     int n_lt_iters;
     int geodetic_iters;
     int flags;
-    int n_frames;
 };
 
 struct V3 {
@@ -247,18 +273,22 @@ __device__ __forceinline__ double angle_deg(V3 a, V3 b) {
 }
 
 // Per-block sin/cos of the column and row parts of the two ray angles
-// (ra and dec): [0] sin ra, [1] cos ra, [2] sin dec, [3] cos dec.
+// (ra and dec): [0] sin ra, [1] cos ra, [2] sin dec, [3] cos dec; NC
+// column and NR row slots.
+template <int NC, int NR>
 struct RayTables {
-    double col[4][kBlockX];
-    double row[4][kBlockY];
+    double col[4][NC];
+    double row[4][NR];
 };
+// A 32x8 tile of one frame; the slots of a batched block's 256 pixels
+using FrameTables = RayTables<kBlockX, kBlockY>;
+using BatchTables = RayTables<kBatchThreads, kBatchThreads>;
 
-// The J2000 ray of this thread's pixel: angle addition over the tables,
-// then the obsvec2angular rotation.
-template <class Sc>
-__device__ __forceinline__ V3 ray_j2000(const Sc& sc,
-                                        const RayTables& tab) {
-    const int cx = threadIdx.x, ry = threadIdx.y;
+// The J2000 ray of a pixel whose column and row parts are in slots cx and
+// ry of the tables: angle addition, then the obsvec2angular rotation.
+template <class Sc, class Tab>
+__device__ __forceinline__ V3 ray_j2000(const Sc& sc, const Tab& tab,
+                                        int cx, int ry) {
     const double sra = tab.col[0][cx] * tab.row[1][ry]
                        + tab.col[1][cx] * tab.row[0][ry];
     const double cra = tab.col[1][cx] * tab.row[1][ry]
@@ -409,9 +439,9 @@ __device__ __forceinline__ V3 obsvec2targvec(const Sc& sc, V3 obsvec) {
 
 // The block's ray tables: sin/cos of the column and row parts of the two
 // ray angles, built by the first 80 threads of the block.
-template <class Sc, class P>
+template <class Sc, class P, class Tab>
 __device__ __forceinline__ void build_ray_tables(const Sc& sc, const P& p,
-                                                 RayTables& tab) {
+                                                 Tab& tab) {
     const int t = threadIdx.y * kBlockX + threadIdx.x;
     if (t < 2 * kBlockX) {
         const int c = t % kBlockX;
@@ -434,20 +464,41 @@ __device__ __forceinline__ void build_ray_tables(const Sc& sc, const P& p,
     }
 }
 
-// All requested planes of this thread's pixel: the per-pixel algebra of
-// both kernels, written once. `sc` is the frame's scene, `p` the launch's
-// shape, slot table and flags; plane k of the pixel goes to
-// out[k * plane_stride + pix], RADIAL-VELOCITY to rv_out[pix].
-template <class Sc, class P>
-__device__ __forceinline__ void backplanes_pixel(
-        const Sc& sc, const P& p, const RayTables& tab,
-        float* __restrict__ out, double* __restrict__ rv_out,
-        size_t plane_stride) {
-    const int col = blockIdx.x * kBlockX + threadIdx.x;
-    const int row = blockIdx.y * kBlockY + threadIdx.y;
-    if (col >= p.nx || row >= p.ny) return;
+// A batched pixel's entries of the ray tables, in its own slot j: the
+// same arguments and sincospi calls as build_ray_tables, so that each
+// equals the single-frame kernel's.
+template <class Sc>
+__device__ __forceinline__ void pixel_tables(const Sc& sc,
+                                             const BatchParams& p, int col,
+                                             int row, int j,
+                                             BatchTables& tab) {
+    const double x = (double)col;
+    const double y = (double)row + p.row0;
+    double sv, cv;
+    sincospi(sc[S_RAY + 0] * x, &sv, &cv);
+    tab.col[0][j] = sv;
+    tab.col[1][j] = cv;
+    sincospi(sc[S_RAY + 3] * x, &sv, &cv);
+    tab.col[2][j] = sv;
+    tab.col[3][j] = cv;
+    sincospi(sc[S_RAY + 1] * y + sc[S_RAY + 2], &sv, &cv);
+    tab.row[0][j] = sv;
+    tab.row[1][j] = cv;
+    sincospi(sc[S_RAY + 4] * y + sc[S_RAY + 5], &sv, &cv);
+    tab.row[2][j] = sv;
+    tab.row[3][j] = cv;
+}
 
-    const size_t pix = (size_t)row * (size_t)p.nx + (size_t)col;
+// All requested planes of the pixel (col, row): the per-pixel algebra of
+// both kernels, written once. `sc` is the frame's scene, `p` the launch's
+// slot table and flags, (cx, ry) the pixel's slots in the ray tables;
+// plane k of the pixel goes to out[k * plane_stride + pix],
+// RADIAL-VELOCITY to rv_out[pix].
+template <class Sc, class P, class Tab>
+__device__ __forceinline__ void backplanes_pixel(
+        const Sc& sc, const P& p, const Tab& tab, int cx, int ry, int col,
+        int row, float* __restrict__ out, double* __restrict__ rv_out,
+        size_t pix, size_t plane_stride) {
     auto store = [&](int plane, double v) {
         const int k = p.slot[plane];
         if (k < 0) return;
@@ -481,7 +532,7 @@ __device__ __forceinline__ void backplanes_pixel(
     double dist_surface = nan;  // ring occlusion (NaN: nothing hides it)
     bool found = false;
     if (need_chain && !off) {
-        const V3 d = ray_j2000(sc, tab);
+        const V3 d = ray_j2000(sc, tab, cx, ry);
         const V3 targ_rel0 = sc3(sc, S_TARG_REL0);
         const V3 targ_vel0 = sc3(sc, S_TARG_VEL0);
         const double target_lt = sc[S_TARGET_LT];
@@ -594,7 +645,7 @@ __device__ __forceinline__ void backplanes_pixel(
     // the ray again, from the tables: the barrier keeps the compiler from
     // merging these reads with the chain's and holding the ray through it
     asm volatile("" ::: "memory");
-    const V3 d = ray_j2000(sc, tab);
+    const V3 d = ray_j2000(sc, tab, cx, ry);
     const double d_norm2 = dot(d, d);
     const double rho_d = sqrt(d.x * d.x + d.y * d.y);
     store(RA, wrap360(atan2_deg(d.y, d.x)));
@@ -686,39 +737,120 @@ template <bool kFrameOfBatch>
 __global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocksPerSM)
 backplanes26_kernel(float* __restrict__ out, double* __restrict__ rv_out,
                     const __grid_constant__ Params p) {
-    __shared__ RayTables tab;
+    __shared__ FrameTables tab;
     const ParamScene sc{p};
     build_ray_tables(sc, p, tab);
     __syncthreads();
-    backplanes_pixel(sc, p, tab, out, rv_out,
+    const int col = blockIdx.x * kBlockX + threadIdx.x;
+    const int row = blockIdx.y * kBlockY + threadIdx.y;
+    if (col >= p.nx || row >= p.ny) return;
+    backplanes_pixel(sc, p, tab, threadIdx.x, threadIdx.y, col, row, out,
+                     rv_out, (size_t)row * (size_t)p.nx + (size_t)col,
                      kFrameOfBatch ? (size_t)p.plane_stride
                                    : (size_t)p.nx * (size_t)p.ny);
 }
 
-// N frames of one shape: frame f's scene is scenes[f * SCENE_SIZE ...] in
-// device memory; plane k of frame f is out[k][f] of an (NP, N, ny, nx)
-// float32 array, RADIAL-VELOCITY rv_out[f] of an (N, ny, nx) float64 one.
-// blockIdx.z walks the frames (strided by gridDim.z past the grid's z
-// limit); each block rebuilds its ray tables for each of its frames.
-__global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocksPerSM)
+// The scenes of a tiled launch's frames, in its parameters: with the
+// rest of them, within the 32,764 bytes a launch's parameters may hold.
+struct SceneBlock {
+    double s[kBlockScenes][SCENE_SIZE];
+};
+
+// A tiled launch's frame's scene, read from the kernel's parameters (the
+// frame index is the block's, so every thread of a warp reads one
+// constant-bank address).
+struct BlockScene {
+    const SceneBlock& b;
+    int f;
+    __device__ __forceinline__ double operator[](int i) const {
+        return b.s[f][i];
+    }
+};
+
+// N frames of one shape: plane k of frame f is out[k][f] of an (NP, N, ny,
+// nx) float32 array, RADIAL-VELOCITY rv_out[f] of an (N, ny, nx) float64
+// one. Linear blocks: frame f's scene is scenes[f * SCENE_SIZE ...] in
+// device memory; block b of a launch takes frame first_frame + b /
+// blocks_per_frame and its pixels [p0, p0 + blockDim.x), p0 = (b %
+// blocks_per_frame) * blockDim.x, in row-major order (the frame's last
+// block masked): every warp of a frame but its last is full, however
+// narrow the frame, and each pixel computes its own ray trigonometry.
+__global__ void __launch_bounds__(kBatchThreads, kMinBlocksPerSM)
 backplanes26_batch_kernel(float* __restrict__ out, double* __restrict__ rv_out,
                           const double* __restrict__ scenes,
                           const __grid_constant__ BatchParams p) {
-    __shared__ RayTables tab;
-    const size_t frame_size = (size_t)p.nx * (size_t)p.ny;
-    const size_t plane_stride = frame_size * (size_t)p.n_frames;
-    for (int f = blockIdx.z; f < p.n_frames; f += gridDim.z) {
-        const GlobalScene sc{scenes + (size_t)f * SCENE_SIZE};
-        build_ray_tables(sc, p, tab);
-        __syncthreads();
-        backplanes_pixel(sc, p, tab, out + (size_t)f * frame_size,
-                         rv_out == nullptr ? nullptr
-                                           : rv_out + (size_t)f * frame_size,
-                         plane_stride);
-        // the next frame's tables overwrite these
-        __syncthreads();
-    }
+    __shared__ BatchTables tab;
+    const int local = blockIdx.x / p.blocks_per_frame;
+    const long long f = p.first_frame + local;
+    const GlobalScene sc{scenes + f * SCENE_SIZE};
+    const int p0 = (blockIdx.x - local * p.blocks_per_frame) * blockDim.x;
+    const int p1 = min(p0 + (int)blockDim.x, p.frame_size);
+    const int j = threadIdx.x;
+    const int pix = p0 + j;
+    if (pix >= p1) return;
+    const int row = pix / p.nx;
+    const int col = pix - row * p.nx;
+    pixel_tables(sc, p, col, row, j, tab);
+    backplanes_pixel(sc, p, tab, j, j, col, row, out, rv_out,
+                     (size_t)f * (size_t)p.frame_size + (size_t)pix,
+                     (size_t)p.plane_stride);
 }
+
+// Tiles: the single-frame kernel's 32x8 tiles and its ray tables over up
+// to kBlockScenes frames, frame first_frame + blockIdx.z, its scene
+// scenes.s[blockIdx.z] of the launch's parameters.
+__global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocksPerSM)
+backplanes26_batch_tiles_kernel(float* __restrict__ out,
+                                double* __restrict__ rv_out,
+                                const __grid_constant__ SceneBlock scenes,
+                                const __grid_constant__ BatchParams p) {
+    __shared__ FrameTables tab;
+    const long long f = p.first_frame + blockIdx.z;
+    const BlockScene sc{scenes, (int)blockIdx.z};
+    build_ray_tables(sc, p, tab);
+    __syncthreads();
+    const int col = blockIdx.x * kBlockX + threadIdx.x;
+    const int row = blockIdx.y * kBlockY + threadIdx.y;
+    if (col >= p.nx || row >= p.ny) return;
+    backplanes_pixel(sc, p, tab, threadIdx.x, threadIdx.y, col, row, out,
+                     rv_out,
+                     (size_t)f * (size_t)p.frame_size
+                         + (size_t)row * (size_t)p.nx + (size_t)col,
+                     (size_t)p.plane_stride);
+}
+
+// The batched launches' parameters, false for a launch the kernels cannot
+// take (`threads` 0: tiles).
+bool batch_params(BatchParams* p, int nx, int ny, long long n_frames,
+                  long long first, int count, int threads, double row0,
+                  const int* slots, int n_lt_iters, int geodetic_iters,
+                  int flags) {
+    const long long frame_size = (long long)nx * (long long)ny;
+    if (nx < 1 || ny < 1 || frame_size > 0x7fffffffLL || count < 1
+        || first < 0 || first + count > n_frames
+        || (threads && (threads < 32 || threads > kBatchThreads
+                        || threads % 32 != 0))) {
+        return false;
+    }
+    p->row0 = row0;
+    p->plane_stride = (unsigned long long)frame_size
+                      * (unsigned long long)n_frames;
+    p->first_frame = first;
+    p->nx = nx;
+    p->ny = ny;
+    p->frame_size = (int)frame_size;
+    p->blocks_per_frame =
+        threads ? (int)((frame_size + threads - 1) / threads) : 0;
+    for (int k = 0; k < kPlanes; ++k) p->slot[k] = slots[k];
+    p->n_lt_iters = n_lt_iters;
+    p->geodetic_iters = geodetic_iters;
+    p->flags = flags;
+    return true;
+}
+
+static_assert(sizeof(SceneBlock) + sizeof(BatchParams) + 2 * sizeof(void*)
+                  <= 32764,
+              "a tiled launch's parameters exceed the launch's limit");
 
 }  // namespace
 
@@ -728,20 +860,28 @@ int backplanes26_scene_size(void) { return SCENE_SIZE; }
 
 int backplanes26_n_planes(void) { return kPlanes; }
 
+int backplanes26_batch_threads(void) { return kBatchThreads; }
+
+int backplanes26_block_scenes(void) { return kBlockScenes; }
+
 // Registers and local (spill) bytes per thread of the compiled kernel
-// (batch 0: the single-frame kernel, 1: the batched one), and its resident
-// blocks per SM at its block size. Returns a cudaError_t.
+// (batch 0: the single-frame kernel, 1: the batched one in linear blocks,
+// 2: in tiles), and its resident blocks per SM at its block size. Returns
+// a cudaError_t.
 int backplanes26_occupancy(int batch, int* registers, int* local_bytes,
                            int* blocks_per_sm) {
-    const void* kernel = batch ? (const void*)backplanes26_batch_kernel
-                               : (const void*)backplanes26_kernel<false>;
+    const void* kernel =
+        batch == 1 ? (const void*)backplanes26_batch_kernel
+        : batch == 2 ? (const void*)backplanes26_batch_tiles_kernel
+                     : (const void*)backplanes26_kernel<false>;
     cudaFuncAttributes attr;
     cudaError_t rc = cudaFuncGetAttributes(&attr, kernel);
     if (rc != cudaSuccess) return (int)rc;
     *registers = attr.numRegs;
     *local_bytes = (int)attr.localSizeBytes;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, kernel, kBlockX * kBlockY, 0);
+        blocks_per_sm, kernel, batch == 1 ? kBatchThreads : kBlockX * kBlockY,
+        0);
 }
 
 // Launch the kernel on `stream`. `scene` is a host array of SCENE_SIZE
@@ -777,8 +917,8 @@ int backplanes26_launch(const double* scene, float* out, double* rv_out,
 // n_frames x ny x nx float32; rv_out: n_frames x ny x nx float64, or null).
 // `scenes` is a host array of n_frames x SCENE_SIZE float64 values; the
 // rest as for backplanes26_launch. For frames large enough that the
-// batched kernel's scene reads cost more than a launch. Returns the first
-// non-zero cudaGetLastError(), or 0.
+// batched kernel's table building and scene reads cost more than a
+// launch. Returns the first non-zero cudaGetLastError(), or 0.
 int backplanes26_launch_frames(const double* scenes, float* out,
                                double* rv_out, int nx, int ny, int n_frames,
                                double row0, const int* slots, int n_lt_iters,
@@ -807,32 +947,59 @@ int backplanes26_launch_frames(const double* scenes, float* out,
     return 0;
 }
 
-// Launch the batched kernel on `stream` over `n_frames` frames of nx x ny.
-// `scenes` is a device array of n_frames x SCENE_SIZE float64 values;
-// `out` (n_float32_planes x n_frames x ny x nx float32) and `rv_out`
-// (n_frames x ny x nx float64, or null when RADIAL-VELOCITY is not
-// requested) are device pointers; `slots`, `row0`, the iteration counts and
-// the flags as for backplanes26_launch, shared by every frame. Returns
+// Launch the batched kernel in linear blocks of `threads` consecutive
+// pixels (a multiple of 32, at most kBatchThreads) on `stream` over the
+// frames [first, first + count) of a batch of n_frames frames of nx x ny,
+// as the wrapper's launch plan gives them (ops/backplanes_kernel.py
+// batch_plan). `scenes` is a device array of n_frames x SCENE_SIZE float64
+// values; `out` (n_float32_planes x n_frames x ny x nx float32) and
+// `rv_out` (n_frames x ny x nx float64, or null when RADIAL-VELOCITY is
+// not requested) are device pointers; `slots`, `row0`, the iteration
+// counts and the flags as for backplanes26_launch, shared by every frame.
+// Returns cudaErrorInvalidValue for a launch the kernel cannot take, else
 // cudaGetLastError() after the launch.
 int backplanes26_launch_batch(const double* scenes, float* out, double* rv_out,
-                              int nx, int ny, int n_frames, double row0,
-                              const int* slots, int n_lt_iters,
+                              int nx, int ny, long long n_frames,
+                              long long first, int count, int threads,
+                              double row0, const int* slots, int n_lt_iters,
                               int geodetic_iters, int flags, void* stream) {
     BatchParams p;
-    p.nx = nx;
-    p.ny = ny;
-    p.row0 = row0;
-    for (int k = 0; k < kPlanes; ++k) p.slot[k] = slots[k];
-    p.n_lt_iters = n_lt_iters;
-    p.geodetic_iters = geodetic_iters;
-    p.flags = flags;
-    p.n_frames = n_frames;
-    const dim3 block(kBlockX, kBlockY);
-    const int z = n_frames < kMaxGridZ ? n_frames : kMaxGridZ;
+    if (threads == 0
+        || !batch_params(&p, nx, ny, n_frames, first, count, threads, row0,
+                         slots, n_lt_iters, geodetic_iters, flags)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const long long blocks = (long long)count * p.blocks_per_frame;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    backplanes26_batch_kernel<<<(unsigned)blocks, threads, 0,
+                                (cudaStream_t)stream>>>(out, rv_out, scenes,
+                                                        p);
+    return (int)cudaGetLastError();
+}
+
+// The same in 32x8 tiles, over at most kBlockScenes frames: `scenes` is a
+// host array of n_frames x SCENE_SIZE float64 values, of which the
+// launch's frames are copied into its parameters before this returns.
+int backplanes26_launch_batch_tiles(const double* scenes, float* out,
+                                    double* rv_out, int nx, int ny,
+                                    long long n_frames, long long first,
+                                    int count, double row0, const int* slots,
+                                    int n_lt_iters, int geodetic_iters,
+                                    int flags, void* stream) {
+    BatchParams p;
+    if (count > kBlockScenes
+        || !batch_params(&p, nx, ny, n_frames, first, count, 0, row0, slots,
+                         n_lt_iters, geodetic_iters, flags)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    SceneBlock block;
+    memcpy(block.s, scenes + first * SCENE_SIZE,
+           (size_t)count * SCENE_SIZE * sizeof(double));
     const dim3 grid((nx + kBlockX - 1) / kBlockX, (ny + kBlockY - 1) / kBlockY,
-                    z);
-    backplanes26_batch_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        out, rv_out, scenes, p);
+                    count);
+    backplanes26_batch_tiles_kernel<<<grid, dim3(kBlockX, kBlockY), 0,
+                                      (cudaStream_t)stream>>>(out, rv_out,
+                                                              block, p);
     return (int)cudaGetLastError();
 }
 

@@ -21,36 +21,55 @@
 // finite span are NaN, a position on a finite cell is that cell's value,
 // and a line with fewer than two finite cells is all NaN.
 //
-// Design:
-// - A block takes 4 lines when the lines are adjacent in memory (the
-//   columns of a row-major grid), else 1, and cuts each line into segments
-//   of at least kMinSegment cells, up to kThreads threads a block: thread
-//   (x, y) walks segment y of line x. In the column pass each load of one
-//   cell and each store of one position is 4 adjacent values (one 32-byte
-//   sector); in the row pass the lanes of a warp are the segments of one
-//   row and L1 serves the following cells of each. Each thread's walk is a
-//   chain of dependent float64 operations, so short segments (2 cells, 10
-//   positions at k_rep = 5) and many small blocks put a frame's few lines
-//   on every SM.
-// - Pass 1: each thread reads its segment once and keeps its first two and
-//   last two finite cells and their count in shared memory (72 bytes a
-//   segment). After one barrier a thread knows the last two finite cells
-//   before its segment and the first two after it, however long the NaN
-//   gaps: no line is ever held whole, so any line length runs, in
-//   segments.
-// - Pass 2: each thread streams the finite cells of its segment (a second
-//   read, from L1/L2), framed by those neighbours, through a window of four
-//   (previous, left, right, next): each finite cell's derivative is
-//   computed once, when the window passes it, and every position that the
-//   segment owns (the positions whose floor cell lies in it) is evaluated
-//   from the window's left and right cells and stored. A division by a
-//   spacing of one cell (no NaN between) is skipped: it is exact.
+// Design (second version): work parallel over cells and positions, not
+// over segments of a line.
+// - A block takes kAdjacentLines lines when they are adjacent in memory
+//   (the columns of a row-major grid: each load of a cell and each store
+//   of a position is one 32-byte sector of the block's lines), else one
+//   (a row: a warp loads and stores 32 adjacent values); the wrapper
+//   chooses (ops/pchip_kernel.py lines_per_block). It stages a chunk of
+//   kCells cells over its lines in shared memory, each line's as slots
+//   [b0, b1, the chunk's cells, a0, a1]: the last two finite cells before
+//   the chunk (carried from the previous one) and the first two at or
+//   after its end (one warp a line finds them with ballots, however long
+//   the NaN gap). So any line length runs, in chunks, and every neighbour
+//   a derivative or a position needs is a slot: no lookup branches.
+// - One step scans each line's nearest finite slot at or before and at or
+//   after every slot (a run of slots a thread, warp shuffles across the
+//   runs, the line's warps' totals across warps); one step computes each
+//   finite slot's derivative once (b1's and a0's included) into shared
+//   memory.
+// - Every position whose floor cell lies in the chunk is then evaluated on
+//   its own, from its two slots' value, index and derivative: in a row
+//   pass a position a thread (its cell and remainder stepped, not
+//   divided), in a column pass a cell a thread, whose k positions share one
+//   load of their interval.
 //
-// What bounds it on this card: the box read once and the oversampled grid
-// written once (8 bytes a position; the 150^2 frame's 611x641 grid is 3.1
-// MB) against ~30 float64 operations per position: memory traffic
-// (testing/bounds.py:pchip_call_bound). The row pass writes an
-// intermediate (n_box rows x n_eval) that the column pass reads back.
+// What bounds it on this card: the bound (testing/bounds.py:
+// pchip_call_bound) is the box read once and the oversampled grid written
+// once (8 bytes a position: the 150^2 frame's 611x641 grid is 3.1 MB,
+// 0.97 us), at ~8 float64 operations a position. The kernel repeats the
+// plain version's arithmetic to be bit for bit with it: ~25 float64
+// instructions a position (no contraction), and its row pass writes an
+// intermediate that the column pass reads back. On an H100 80GB HBM3 at
+// 700 W (scripts/time_pchip.py, in turns with the first design, which
+// walked segments of 2 cells with a window of four):
+// - the 150^2 frame (two launches; ~2.5 us each is the launch floor):
+//   18.66 us cold, 14.78 us warm, against 19.62 / 16.00 us: phases of
+//   ~0.5-1 us latency each (the staging's loads, five barriers, the
+//   derivatives' divisions) in ~160 blocks;
+// - the 1024^2 8-frame cube: 1.64 ms against 1.81 ms, 19.5% of its 0.32
+//   ms bound. With a position a thread in both passes the column pass was
+//   1.45 of 1.66 ms, and the whole 1.30 ms with its stores removed: the
+//   time is instruction work and latency, not bytes.
+// Candidates that lost (same script): a position a thread in both passes
+// (20.76 us at 150^2, 1.66 ms on the cube), a cell a thread in both
+// (18.26 us, 1.77 ms; its row pass stores 40 bytes apart in a warp), 128
+// threads a block (24.6 us), 512 cells a block (1.70 ms), 8 adjacent
+// lines a block (22.7 us at 150^2 but 1.41 ms on the cube), both passes in
+// one cooperative launch with a grid barrier between them (19.5 us, 2.66
+// ms). The first design with 16 or 32 adjacent lines a block (256-byte
+// accesses) gained 0.3 ms on the cube's column pass only.
 //
 // Built by planetmapper_tpu_torch/ops/pchip_kernel.py (through
 // ops/cuda_build.py) with
@@ -65,9 +84,12 @@
 
 namespace {
 
-constexpr int kThreads = 512;    // threads per block at most
-constexpr int kAdjacentLines = 4;  // lines per block when adjacent in memory
-constexpr int kMinSegment = 2;     // cells per segment at least
+constexpr int kThreads = 256;      // threads of a block
+constexpr int kCells = 1024;       // cells a block stages, all its lines
+constexpr int kAdjacentLines = 4;  // lines a block when adjacent in memory
+constexpr int kWarps = kThreads / 32;
+constexpr int kSlots = kCells + 4 * kAdjacentLines;  // the chunks and halos
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
     const double* in;   // cell (f, l, i) at f*in_frame + l*in_line + i*in_cell
@@ -80,20 +102,12 @@ struct Params {
     int n;              // cells per line
     int n_eval;         // positions per line, (n - 1) * k_rep + 1
     int k_rep;          // positions per cell
-    int segment;        // cells per segment
 };
 
 // One finite cell: its index (-1 when absent) and value.
 struct Cell {
     int i;
     double v;
-};
-
-// The finite cells of one segment of one line.
-struct Summary {
-    int count;            // finite cells in the segment
-    Cell first0, first1;  // the first two
-    Cell last0, last1;    // the last two (last1 the last)
 };
 
 __device__ __forceinline__ double sign_of(double x) {
@@ -142,145 +156,311 @@ __device__ double derivative(Cell pp, Cell p, Cell c, Cell q, Cell qq) {
     return 0.0;
 }
 
-// The finite cells a thread streams: up to two before its segment (b0,
-// b1 in order), the segment's own (read from the line), up to two after it
-// (a0, a1).
-struct Stream {
-    Cell b0, b1, a0, a1;
-    int n_before, n_after, next_before, next_after;
-    int next_cell, end;  // the segment's cells still to read
+// What a block holds of its lines: line j's slots from j * (chunk + 4),
+// laid out [b0, b1, cells a..b-1 of the chunk, a0, a1]: the last two
+// finite cells before the chunk, the chunk, the first two finite cells at
+// or after its end (absent ones NaN). Per slot: the value, its cell's index
+// in the line, the nearest finite slot at or before it and at or after it
+// (-1 when none), and, for a finite slot, the derivative there.
+struct Lines {
+    double v[kSlots];
+    double d[kSlots];
+    int cell[kSlots];
+    short prev[kSlots];
+    short next[kSlots];
+    int warp_prev[kWarps];
+    int warp_next[kWarps];
+};
 
-    __device__ Cell next(const double* __restrict__ line, int64_t in_cell) {
-        if (next_before < n_before) return next_before++ == 0 ? b0 : b1;
-        while (next_cell < end) {
-            const int i = next_cell++;
-            const double v = line[i * in_cell];
-            if (isfinite(v)) return Cell{i, v};
-        }
-        if (next_after < n_after) return next_after++ == 0 ? a0 : a1;
-        return Cell{-1, 0.0};
+__device__ __forceinline__ Cell slot_cell(const Lines& s, int base,
+                                          int slot) {
+    if (slot < 0) return Cell{-1, 0.0};
+    return Cell{s.cell[base + slot], s.v[base + slot]};
+}
+
+// The cubic between two finite slots i0 < i1 of a line (from slot line0).
+struct Interval {
+    double xl, h, v0, v1, d0, d1;
+
+    // its value at x, as the plain version computes it
+    __device__ __forceinline__ double at(double x) const {
+        const double tt = per(x - xl, h);
+        const double t2 = tt * tt;
+        const double t3 = t2 * tt;
+        return v0 * (2.0 * t3 - 3.0 * t2 + 1.0) +
+               h * d0 * (t3 - 2.0 * t2 + tt) +
+               v1 * (-2.0 * t3 + 3.0 * t2) + h * d1 * (t3 - t2);
     }
 };
 
-__global__ void __launch_bounds__(kThreads)
-pchip_axis_kernel(Params p) {
-    __shared__ Summary sums[kThreads];  // [segment][line in the block]
-    const int x = threadIdx.x;  // line in the block
-    const int y = threadIdx.y;  // segment of the line
-    const int n_segments = blockDim.y;
-    const int64_t g = (int64_t)blockIdx.x * blockDim.x + x;
-    const bool live = g < p.n_lines;
-    const int64_t f = live ? g / p.lines : 0;
-    const int64_t l = live ? g - f * p.lines : 0;
-    const double* __restrict__ line = p.in + f * p.in_frame + l * p.in_line;
-    const int a = min(y * p.segment, p.n);
-    const int b = min(a + p.segment, p.n);
-    const Cell none{-1, 0.0};
+__device__ __forceinline__ Interval interval(const Lines& s, int line0,
+                                             int i0, int i1) {
+    const double xl = (double)s.cell[line0 + i0];
+    return Interval{xl, (double)s.cell[line0 + i1] - xl, s.v[line0 + i0],
+                    s.v[line0 + i1], s.d[line0 + i0], s.d[line0 + i1]};
+}
 
-    // pass 1: the segment's finite cells
-    Summary s{0, none, none, none, none};
-    if (live) {
-        for (int i = a; i < b; ++i) {
-            const double v = line[i * p.in_cell];
-            if (!isfinite(v)) continue;
-            if (s.count == 0) s.first0 = Cell{i, v};
-            if (s.count == 1) s.first1 = Cell{i, v};
-            s.last0 = s.last1;
-            s.last1 = Cell{i, v};
-            ++s.count;
-        }
+// The value at position e, whose nearest finite slots are i0 at or before
+// its floor cell and i1 at or after its ceiling cell (-1 when none).
+__device__ __forceinline__ double position(const Lines& s, const Params& p,
+                                           int line0, int i0, int i1,
+                                           int e) {
+    if (i0 < 0 || i1 < 0) {
+        return __longlong_as_double(0x7ff8000000000000ll);  // outside
     }
-    sums[y * blockDim.x + x] = s;
-    __syncthreads();
-    if (!live || a >= b) return;
+    if (i0 == i1) {
+        // on a finite cell (h == 0 in the plain version); NaN when it is
+        // the line's only one (scipy skips lines with < 2 finite cells)
+        return s.prev[line0 + i0 - 1] >= 0 || s.next[line0 + i0 + 1] >= 0
+                   ? s.v[line0 + i0]
+                   : __longlong_as_double(0x7ff8000000000000ll);
+    }
+    return interval(s, line0, i0, i1).at(__ldg(p.xs + e));
+}
 
-    // the finite cells around the segment
-    Stream st{none, none, none, none, 0, 0, 0, 0, a, b};
-    Cell near = none, far = none;  // the last and the one before it
-    for (int u = y - 1; u >= 0 && st.n_before < 2; --u) {
-        const Summary& t = sums[u * blockDim.x + x];
-        if (t.count == 0) continue;
-        if (st.n_before == 0) {
-            near = t.last1;
-            far = t.last0;
-            st.n_before = t.count > 1 ? 2 : 1;
-        } else {
-            far = t.last1;
-            st.n_before = 2;
-        }
-    }
-    st.b0 = st.n_before == 2 ? far : near;
-    st.b1 = near;
-    for (int u = y + 1; u < n_segments && st.n_after < 2; ++u) {
-        const Summary& t = sums[u * blockDim.x + x];
-        if (t.count == 0) continue;
-        if (st.n_after == 0) {
-            st.a0 = t.first0;
-            st.a1 = t.first1;
-            st.n_after = t.count > 1 ? 2 : 1;
-        } else {
-            st.a1 = t.first0;
-            st.n_after = 2;
-        }
-    }
-
-    // pass 2: the owned positions [a k, min(b k, n_eval)), in order
-    double* __restrict__ out = p.out + f * p.out_frame + l * p.out_line;
-    const int64_t k = p.k_rep;
-    const int64_t e_stop = (int64_t)b * k;
-    const int64_t e_end = e_stop < p.n_eval ? e_stop : (int64_t)p.n_eval;
+// The lines of block group `group` (lines group * L on): chunk by chunk,
+// the chunk and its four neighbours staged, the nearest finite slots
+// scanned, each finite slot's derivative computed once, then every
+// position whose floor cell lies in the chunk evaluated on its own.
+template <int L>
+__device__ __forceinline__ void pchip_lines(const Params& p, int64_t group,
+                                            Lines& s) {
+    constexpr int kPerLine = kThreads / L;  // a line's threads
+    const int t = threadIdx.x;
+    const int lane = t % 32, warp = t / 32;
+    const int C = kCells / L;
+    const int W = C + 4;  // slots of a line
     const double qnan = __longlong_as_double(0x7ff8000000000000ll);
-    // window (pp, c0, c1, nn): c0 and c1 the cells around the position,
-    // pp before c0 and nn after c1
-    Cell pp = none, c0 = none, c1 = none, nn = none;
-    for (int j = 0; j < 3; ++j) {
-        pp = c0;
-        c0 = c1;
-        c1 = nn;
-        nn = st.next(line, p.in_cell);
+    const int k = p.k_rep;
+    const int step_cells = kPerLine / k, step_rest = kPerLine % k;
+
+    // this thread's line in the scans, and in the stores
+    const int js = t / kPerLine, seg = t % kPerLine;
+    const int je = t % L;
+    const int64_t ge = group * L + je;
+    const bool live_e = ge < p.n_lines;
+    double* __restrict__ out = p.out;
+    if (live_e) {
+        const int64_t f = ge / p.lines;
+        out += f * p.out_frame + (ge - f * p.lines) * p.out_line;
     }
-    double d0 = 0.0, d1 = 0.0;
-    bool d0_ok = false, d1_ok = false;
-    for (int64_t e = (int64_t)a * k; e < e_end; ++e) {
-        while (c1.i >= 0 && (int64_t)c1.i * k < e) {
-            pp = c0;
-            c0 = c1;
-            c1 = nn;
-            nn = st.next(line, p.in_cell);
-            d0 = d1;
-            d0_ok = d1_ok;
-            d1_ok = false;
-        }
-        double r;
-        if (c0.i >= 0 && (int64_t)c0.i * k == e) {
-            // on a finite cell (h == 0 in the plain version); NaN when it
-            // is the line's only one (scipy skips lines with < 2 finite
-            // cells): the window holds its finite neighbours either side
-            r = pp.i >= 0 || c1.i >= 0 ? c0.v : qnan;
-        } else if (c1.i >= 0 && (int64_t)c1.i * k == e) {
-            r = c1.v;
-        } else if (c0.i < 0 || c1.i < 0 || (int64_t)c0.i * k > e) {
-            r = qnan;  // outside the line's finite span
-        } else {
-            if (!d0_ok) {
-                d0 = derivative(none, pp, c0, c1, nn);
-                d0_ok = true;
-            }
-            if (!d1_ok) {
-                d1 = derivative(pp, c0, c1, nn, none);
-                d1_ok = true;
-            }
-            const double xl = (double)c0.i;
-            const double h = (double)c1.i - xl;
-            const double t = per(p.xs[e] - xl, h);
-            const double t2 = t * t;
-            const double t3 = t2 * t;
-            r = c0.v * (2.0 * t3 - 3.0 * t2 + 1.0) +
-                h * d0 * (t3 - 2.0 * t2 + t) +
-                c1.v * (-2.0 * t3 + 3.0 * t2) + h * d1 * (t3 - t2);
-        }
-        out[e * p.out_pos] = r;
+    if (t < L) {
+        s.v[t * W] = qnan;
+        s.v[t * W + 1] = qnan;
     }
+
+    for (int a = 0; a < p.n; a += C) {
+        const int b = min(a + C, p.n);
+        const int m = b - a;
+        const int n_slots = m + 4;
+        // -- stage the chunk: adjacent lines' cells are adjacent loads ---
+        for (int u = t; u < L * m; u += kThreads) {
+            const int j = u % L, i = u / L;
+            const int64_t g = group * L + j;
+            double v = qnan;
+            if (g < p.n_lines) {
+                const int64_t f = g / p.lines;
+                v = __ldg(p.in + f * p.in_frame
+                          + (g - f * p.lines) * p.in_line
+                          + (int64_t)(a + i) * p.in_cell);
+            }
+            s.v[j * W + 2 + i] = v;
+            s.cell[j * W + 2 + i] = a + i;
+        }
+        // -- the first two finite cells at or after b: warp j, line j ----
+        if (warp < L) {
+            Cell c0{-1, qnan}, c1{-1, qnan};
+            const int64_t g = group * L + warp;
+            if (g < p.n_lines) {
+                const int64_t f = g / p.lines;
+                const double* __restrict__ line =
+                    p.in + f * p.in_frame + (g - f * p.lines) * p.in_line;
+                for (int w = b; w < p.n && c1.i < 0; w += 32) {
+                    const int i = w + lane;
+                    const double v = i < p.n ? line[(int64_t)i * p.in_cell]
+                                             : qnan;
+                    unsigned found = __ballot_sync(kFull, isfinite(v));
+                    while (found != 0u && c1.i < 0) {
+                        const int l = __ffs(found) - 1;
+                        found &= found - 1u;
+                        const Cell c{w + l, __shfl_sync(kFull, v, l)};
+                        if (c0.i < 0) {
+                            c0 = c;
+                        } else {
+                            c1 = c;
+                        }
+                    }
+                }
+            }
+            if (lane == 0) {
+                s.v[warp * W + m + 2] = c0.v;
+                s.cell[warp * W + m + 2] = c0.i;
+                s.v[warp * W + m + 3] = c1.v;
+                s.cell[warp * W + m + 3] = c1.i;
+            }
+        }
+        __syncthreads();
+
+        // -- nearest finite slots: each thread a run of its line's slots,
+        //    scanned across the line's threads by warp shuffles ----------
+        const int run = (n_slots + kPerLine - 1) / kPerLine;
+        const int lo = min(seg * run, n_slots), hi = min(lo + run, n_slots);
+        const int base = js * W;
+        int last = -1, first = kSlots;
+        for (int i = lo; i < hi; ++i) {
+            if (isfinite(s.v[base + i])) {
+                if (first == kSlots) first = i;
+                last = i;
+            }
+        }
+        int up = last, down = first;
+        for (int o = 1; o < 32; o <<= 1) {
+            const int x = __shfl_up_sync(kFull, up, o);
+            const int y = __shfl_down_sync(kFull, down, o);
+            if (lane >= o) up = max(up, x);
+            if (lane + o < 32) down = min(down, y);
+        }
+        if (lane == 31) s.warp_prev[warp] = up;
+        if (lane == 0) s.warp_next[warp] = down;
+        __syncthreads();
+        {
+            int r = __shfl_up_sync(kFull, up, 1);
+            int q = __shfl_down_sync(kFull, down, 1);
+            if (lane == 0) r = -1;
+            if (lane == 31) q = kSlots;
+            const int w0 = js * (kPerLine / 32);
+            for (int w = w0; w < warp; ++w) r = max(r, s.warp_prev[w]);
+            for (int w = warp + 1; w < w0 + kPerLine / 32; ++w) {
+                q = min(q, s.warp_next[w]);
+            }
+            for (int i = lo; i < hi; ++i) {
+                if (isfinite(s.v[base + i])) r = i;
+                s.prev[base + i] = (short)r;
+            }
+            for (int i = hi - 1; i >= lo; --i) {
+                if (isfinite(s.v[base + i])) q = i;
+                s.next[base + i] = (short)(q < kSlots ? q : -1);
+            }
+        }
+        __syncthreads();
+
+        // -- each finite slot's derivative, once: b1, the chunk's, a0 -----
+        for (int i = max(lo, 1); i < min(hi, m + 3); ++i) {
+            if (!isfinite(s.v[base + i])) continue;
+            const int pv = s.prev[base + i - 1];
+            const int pp = pv >= 1 ? s.prev[base + pv - 1] : -1;
+            const int nx = s.next[base + i + 1];
+            const int qq = nx >= 0 && nx + 1 < n_slots ? s.next[base + nx + 1]
+                                                       : -1;
+            s.d[base + i] = derivative(
+                slot_cell(s, base, pp), slot_cell(s, base, pv),
+                slot_cell(s, base, i), slot_cell(s, base, nx),
+                slot_cell(s, base, qq));
+        }
+        __syncthreads();
+
+        // -- the positions whose floor cell lies in the chunk -----------
+        if (live_e) {
+            const int line0 = je * W;
+            if constexpr (L == 1) {
+                // a position a thread: a warp stores 32 adjacent values
+                const int e0 = a * k;
+                const int n_pos = min(b * k, p.n_eval) - e0;
+                int pos = t / L;
+                int cl = (e0 + pos) / k, rest = (e0 + pos) % k;
+#pragma unroll 4
+                for (; pos < n_pos; pos += kPerLine) {
+                    const int at = line0 + cl - a + 2;
+                    out[(int64_t)(e0 + pos) * p.out_pos] = position(
+                        s, p, line0, s.prev[at], s.next[at + (rest != 0)],
+                        e0 + pos);
+                    cl += step_cells;
+                    rest += step_rest;
+                    if (rest >= k) {
+                        rest -= k;
+                        ++cl;
+                    }
+                }
+            } else {
+                // a cell a thread, its k positions from one load of its
+                // interval: the block's lines' values are adjacent stores
+                for (int c = a + t / L; c < b; c += kPerLine) {
+                    const int at = line0 + c - a + 2;
+                    const int64_t e = (int64_t)c * k;
+                    const int i0 = s.prev[at];
+                    out[e * p.out_pos] = position(s, p, line0, i0, s.next[at],
+                                                  (int)e);
+                    if (c == p.n - 1) continue;
+                    const int i1 = s.next[at + 1];
+                    if (i0 < 0 || i1 < 0) {
+                        for (int q = 1; q < k; ++q) {
+                            out[(e + q) * p.out_pos] = qnan;
+                        }
+                        continue;
+                    }
+                    const Interval iv = interval(s, line0, i0, i1);
+                    for (int q = 1; q < k; ++q) {
+                        out[(e + q) * p.out_pos] =
+                            iv.at(__ldg(p.xs + e + q));
+                    }
+                }
+            }
+        }
+
+        // -- the last two finite cells before the next chunk --------------
+        int nb0 = -1, nb1 = -1;
+        Cell c0{-1, qnan}, c1{-1, qnan};
+        if (seg == 0 && b < p.n) {
+            nb1 = s.prev[base + m + 1];
+            if (nb1 >= 2) {
+                nb0 = s.prev[base + nb1 - 1];
+                c1 = slot_cell(s, base, nb1);
+                if (nb0 >= 0) c0 = slot_cell(s, base, nb0);
+            }
+        }
+        __syncthreads();
+        if (nb1 >= 2) {
+            s.v[base] = c0.v;
+            s.cell[base] = c0.i;
+            s.v[base + 1] = c1.v;
+            s.cell[base + 1] = c1.i;
+        }
+    }
+}
+
+template <int L>
+__global__ void __launch_bounds__(kThreads)
+pchip_axis_kernel(const __grid_constant__ Params p) {
+    __shared__ Lines s;
+    pchip_lines<L>(p, blockIdx.x, s);
+}
+
+// The launch's parameters; false for n < 1, k_rep < 1, a wrong n_eval or
+// lines_per_block.
+bool fill_params(Params* p, const double* in, long long in_frame,
+                 long long in_line, long long in_cell, const double* xs,
+                 double* out, long long out_frame, long long out_line,
+                 long long out_pos, int n_frames, long long lines, int n,
+                 int n_eval, int k_rep, int lines_per_block) {
+    if (n < 1 || k_rep < 1 || n_eval != (n - 1) * k_rep + 1
+        || (lines_per_block != 1 && lines_per_block != kAdjacentLines)) {
+        return false;
+    }
+    p->in = in;
+    p->xs = xs;
+    p->out = out;
+    p->n_lines = (int64_t)n_frames * lines;
+    p->lines = lines;
+    p->in_frame = in_frame;
+    p->in_line = in_line;
+    p->in_cell = in_cell;
+    p->out_frame = out_frame;
+    p->out_line = out_line;
+    p->out_pos = out_pos;
+    p->n = n;
+    p->n_eval = n_eval;
+    p->k_rep = k_rep;
+    return true;
 }
 
 }  // namespace
@@ -291,43 +471,54 @@ extern "C" {
 // the strides given (in elements; a strided view, e.g. the image box, is
 // read in place), `xs` the n_eval float64 positions, `out` float64 at its
 // strides. Lines are (frame, line) pairs, n_frames x lines of them; each
-// has n cells and n_eval = (n - 1) * k_rep + 1 positions. Returns
-// cudaErrorInvalidValue for n < 1, k_rep < 1 or a wrong n_eval, else
-// cudaGetLastError() after the launch.
+// has n cells and n_eval = (n - 1) * k_rep + 1 positions. A block takes
+// lines_per_block lines (1, or kAdjacentLines when they are adjacent in
+// memory: the wrapper's choice, ops/pchip_kernel.py lines_per_block).
+// Returns cudaErrorInvalidValue for n < 1, k_rep < 1, a wrong n_eval or
+// lines_per_block, else cudaGetLastError() after the launch.
 int pchip_axis_launch(const double* in, long long in_frame, long long in_line,
                       long long in_cell, const double* xs, double* out,
                       long long out_frame, long long out_line,
                       long long out_pos, int n_frames, long long lines, int n,
-                      int n_eval, int k_rep, void* stream) {
-    if (n < 1 || k_rep < 1 || n_eval != (n - 1) * k_rep + 1) {
+                      int n_eval, int k_rep, int lines_per_block,
+                      void* stream) {
+    Params p;
+    if (!fill_params(&p, in, in_frame, in_line, in_cell, xs, out, out_frame,
+                     out_line, out_pos, n_frames, lines, n, n_eval, k_rep,
+                     lines_per_block)) {
         return (int)cudaErrorInvalidValue;
     }
-    Params p;
-    p.in = in;
-    p.xs = xs;
-    p.out = out;
-    p.n_lines = (int64_t)n_frames * lines;
-    p.lines = lines;
-    p.in_frame = in_frame;
-    p.in_line = in_line;
-    p.in_cell = in_cell;
-    p.out_frame = out_frame;
-    p.out_line = out_line;
-    p.out_pos = out_pos;
-    p.n = n;
-    p.n_eval = n_eval;
-    p.k_rep = k_rep;
     if (p.n_lines == 0) return (int)cudaSuccess;
-    const int lines_per_block = in_line == 1 ? kAdjacentLines : 1;
-    const int most = kThreads / lines_per_block;
-    const int wanted = (n + kMinSegment - 1) / kMinSegment;
-    const int segments = wanted < most ? wanted : most;
-    p.segment = (n + segments - 1) / segments;
-    const dim3 block(lines_per_block, segments);
     const unsigned grid = (unsigned)((p.n_lines + lines_per_block - 1) /
                                      lines_per_block);
-    pchip_axis_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(p);
+    if (lines_per_block == 1) {
+        pchip_axis_kernel<1><<<grid, kThreads, 0, (cudaStream_t)stream>>>(p);
+    } else {
+        pchip_axis_kernel<kAdjacentLines>
+            <<<grid, kThreads, 0, (cudaStream_t)stream>>>(p);
+    }
     return (int)cudaGetLastError();
+}
+
+// The layout's constants, which the wrapper checks against its own.
+void pchip_layout(int* threads, int* cells, int* adjacent_lines) {
+    *threads = kThreads;
+    *cells = kCells;
+    *adjacent_lines = kAdjacentLines;
+}
+
+// Registers and local (spill) bytes per thread of the compiled kernel's
+// column-pass instance (kAdjacentLines lines a block) and its resident
+// blocks per SM. Returns a cudaError_t.
+int pchip_occupancy(int* registers, int* local_bytes, int* blocks_per_sm) {
+    cudaFuncAttributes attr;
+    cudaError_t rc = cudaFuncGetAttributes(
+        &attr, pchip_axis_kernel<kAdjacentLines>);
+    if (rc != cudaSuccess) return (int)rc;
+    *registers = attr.numRegs;
+    *local_bytes = (int)attr.localSizeBytes;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, pchip_axis_kernel<kAdjacentLines>, kThreads, 0);
 }
 
 }  // extern "C"

@@ -30,9 +30,11 @@ out and the precision of each plane. Here:
   each frame word for word :func:`pack_scene`'s), :func:`with_frames` only
   the affines and discs of N frames over one packed scene. ``impl.run_batch
   (scenes, nx, ny, device, row0)`` computes N frames as (N, ny, nx) planes:
-  one launch of the batched kernel (:func:`batch_launch_count`), or, for
-  frames of :data:`FRAME_LAUNCH_PIXELS` or more, one launch of the
-  single-frame kernel a frame from one C call. ``impl.batch(nx, ny,
+  the launches of :func:`batch_plan` (one, unless a batch outgrows the
+  grid) of the batched kernel (:func:`batch_launch_count`) in 32x8 tiles
+  or linear blocks by the frame's width, or, for frames of
+  :data:`FRAME_LAUNCH_PIXELS` or more (:func:`frame_route`), one launch of
+  the single-frame kernel a frame from one C call. ``impl.batch(nx, ny,
   xy2angulars, discs, radii, anchors)`` is the batch's contract on
   tensors: the kernel on CUDA tensors, the plain graph frame by frame on CPU
   tensors.
@@ -42,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -103,16 +106,29 @@ def _configure(lib) -> None:
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p,  # slots, iterations, flags, stream
     ]
-    for name in ('backplanes26_launch_batch', 'backplanes26_launch_frames'):
+    lib.backplanes26_launch_frames.restype = ctypes.c_int
+    lib.backplanes26_launch_frames.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # scenes, outs
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # nx, ny, frames
+        ctypes.c_double, ctypes.POINTER(ctypes.c_int),  # row0, slots
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # iterations, flags
+        ctypes.c_void_p,  # stream
+    ]
+    for name, extra in (('backplanes26_launch_batch', [ctypes.c_int]),
+                        ('backplanes26_launch_batch_tiles', [])):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # scenes, outs
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # nx, ny, frames
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong,  # nx, ny, frames
+            ctypes.c_longlong, ctypes.c_int,  # first, count
+            *extra,  # threads (linear blocks)
             ctypes.c_double, ctypes.POINTER(ctypes.c_int),  # row0, slots
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # iterations, flags
             ctypes.c_void_p,  # stream
         ]
+    lib.backplanes26_batch_threads.restype = ctypes.c_int
+    lib.backplanes26_block_scenes.restype = ctypes.c_int
     lib.backplanes26_occupancy.restype = ctypes.c_int
     lib.backplanes26_occupancy.argtypes = [ctypes.c_int] + [
         ctypes.POINTER(ctypes.c_int)] * 3
@@ -123,6 +139,10 @@ def _configure(lib) -> None:
         )
     if lib.backplanes26_n_planes() != len(PLANE_ORDER):
         raise RuntimeError('plane count of the kernel and wrapper differ')
+    if (lib.backplanes26_batch_threads(), lib.backplanes26_block_scenes()) \
+            != (BATCH_THREADS, BLOCK_SCENES):
+        raise RuntimeError('the batched launches of the kernel and wrapper '
+                           'differ')
 
 
 LIBRARY = CudaLibrary('backplanes26', 'backplanes.cu', _configure)
@@ -138,10 +158,88 @@ _batch_launches = 0
 
 #: Frames of this many pixels or more take one launch of the single-frame
 #: kernel each in a batch (``run_batch``): its scene is constant-bank
-#: operands, while the batched kernel's scene reads cost it 1.26x per frame
-#: at 2048x2048 and 1.04x at 512x512, and save it 27% at 256x256, where
-#: launches dominate (scripts/time_backplane_batch.py on an H100).
-FRAME_LAUNCH_PIXELS = 512 * 512
+#: operands, while the batched kernel's scene reads cost it 1.04x per frame
+#: at 768x768 and 1.13x at 2048x2048; it saves 0.4% at 640x640, 9% at
+#: 512x512 and 36% at 256x256, where launches dominate
+#: (scripts/time_backplane_batch.py on an H100 80GB HBM3 at 700 W, 8
+#: frames, the batched kernel in tiles).
+FRAME_LAUNCH_PIXELS = 768 * 768
+
+
+#: Threads of a batched block at most (``kBatchThreads`` of the source).
+BATCH_THREADS = 256
+#: The single-frame kernel's tiles (columns, rows).
+TILE = (32, 8)
+#: Frames of at least TILE_PIXELS pixels whose tiles fill this share of
+#: their lanes or more take the tiles and their shared ray tables in a
+#: batch, the scenes in the launch's parameters
+#: (``backplanes26_batch_tiles_kernel``); others linear blocks, a ray per
+#: pixel, the scenes read from the card (``backplanes26_batch_kernel``).
+#: On an H100 (scripts/time_backplane_batch.py, 8 frames) the tiles won at
+#: 100% (256^2: 13%) and 89% (200^2: 4%), the linear blocks at 75%
+#: (100^2: 4%).
+TILE_FILL = 0.85
+#: A tiled launch carries 38 frames: smaller ones take linear blocks, one
+#: launch for them all.
+TILE_PIXELS = 128 * 128
+#: Frames of one tiled launch at most: their scenes fill its parameters
+#: (``kBlockScenes`` of the source).
+BLOCK_SCENES = 38
+#: Blocks of one launch in linear blocks at most (the grid's x limit).
+MAX_GRID_X = 2**31 - 1
+
+
+class BatchPlan(NamedTuple):
+    """The batched kernel's launches: ``tiles`` (32x8 tiles, else linear
+    blocks of ``threads`` pixels), blocks over one frame, and ``launches``
+    as ``[(first frame, frames), ...]``."""
+
+    tiles: bool
+    threads: int
+    blocks_per_frame: int
+    launches: list
+
+
+def batch_plan(n_frames: int, nx: int, ny: int,
+               frames_per_launch: int | None = None) -> BatchPlan:
+    """
+    The batched kernel's launches for ``n_frames`` frames of ``nx`` x
+    ``ny``. Frames of :data:`TILE_PIXELS` or more whose :data:`TILE`
+    tiles fill :data:`TILE_FILL` of their lanes take the tiles, a frame a
+    grid layer; others linear blocks:
+    a block takes ``threads`` consecutive pixels of one frame in row-major
+    order (:data:`BATCH_THREADS`, or the frame's pixels rounded up to a
+    warp when fewer), the frame's last block the rest. A launch takes at
+    most ``frames_per_launch`` frames (a candidate's chunk, for timing and
+    tests), in tiles :data:`BLOCK_SCENES`, in linear blocks as many as the
+    grid holds.
+    """
+    frame_size = nx * ny
+    if n_frames < 1 or nx < 1 or ny < 1 or frame_size >= 2**31:
+        raise ValueError(f'no batched launch for {n_frames} frames of '
+                         f'{nx}x{ny}')
+    tiles_x, tiles_y = -(-nx // TILE[0]), -(-ny // TILE[1])
+    tiles = frame_size >= max(
+        TILE_PIXELS, TILE_FILL * (tiles_x * tiles_y * BATCH_THREADS))
+    if tiles:
+        threads, blocks_per_frame = BATCH_THREADS, tiles_x * tiles_y
+        per_launch = BLOCK_SCENES
+    else:
+        threads = min(BATCH_THREADS, -(-frame_size // 32) * 32)
+        blocks_per_frame = -(-frame_size // threads)
+        per_launch = MAX_GRID_X // blocks_per_frame
+    if frames_per_launch:
+        per_launch = min(per_launch, frames_per_launch)
+    launches = [(first, min(per_launch, n_frames - first))
+                for first in range(0, n_frames, per_launch)]
+    return BatchPlan(tiles, threads, blocks_per_frame, launches)
+
+
+def frame_route(nx: int, ny: int) -> bool:
+    """Whether a batch of ``nx`` x ``ny`` frames takes one single-frame
+    launch a frame (:data:`FRAME_LAUNCH_PIXELS` or more pixels) rather than
+    the batched kernel."""
+    return nx * ny >= FRAME_LAUNCH_PIXELS
 
 
 def batch_launch_count() -> int:
@@ -154,16 +252,17 @@ def reset_batch_launch_count() -> None:
     _batch_launches = 0
 
 
-def occupancy(batch: bool = False) -> dict[str, int]:
+def occupancy(batch: str | None = None) -> dict[str, int]:
     """
     ``dict(registers, local_bytes, blocks_per_sm)`` of the compiled
-    single-frame kernel (``batch=True``: the batched one) on the current
-    CUDA device: registers and local (spill) bytes per thread, and resident
-    blocks of 256 threads per SM.
+    single-frame kernel (``batch='linear'`` or ``'tiles'``: the batched one
+    in that layout) on the current CUDA device: registers and local (spill)
+    bytes per thread, and resident blocks of 256 threads per SM.
     """
     lib = load_library()
     values = [ctypes.c_int() for _ in range(3)]
-    check_launch(lib.backplanes26_occupancy(int(batch), *values),
+    which = {None: 0, 'linear': 1, 'tiles': 2}[batch]
+    check_launch(lib.backplanes26_occupancy(which, *values),
                  'backplane occupancy')
     return dict(zip(('registers', 'local_bytes', 'blocks_per_sm'),
                     (v.value for v in values)))
@@ -481,13 +580,13 @@ def build_backplanes_kernel(
         is a contiguous view of one (NP, N, ny, nx) float32 allocation;
         RADIAL-VELOCITY has its own (N, ny, nx) float64 one.
 
-        Frames of fewer than :data:`FRAME_LAUNCH_PIXELS` pixels are one
-        launch of the batched kernel (counted by :func:`batch_launch_count`);
-        larger frames are N launches of the single-frame kernel from one C
-        call, each with its scene by value (counted by
-        :func:`launch_count`), because there the batched kernel's scene
-        reads cost more than a launch. ``frame_launches`` forces one route
-        (for tests and timing).
+        Frames of fewer than :data:`FRAME_LAUNCH_PIXELS` pixels take the
+        launches of :func:`batch_plan` of the batched kernel (each counted
+        by :func:`batch_launch_count`); larger frames are N launches of the
+        single-frame kernel from one C call, each with its scene by value
+        (counted by :func:`launch_count`), because there the batched
+        kernel's scene reads cost more than a launch. ``frame_launches``
+        forces one route (for tests and timing).
         """
         global _batch_launches
         device = torch.device(device)
@@ -498,8 +597,16 @@ def build_backplanes_kernel(
         if nx <= 0 or ny <= 0:
             raise ValueError(f'image size must be positive, got {nx}x{ny}')
         if frame_launches is None:
-            frame_launches = nx * ny >= FRAME_LAUNCH_PIXELS
-        if frame_launches:
+            frame_launches = frame_route(nx, ny)
+        if scenes.ndim != 2 or scenes.shape[0] < 1:
+            raise ValueError(
+                f'scenes must be a contiguous float64 (N, {SCENE_SIZE}) '
+                f'array with N >= 1 (pack_scenes), got {tuple(scenes.shape)}'
+            )
+        plan = None if frame_launches else batch_plan(
+            int(scenes.shape[0]), int(nx), int(ny))
+        if frame_launches or plan.tiles:
+            # the launches take their scenes by value, from the host
             if isinstance(scenes, torch.Tensor):
                 scenes = scenes.cpu().numpy()
             scenes = np.ascontiguousarray(scenes, dtype=np.float64)
@@ -508,8 +615,7 @@ def build_backplanes_kernel(
                 np.ascontiguousarray(scenes, dtype=np.float64)
             ).to(device, non_blocking=True)
         if (scenes.dtype not in (np.float64, torch.float64)
-                or scenes.ndim != 2 or scenes.shape[1] != SCENE_SIZE
-                or scenes.shape[0] < 1
+                or scenes.shape[1] != SCENE_SIZE
                 or (isinstance(scenes, torch.Tensor) and (
                     scenes.device != device or not scenes.is_contiguous()))):
             raise ValueError(
@@ -523,23 +629,35 @@ def build_backplanes_kernel(
         if 'RADIAL-VELOCITY' in requested:
             rv = torch.empty((n, ny, nx), dtype=torch.float64, device=device)
         lib = load_library()
-        launch = (lib.backplanes26_launch_frames if frame_launches
-                  else lib.backplanes26_launch_batch)
-        scene_ptr = (scenes.ctypes.data if frame_launches
-                     else scenes.data_ptr())
+        rv_ptr = None if rv is None else rv.data_ptr()
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            rc = launch(
-                scene_ptr, stacked.data_ptr(),
-                None if rv is None else rv.data_ptr(), int(nx), int(ny), n,
-                float(row0), slots, int(n_lt_iters), int(geodetic_iters),
-                flags, stream,
-            )
-        check_launch(rc, 'batched backplane')
-        if frame_launches:
-            LIBRARY.launches += n
-        else:
-            _batch_launches += 1
+            if frame_launches:
+                rc = lib.backplanes26_launch_frames(
+                    scenes.ctypes.data, stacked.data_ptr(), rv_ptr, int(nx),
+                    int(ny), n, float(row0), slots, int(n_lt_iters),
+                    int(geodetic_iters), flags, stream,
+                )
+                check_launch(rc, 'batched backplane')
+                LIBRARY.launches += n
+            else:
+                for first, count in plan.launches:
+                    if plan.tiles:
+                        rc = lib.backplanes26_launch_batch_tiles(
+                            scenes.ctypes.data, stacked.data_ptr(), rv_ptr,
+                            int(nx), int(ny), n, first, count, float(row0),
+                            slots, int(n_lt_iters), int(geodetic_iters),
+                            flags, stream,
+                        )
+                    else:
+                        rc = lib.backplanes26_launch_batch(
+                            scenes.data_ptr(), stacked.data_ptr(), rv_ptr,
+                            int(nx), int(ny), n, first, count, plan.threads,
+                            float(row0), slots, int(n_lt_iters),
+                            int(geodetic_iters), flags, stream,
+                        )
+                    check_launch(rc, 'batched backplane')
+                    _batch_launches += 1
         planes = dict(zip(stacked_names, stacked))
         planes['RADIAL-VELOCITY'] = rv
         return {name: planes[name] for name in requested}

@@ -13,7 +13,9 @@ finite cells, scipy's ``PchipInterpolator(extrapolate=False)`` line by
 line, and evaluates it at ``linspace(0, n - 1, n_eval)``. It launches the
 kernel once for CUDA tensors, whatever the frame count, and counts the
 launch; a build or launch fault raises. Only CPU tensors take
-:func:`pchip_axis_plain`.
+:func:`pchip_axis_plain`. The launch's plan is the wrapper's: a block's
+lines (:func:`lines_per_block`); it stages a long line in chunks of
+:data:`BLOCK_CELLS` over its lines.
 """
 
 from __future__ import annotations
@@ -32,8 +34,18 @@ _L = ctypes.c_longlong
 def _configure(lib) -> None:
     lib.pchip_axis_launch.restype = _I
     lib.pchip_axis_launch.argtypes = [
-        _P, _L, _L, _L, _P, _P, _L, _L, _L, _I, _L, _I, _I, _I, _P,
+        _P, _L, _L, _L, _P, _P, _L, _L, _L, _I, _L, _I, _I, _I, _I, _P,
     ]
+    lib.pchip_occupancy.restype = _I
+    lib.pchip_occupancy.argtypes = [ctypes.POINTER(_I)] * 3
+    lib.pchip_layout.restype = None
+    lib.pchip_layout.argtypes = [ctypes.POINTER(_I)] * 3
+    layout = [_I() for _ in range(3)]
+    lib.pchip_layout(*layout)
+    if tuple(v.value for v in layout) != (THREADS, BLOCK_CELLS,
+                                          ADJACENT_LINES):
+        raise RuntimeError('pchip.cu and its wrapper differ in the layout: '
+                           f'{[v.value for v in layout]}')
 
 
 # -fmad=false: the kernel rounds each product as the plain version does
@@ -42,6 +54,25 @@ load_library = LIBRARY.load
 launch_count = LIBRARY.launch_count
 reset_launch_count = LIBRARY.reset_launch_count
 ptxas_log = LIBRARY.ptxas_log
+
+
+#: Threads of a block (``kThreads`` of the source).
+THREADS = 256
+#: Cells a block stages at once, over all its lines (``kCells``).
+BLOCK_CELLS = 1024
+#: Lines a block takes when they are adjacent in memory (``kAdjacentLines``).
+ADJACENT_LINES = 4
+
+
+def occupancy() -> dict[str, int]:
+    """``dict(registers, local_bytes, blocks_per_sm)`` of the compiled
+    kernel's column-pass instance (:data:`ADJACENT_LINES` lines a block) on
+    the current CUDA device (blocks of :data:`THREADS`)."""
+    lib = load_library()
+    values = [_I() for _ in range(3)]
+    check_launch(lib.pchip_occupancy(*values), 'PCHIP occupancy')
+    return dict(zip(('registers', 'local_bytes', 'blocks_per_sm'),
+                    (v.value for v in values)))
 
 
 def _edge_derivative(h0, d0, h1, d1):
@@ -208,6 +239,13 @@ def pchip_axis(values: torch.Tensor, n_eval: int, k_rep: int,
     return out
 
 
+def lines_per_block(line_stride: int) -> int:
+    """A block's lines: :data:`ADJACENT_LINES` when lines are adjacent in
+    memory (the columns of a row-major grid: each cell's load and each
+    position's store is one 32-byte sector of the block's lines), else 1."""
+    return ADJACENT_LINES if line_stride == 1 else 1
+
+
 def launch(values, xs, out, *, k_rep: int, axis: int) -> None:
     """
     Launch the kernel on CUDA buffers (``values`` at any strides, ``xs``
@@ -234,7 +272,8 @@ def launch(values, xs, out, *, k_rep: int, axis: int) -> None:
             values.data_ptr(), values.stride(0), values.stride(line_dim),
             values.stride(cell_dim), xs.data_ptr(), out.data_ptr(),
             out.stride(0), out.stride(line_dim), out.stride(cell_dim),
-            n_frames, lines, n, n_eval, k_rep, stream,
+            n_frames, lines, n, n_eval, k_rep,
+            lines_per_block(values.stride(line_dim)), stream,
         )
     check_launch(rc, 'PCHIP')
     LIBRARY.launches += 1

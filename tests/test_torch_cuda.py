@@ -258,6 +258,62 @@ def test_batched_kernel_walks_frames_past_the_grid_z_limit(kernel_path,
             name
 
 
+@pytest.mark.parametrize('n, size, tiles', [
+    (1, 50, False), (77, 50, False), (78, 50, False), (1000, 50, False),
+    (40, 130, False), (40, 200, True), (2, 2048, True),
+])
+def test_batched_kernel_at_main_path_sizes(kernel_path, device, n, size,
+                                           tiles):
+    """The time series' 50x50 frames at 1, 77, 78 and 1000 epochs and 40
+    of 130x130 (linear blocks: 78% of the tiles' lanes), 40 of 200x200
+    (tiles, 89%: two launches of 38 and 2) and two 2048x2048 frames, bit
+    for bit with single-frame launches, in the launches of the plan."""
+    body, _ = _body(size, size, (size / 2, size / 2, size * 0.4, 12.3),
+                    device)
+    ets = body.et + 60.0 * np.arange(n)
+    from planetmapper_tpu_torch.parallel import timeseries
+
+    anchors, xys = timeseries._batched_pipeline_inputs(body, ets)
+    scenes = bk.pack_scenes(xys, np.broadcast_to(body.get_disc_params(),
+                                                 (n, 4)),
+                            np.asarray(body.radii), anchors)
+    kernel = bk.build_backplanes_kernel(
+        optimize_speed=True, lst_quant=True, **FLAGS,
+    )
+    before = bk.batch_launch_count()
+    got = kernel.run_batch(scenes, size, size, device, frame_launches=False)
+    torch.cuda.synchronize()
+    plan = bk.batch_plan(n, size, size)
+    assert plan.tiles == tiles
+    assert bk.batch_launch_count() == before + len(plan.launches)
+    _equal(got, kernel.run_batch(scenes, size, size, device,
+                                 frame_launches=True))
+
+
+@pytest.mark.parametrize('fill', [0.0, 2.0])
+def test_batched_kernel_in_either_layout_equals_single_launches(
+        kernel_path, device, monkeypatch, fill):
+    """The tiles (fill 0, no least size) and the linear blocks (fill 2) on a
+    ragged frame, row-offset, with a plane subset: each bit for bit with
+    single-frame launches."""
+    monkeypatch.setattr(bk, 'TILE_FILL', fill)
+    monkeypatch.setattr(bk, 'TILE_PIXELS', 0)
+    nx, ny = 101, 67
+    body, _ = _body(nx, ny, (50.3, 30.7, 28.0, 12.3), device)
+    xys, discs = _sweep(body, 3)
+    kernel = bk.build_backplanes_kernel(
+        optimize_speed=True, lst_quant=True,
+        planes=('EMISSION', 'RADIAL-VELOCITY', 'LON-GRAPHIC', 'RA'), **FLAGS,
+    )
+    scenes = bk.pack_scenes(xys, discs, np.asarray(body.radii),
+                            body._get_pipeline_anchors())
+    assert bk.batch_plan(3, nx, ny).tiles == (fill == 0.0)
+    _equal(kernel.run_batch(scenes, nx, ny, device, 9.0,
+                            frame_launches=False),
+           kernel.run_batch(scenes, nx, ny, device, 9.0,
+                            frame_launches=True))
+
+
 def test_batched_kernel_matches_plain_version(kernel_path, device):
     nx, ny = 128, 64
     body, args = _body(nx, ny, (64.3, 32.3, 28.8, 12.3), device)
@@ -496,8 +552,7 @@ def test_pchip_kernel_matches_plain_version(device, k_rep, axis):
 
 @pytest.mark.parametrize('n', [2, 5, 3000])
 def test_pchip_kernel_walks_long_lines_in_segments(device, n):
-    # 3000 cells: 16 segments of 188, NaN gaps across several of them; no
-    # line is held whole by a block
+    # 3000 cells: three chunks of 1024 a block, NaN gaps across them
     rows = _pchip_rows(n, 36, n)
     if n > 100:
         rows[0, 100:1500] = np.nan
@@ -510,6 +565,35 @@ def test_pchip_kernel_walks_long_lines_in_segments(device, n):
         got = pk.pchip_axis(values, n_eval, k_rep, -1)
         _assert_pchip_equal(got, pk.pchip_axis_plain(values, n_eval, k_rep,
                                                      -1))
+
+
+@pytest.mark.parametrize('k_rep', [1, 3, 5])
+def test_pchip_kernel_chunks_long_columns(device, k_rep):
+    """
+    Columns of 3000 cells, four adjacent a block: twelve chunks of 256
+    cells, each with its two finite cells carried from before and the two
+    found after it (NaN gaps across several chunks, a column whose only
+    finite cells lie in its first and last chunks), and rows of a strided
+    view (one line a block, three chunks of 1024).
+    """
+    rows = _pchip_rows(3000, 45, 50 + k_rep)
+    rows[0, 100:1500] = np.nan
+    rows[9, 5:2990] = np.nan
+    rows[10, :] = np.nan
+    rows[10, [7, 2999]] = 2.0
+    rows[18, 250:770] = np.nan  # across the second and third chunks
+    cube = np.stack([rows.T, rows[::-1].T])  # (2, 3000, 45)
+    values = f64(np.pad(cube, ((0, 0), (0, 0), (1, 2))), device)
+    for axis, view in ((-2, values[:, :, 1:-2]),
+                       (-1, values[:, :, 1:-2].transpose(1, 2))):
+        n = view.shape[axis]
+        n_eval = (n - 1) * k_rep + 1
+        before = pk.launch_count()
+        got = pk.pchip_axis(view, n_eval, k_rep, axis)
+        torch.cuda.synchronize()
+        assert pk.launch_count() == before + 1
+        _assert_pchip_equal(got, pk.pchip_axis_plain(view, n_eval, k_rep,
+                                                     axis))
 
 
 @pytest.mark.parametrize('propagate_nan', [True, False])

@@ -11,8 +11,10 @@ SPICE kernels (Jupiter from the Earth on 2005-01-01, a 150x150 frame):
 - the NaN infill against the host implementation (median of an even count
   of finite pixels);
 - the 'smooth' stage's PCHIP oversampling: a cube at once equals frame by
-  frame, and the segment walk of ``csrc/pchip.cu``, transcribed into
-  Python, equals the plain version bit for bit;
+  frame, and the work split of ``csrc/pchip.cu`` (chunks, the neighbour
+  scans over the threads' runs, one derivative per finite cell, one
+  position a thread), transcribed into Python, equals the plain version
+  bit for bit;
 - the map chain of a body on another device (PyTorch's ``meta`` device)
   keeps every map on that device;
 - the spline kernel's uniform-knot path, transcribed from
@@ -566,68 +568,168 @@ def _derivative(pp, p, c, q, qq):
     return 0.0
 
 
-def _pchip_kernel_line(line, xs, k: int, n_warps: int) -> np.ndarray:
+def _scan_runs(finite, threads: int):
     """
-    One line through ``pchip_axis_kernel`` of ``csrc/pchip.cu``,
-    transcribed: pass 1 (each warp's finite cells), then each warp's walk
-    of its owned positions with the window (pp, c0, c1, nn).
+    The kernel's scans of one line's slots: ``threads`` threads each take a
+    run of slots, the runs' last and first finite slots are scanned across
+    32-lane warps (shuffles) and across the line's warps (their totals),
+    and each thread fills its run. Returns (prev, next): the nearest
+    finite slot at or before / at or after each slot (-1 when none).
+    """
+    n = len(finite)
+    run = -(-n // threads)
+    spans = [(min(t * run, n), min(t * run + run, n)) for t in range(threads)]
+    last = [max([i for i in range(lo, hi) if finite[i]], default=-1)
+            for lo, hi in spans]
+    first = [min([i for i in range(lo, hi) if finite[i]], default=n)
+             for lo, hi in spans]
+    prev, nxt = [0] * n, [0] * n
+    for t, (lo, hi) in enumerate(spans):
+        w0 = t - t % 32
+        # lanes before this one in its warp, then the earlier warps' totals
+        r = max([max(last[w0:t], default=-1)] + last[:w0])
+        q = min([min(first[t + 1:w0 + 32], default=n)] + first[w0 + 32:])
+        for i in range(lo, hi):
+            r = i if finite[i] else r
+            prev[i] = r
+        for i in range(hi - 1, lo - 1, -1):
+            q = i if finite[i] else q
+            nxt[i] = q if q < n else -1
+    return prev, nxt
+
+
+def _pchip_kernel_line(line, xs, k: int, chunk: int, threads: int = 256,
+                       by_cell: bool = False) -> np.ndarray:
+    """
+    One line through ``pchip_lines`` of ``csrc/pchip.cu``, transcribed:
+    chunk by chunk of ``chunk`` cells, the slots [b0, b1, the chunk, a0,
+    a1] (the two finite cells carried from before the chunk, the two found
+    after it), the nearest finite slots (:func:`_scan_runs`), each finite
+    slot's derivative once, and every position whose floor cell lies in the
+    chunk: a position a thread, stepped ``threads`` positions at a time
+    (its cell and remainder carried, not divided; the row pass), or
+    ``by_cell``, a cell a thread, its k positions from one interval (the
+    column pass).
     """
     n, n_eval = len(line), len(xs)
-    seg = -(-n // n_warps)
-    spans = [(min(w * seg, n), min(w * seg + seg, n)) for w in range(n_warps)]
-    finite = [[(float(i), float(line[i])) for i in range(a, b)
-               if math.isfinite(line[i])] for a, b in spans]
     out = np.full(n_eval, -1.0)  # every position must be written
-    for w, (a, b) in enumerate(spans):
-        e_end = min(b * k, n_eval)
-        if a >= b:
-            continue
-        before = [c for cells in finite[:w] for c in cells][-2:]
-        after = [c for cells in finite[w + 1:] for c in cells][:2]
-        stream = iter(before + finite[w] + after)
-        pp = c0 = c1 = nn = _NONE
-        for _ in range(3):
-            pp, c0, c1, nn = c0, c1, nn, next(stream, _NONE)
-        d0 = d1 = None
-        for e in range(a * k, e_end):
-            while c1[0] >= 0 and c1[0] * k < e:
-                pp, c0, c1, nn = c0, c1, nn, next(stream, _NONE)
-                d0, d1 = d1, None
-            if c0[0] >= 0 and c0[0] * k == e:  # NaN if the only finite cell
-                r = c0[1] if pp[0] >= 0 or c1[0] >= 0 else math.nan
-            elif c1[0] >= 0 and c1[0] * k == e:
-                r = c1[1]
-            elif c0[0] < 0 or c1[0] < 0 or c0[0] * k > e:
-                r = math.nan
-            else:
-                d0 = _derivative(_NONE, pp, c0, c1, nn) if d0 is None else d0
-                d1 = _derivative(pp, c0, c1, nn, _NONE) if d1 is None else d1
-                h = c1[0] - c0[0]
-                t = (float(xs[e]) - c0[0]) / h
-                t2 = t * t
-                t3 = t2 * t
-                r = (c0[1] * (2.0 * t3 - 3.0 * t2 + 1.0)
-                     + h * d0 * (t3 - 2.0 * t2 + t)
-                     + c1[1] * (-2.0 * t3 + 3.0 * t2) + h * d1 * (t3 - t2))
-            out[e] = r
+    carry = [_NONE, _NONE]
+    for a in range(0, n, chunk):
+        b = min(a + chunk, n)
+        m = b - a
+        ahead = [(i, float(line[i])) for i in range(b, n)
+                 if math.isfinite(line[i])][:2]
+        slots = carry + [(i, float(line[i])) for i in range(a, b)] + (
+            ahead + [_NONE, _NONE])[:2]
+        value = [c[1] if c[0] >= 0 else math.nan for c in slots]
+        finite = [math.isfinite(v) for v in value]
+        prev, nxt = _scan_runs(finite, threads)
+        n_slots = m + 4
+
+        def cell(i):
+            return _NONE if i < 0 else slots[i]
+
+        deriv = {}
+        for i in range(1, m + 3):
+            if not finite[i]:
+                continue
+            pv = prev[i - 1]
+            pp = prev[pv - 1] if pv >= 1 else -1
+            nx = nxt[i + 1]
+            qq = nxt[nx + 1] if nx >= 0 and nx + 1 < n_slots else -1
+            deriv[i] = _derivative(cell(pp), cell(pv), cell(i), cell(nx),
+                                   cell(qq))
+        def position(i0, i1, e):
+            if i0 < 0 or i1 < 0:
+                return math.nan
+            if i0 == i1:  # NaN if the only finite cell
+                return (value[i0] if prev[i0 - 1] >= 0 or nxt[i0 + 1] >= 0
+                        else math.nan)
+            xl = float(slots[i0][0])
+            h = float(slots[i1][0]) - xl
+            d0, d1 = deriv[i0], deriv[i1]
+            t = (float(xs[e]) - xl) / h
+            t2 = t * t
+            t3 = t2 * t
+            return (value[i0] * (2.0 * t3 - 3.0 * t2 + 1.0)
+                    + h * d0 * (t3 - 2.0 * t2 + t)
+                    + value[i1] * (-2.0 * t3 + 3.0 * t2)
+                    + h * d1 * (t3 - t2))
+
+        e0, n_pos = a * k, min(b * k, n_eval) - a * k
+        for first in range(threads):
+            if by_cell:
+                for c in range(a + first, b, threads):
+                    at = c - a + 2
+                    out[c * k] = position(prev[at], nxt[at], c * k)
+                    if c < n - 1:
+                        for q in range(1, k):
+                            out[c * k + q] = position(prev[at], nxt[at + 1],
+                                                      c * k + q)
+                continue
+            cl, rest = divmod(e0 + first, k)
+            for pos in range(first, n_pos, threads):
+                at = cl - a + 2
+                out[e0 + pos] = position(prev[at], nxt[at + (rest != 0)],
+                                         e0 + pos)
+                cl += threads // k
+                rest += threads % k
+                if rest >= k:
+                    rest -= k
+                    cl += 1
+        last = prev[m + 1]
+        if b < n and last >= 2:
+            carry = [cell(prev[last - 1]), slots[last]]
     return out
 
 
 @pytest.mark.parametrize('k_rep', [1, 2, 3, 4, 5])
 def test_pchip_kernel_walk_matches_plain_version(k_rep):
-    # the launch's segment count (21 for 41 cells: 2 cells a segment) and
-    # others: gaps cross segments, segments without a finite cell, one-cell
-    # segments
+    # one chunk (a block's 1024 cells of a row, 256 of a column), and
+    # chunks of a few cells: gaps cross chunks and the scans' runs, chunks
+    # without a finite cell, one-cell chunks; 256 threads a line and a
+    # position a thread (a row pass), 64 and a cell a thread (a column
+    # pass), and both ways at other sizes
     for n, seed in ((41, k_rep), (7, 10 + k_rep), (2, 20)):
         rows = _pchip_lines(n, seed)
         n_eval = (n - 1) * k_rep + 1
         ref = pchip_kernel._pchip_axis(torch.from_numpy(rows), n_eval,
                                        k_rep).numpy()
         xs = torch.linspace(0.0, n - 1.0, n_eval, dtype=torch.float64)
-        for n_warps in sorted({-(-n // 2), 1, 3, min(n, 16)}):
-            got = np.stack([_pchip_kernel_line(r, xs.numpy(), k_rep, n_warps)
+        for chunk, threads, by_cell in (
+                (1024, 256, False), (256, 64, True), (13, 64, True),
+                (13, 64, False), (5, 4, True), (2, 256, False),
+                (1, 3, False), (1, 3, True)):
+            got = np.stack([_pchip_kernel_line(r, xs.numpy(), k_rep, chunk,
+                                               threads, by_cell)
                             for r in rows])
             np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize('k_rep', [1, 5])
+def test_pchip_kernel_chunks_long_lines(k_rep):
+    # 3000 cells: three chunks of a row pass's 1024 cells, twelve of a
+    # column pass's 256; NaN gaps across several chunks, a line whose only
+    # two finite cells lie in the first and last chunks
+    n = 3000
+    rows = _pchip_lines(n, 30 + k_rep)
+    rows[0, 100:1500] = np.nan
+    rows[2, 5:2990] = np.nan
+    rows[4, [7, 2999]] = 2.0
+    n_eval = (n - 1) * k_rep + 1
+    ref = pchip_kernel._pchip_axis(torch.from_numpy(rows), n_eval,
+                                   k_rep).numpy()
+    xs = torch.linspace(0.0, n - 1.0, n_eval, dtype=torch.float64).numpy()
+    for line in (1, 4):
+        stride = 1 if line == 4 else n
+        assert pchip_kernel.lines_per_block(stride) == line
+        chunk = pchip_kernel.BLOCK_CELLS // line
+        assert n // chunk in (2, 11)  # chunks: 3 of a row, 12 of a column
+        got = np.stack([_pchip_kernel_line(r, xs, k_rep, chunk,
+                                           pchip_kernel.THREADS // line,
+                                           by_cell=line > 1)
+                        for r in rows[[0, 2, 4, 1, 8]]])
+        np.testing.assert_array_equal(got, ref[[0, 2, 4, 1, 8]])
 
 
 # ---------------------------------------------------------------------------

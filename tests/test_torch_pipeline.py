@@ -624,6 +624,91 @@ def test_batch_wrapper_runs_plain_version_on_cpu(batch_bodies):
                           BATCH_NX, BATCH_NY, 'cpu')
 
 
+def _plan_pixels(n, nx, ny, plan):
+    """Each launch's pixels as the batched kernel maps its blocks (the
+    tiles' or the linear blocks'), as (launch, flat indices into the
+    (N, ny, nx) batch, per block and thread; -1 where masked)."""
+    size = nx * ny
+    for first, count in plan.launches:
+        if plan.tiles:
+            tx, ty = backplanes_kernel.TILE
+            assert plan.blocks_per_frame == -(-nx // tx) * -(-ny // ty)
+            assert count <= backplanes_kernel.BLOCK_SCENES
+            col = (np.arange(-(-nx // tx))[:, None] * tx
+                   + np.arange(tx))[None, :, None, :]
+            row = (np.arange(-(-ny // ty))[:, None] * ty
+                   + np.arange(ty))[:, None, :, None]
+            frame = first + np.arange(count)[:, None, None, None, None]
+            live = (col < nx) & (row < ny)
+            pix = np.where(live, frame * size + row * nx + col, -1)
+            yield first, count, pix.reshape(count * plan.blocks_per_frame,
+                                            -1)
+        else:
+            assert count * plan.blocks_per_frame <= \
+                backplanes_kernel.MAX_GRID_X
+            block = np.arange(count * plan.blocks_per_frame)
+            local = block // plan.blocks_per_frame
+            p0 = (block - local * plan.blocks_per_frame) * plan.threads
+            p1 = np.minimum(p0 + plan.threads, size)
+            pix = p0[:, None] + np.arange(plan.threads)
+            # a frame's blocks are full but its last, whose live lanes lead
+            yield first, count, np.where(
+                pix < p1[:, None], (first + local)[:, None] * size + pix, -1)
+
+
+@pytest.mark.parametrize('n, nx, ny, per_launch', [
+    (1, 50, 50, None), (77, 50, 50, None), (78, 50, 50, None),
+    (1000, 50, 50, None), (1000, 50, 50, 77), (78, 50, 50, 77),
+    (65535 + 40, 5, 3, None), (65535 + 40, 32, 8, None), (3, 101, 67, None),
+    (80, 128, 128, None),
+    (2, 1, 300, None), (4, 7, 1, None), (8, 256, 256, None),
+    (8, 300, 300, None), (3, 1000, 700, 1), (2, 2048, 2048, None),
+])
+def test_batched_launch_plan_covers_every_pixel_once(n, nx, ny, per_launch):
+    """
+    The batched kernel's launch plan, with its block-to-pixel maps
+    transcribed: every (frame, row, column) once, the ragged blocks masked,
+    launches cut at ``per_launch`` frames (77: the constant-bank
+    candidate's chunk) and at the launches' limits (38 frames a tiled
+    launch, their scenes in its parameters; 65535 + 40 frames of linear
+    blocks in one launch), the layout by the tiles' lane fill.
+    """
+    plan = backplanes_kernel.batch_plan(n, nx, ny, per_launch)
+    size = nx * ny
+    fill = size / (-(-nx // 32) * 32 * -(-ny // 8) * 8)
+    assert plan.tiles == (fill >= backplanes_kernel.TILE_FILL
+                          and size >= backplanes_kernel.TILE_PIXELS)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= \
+        backplanes_kernel.BATCH_THREADS
+    assert plan.tiles or plan.threads == backplanes_kernel.BATCH_THREADS \
+        or plan.threads >= size
+    launches = plan.launches
+    assert [first for first, _ in launches] == list(
+        range(0, n, launches[0][1]))
+    assert sum(count for _, count in launches) == n
+    if per_launch:
+        assert all(count <= per_launch for _, count in launches)
+    seen = np.zeros(n * size, dtype=np.int64)
+    for first, count, pix in _plan_pixels(n, nx, ny, plan):
+        assert pix.shape == (count * plan.blocks_per_frame, plan.threads)
+        np.add.at(seen, pix[pix >= 0], 1)
+    assert np.all(seen == 1)
+
+
+@pytest.mark.parametrize('size, route, tiles', [
+    (50, False, False), (64, False, False), (100, False, False),
+    (128, False, True), (130, False, False), (200, False, True),
+    (256, False, True), (640, False, True), (768, True, True),
+    (1024, True, True), (2048, True, True),
+])
+def test_batch_route_and_layout_by_frame_size(size, route, tiles):
+    """Frames of FRAME_LAUNCH_PIXELS or more take one single-frame launch
+    each; smaller ones the batched kernel, in tiles where they fill the
+    lanes."""
+    assert backplanes_kernel.frame_route(size, size) == route
+    assert backplanes_kernel.batch_plan(8, size, size).tiles == tiles
+
+
 def test_select_pipeline_impl_takes_the_jax_keywords(batch_bodies):
     """use_pallas forces the kernel (off CUDA it raises); interpret takes
     the plain graph at the kernel's conventions on any device."""
