@@ -36,6 +36,7 @@ from typing import Any, Callable, Literal, NamedTuple, Protocol, TypedDict
 import numpy as np
 import torch
 
+from . import tracing
 from ._device import f64, resolve_device, scene_device
 from .base import (
     _as_readonly_view,
@@ -1608,10 +1609,11 @@ class BodyXY(Body):
                 f'a body on the CPU does; this body is on {self.device}: '
                 "unset the switch, or build the body with device='cpu'"
             )
-        if isinstance(img, torch.Tensor):
-            img = img.to(self.device)
-        else:
-            img = torch.as_tensor(np.asarray(img), device=self.device)
+        with tracing.span('pm.map.upload'):
+            if isinstance(img, torch.Tensor):
+                img = img.to(self.device)
+            else:
+                img = torch.as_tensor(np.asarray(img), device=self.device)
         if img.shape[-2:] != (self._ny, self._nx):
             raise ValueError(
                 f'The input `img` shape {tuple(img.shape)!r} is inconsistent '
@@ -1627,7 +1629,8 @@ class BodyXY(Body):
                 ),
                 **map_kwargs,
             )
-        samples = self._get_map_samples(**map_kwargs)
+        with tracing.span('pm.map.samples'):
+            samples = self._get_map_samples(**map_kwargs)
 
         from .ops import interp_device, pchip_device
 
@@ -1636,8 +1639,10 @@ class BodyXY(Body):
                 img = img.to(torch.float64)
             out = interp_device.nearest_interpolation_device(img, samples)
         elif isinstance(interpolation, (int, tuple)):
+            with tracing.span('pm.map.to_float64'):
+                img = img.to(torch.float64)
             out = interp_device.spline_interpolation_device(
-                img.to(torch.float64), samples,
+                img, samples,
                 interpolation=interpolation, warn_nan=warn_nan,
                 propagate_nan=propagate_nan,
                 spline_smoothing=spline_smoothing,

@@ -49,6 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.ephemeris import CLIGHT
 from ..pipeline import ANCHOR_SHAPES as _ANCHOR_SHAPES
 from .cuda_build import CudaLibrary, check_launch
@@ -152,9 +153,9 @@ reset_launch_count = LIBRARY.reset_launch_count
 ptxas_log = LIBRARY.ptxas_log
 
 
-#: Launches of the batched kernel (the library's own count is the
+#: The counter of the batched kernel's launches (the library's own is the
 #: single-frame kernel's).
-_batch_launches = 0
+BATCH_COUNTER = f'{LIBRARY.counter}_batch'
 
 #: Frames of this many pixels or more take one launch of the single-frame
 #: kernel each in a batch (``run_batch``): its scene is constant-bank
@@ -244,12 +245,11 @@ def frame_route(nx: int, ny: int) -> bool:
 
 def batch_launch_count() -> int:
     """Launches of the batched kernel so far in this process."""
-    return _batch_launches
+    return tracing.counts().get(BATCH_COUNTER, 0)
 
 
 def reset_batch_launch_count() -> None:
-    global _batch_launches
-    _batch_launches = 0
+    tracing.reset(BATCH_COUNTER)
 
 
 def occupancy(batch: str | None = None) -> dict[str, int]:
@@ -551,23 +551,23 @@ def build_backplanes_kernel(
             raise ValueError(f'no backplane kernel for device {device}')
         if nx <= 0 or ny <= 0:
             raise ValueError(f'image size must be positive, got {nx}x{ny}')
-        stacked = torch.empty(
-            (len(stacked_names), ny, nx), dtype=torch.float32, device=device
-        )
-        rv = None
-        if 'RADIAL-VELOCITY' in requested:
-            rv = torch.empty((ny, nx), dtype=torch.float64, device=device)
-        lib = load_library()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = lib.backplanes26_launch(
-                scene.ctypes.data, stacked.data_ptr(),
-                None if rv is None else rv.data_ptr(), int(nx), int(ny),
-                float(row0), slots, int(n_lt_iters), int(geodetic_iters),
-                flags, stream,
-            )
-        check_launch(rc, 'backplane')
-        LIBRARY.launches += 1
+        with tracing.span('pm.kernel1.launch'):
+            stacked = torch.empty((len(stacked_names), ny, nx),
+                                  dtype=torch.float32, device=device)
+            rv = None
+            if 'RADIAL-VELOCITY' in requested:
+                rv = torch.empty((ny, nx), dtype=torch.float64, device=device)
+            lib = load_library()
+            with torch.cuda.device(device):
+                stream = torch.cuda.current_stream(device).cuda_stream
+                rc = lib.backplanes26_launch(
+                    scene.ctypes.data, stacked.data_ptr(),
+                    None if rv is None else rv.data_ptr(), int(nx), int(ny),
+                    float(row0), slots, int(n_lt_iters), int(geodetic_iters),
+                    flags, stream,
+                )
+            check_launch(rc, 'backplane')
+            LIBRARY.count_launches()
         planes = dict(zip(stacked_names, stacked))
         planes['RADIAL-VELOCITY'] = rv
         return {name: planes[name] for name in requested}
@@ -588,7 +588,6 @@ def build_backplanes_kernel(
         kernel's scene reads cost more than a launch. ``frame_launches``
         forces one route (for tests and timing).
         """
-        global _batch_launches
         device = torch.device(device)
         if device.type != 'cuda':
             raise ValueError(f'no backplane kernel for device {device}')
@@ -639,7 +638,7 @@ def build_backplanes_kernel(
                     int(geodetic_iters), flags, stream,
                 )
                 check_launch(rc, 'batched backplane')
-                LIBRARY.launches += n
+                LIBRARY.count_launches(n)
             else:
                 for first, count in plan.launches:
                     if plan.tiles:
@@ -657,7 +656,7 @@ def build_backplanes_kernel(
                             int(geodetic_iters), flags, stream,
                         )
                     check_launch(rc, 'batched backplane')
-                    _batch_launches += 1
+                    tracing.count(BATCH_COUNTER)
         planes = dict(zip(stacked_names, stacked))
         planes['RADIAL-VELOCITY'] = rv
         return {name: planes[name] for name in requested}

@@ -6,8 +6,9 @@ library with a plain C interface and loaded with ``ctypes``, at first use on
 a CUDA device, never at import. The library lands in ``build/`` at the
 repository root, named by the hash of its source and the flags, with the
 ``-Xptxas -v`` report (registers, spills) beside it. A
-:class:`CudaLibrary` also holds its kernel's launch count, which the wrapper
-raises by one for each launch and nowhere else.
+:class:`CudaLibrary` also names its kernel's launch counter
+(``launches.<name>`` in :mod:`..tracing`), which the wrapper raises by one
+for each launch and nowhere else.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import subprocess
 import time
 from collections.abc import Callable
 from pathlib import Path
+
+from .. import tracing
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
@@ -60,17 +63,22 @@ class CudaLibrary:
         self.flags = NVCC_FLAGS + tuple(flags)
         self._configure = configure
         self._lib: ctypes.CDLL | None = None
-        self.launches = 0
+        #: the launch counter's name in :mod:`..tracing`
+        self.counter = f'launches.{name}'
         self._ptxas_log = ''
         #: seconds nvcc took in this process's build (0.0 when cached)
         self.build_seconds = 0.0
 
+    def count_launches(self, n: int = 1) -> None:
+        """Count ``n`` launches of the library's kernel."""
+        tracing.count(self.counter, n)
+
     def launch_count(self) -> int:
         """Kernel launches so far in this process (plain-version calls excluded)."""
-        return self.launches
+        return tracing.counts().get(self.counter, 0)
 
     def reset_launch_count(self) -> None:
-        self.launches = 0
+        tracing.reset(self.counter)
 
     def ptxas_log(self) -> str:
         """The ``-Xptxas -v`` output of the build (empty before a build)."""

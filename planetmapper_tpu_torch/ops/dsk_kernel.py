@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from .. import tracing
 from . import dsk
 from .cuda_build import CudaLibrary, check_launch
 
@@ -54,23 +55,23 @@ def _configure(lib) -> None:
 LIBRARY = CudaLibrary('dsk', 'dsk.cu', _configure, flags=('-fmad=false',))
 load_library = LIBRARY.load
 ptxas_log = LIBRARY.ptxas_log
-#: launches of each kernel (the library holds two, so it keeps no count)
-_launches = dict.fromkeys(KERNELS, 0)
+#: the launch counter of each kernel (the library holds two, so its own
+#: counter stays unused)
+COUNTERS = {kernel: f'{LIBRARY.counter}.{kernel}' for kernel in KERNELS}
 
 
 def launch_count(kernel: str) -> int:
     """Launches of ``kernel`` (one of :data:`KERNELS`) so far in this
     process (plain-version calls excluded)."""
-    return _launches[kernel]
+    return tracing.counts().get(COUNTERS[kernel], 0)
 
 
 def reset_launch_count() -> None:
-    for kernel in KERNELS:
-        _launches[kernel] = 0
+    tracing.reset(*COUNTERS.values())
 
 
 def _count(kernel: str) -> None:
-    _launches[kernel] += 1
+    tracing.count(COUNTERS[kernel])
 
 
 def pairs_plain(op: str, a, b):

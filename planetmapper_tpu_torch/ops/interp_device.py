@@ -33,6 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import tracing
 from .map_spline_kernel import map_spline, uniform_knots
 
 #: Largest source side solved on the device (dense inverses of the two
@@ -206,7 +207,8 @@ def spline_interpolation_device(
     cube = img.ndim == 3
     frames = img if cube else img[None]
     ny, nx = frames.shape[-2:]
-    flags = _frame_flags(frames)
+    with tracing.span('pm.map.flags'):
+        flags = _frame_flags(frames)
     device = frames.device
 
     if spline_smoothing == 0 and max(ny, nx) <= _DEVICE_SOLVE_MAX:
@@ -221,15 +223,18 @@ def spline_interpolation_device(
         cleaned = frames
         nans = torch.zeros(frames.shape, dtype=torch.bool, device=device)
         if not flags['all_finite'].all():
-            cleaned = frames.clone()
-            for i in np.flatnonzero(~flags['all_finite']):
-                cleaned[i], nans[i] = _infill_device(frames[i])
-        coeffs = torch.matmul(ainv_y, torch.matmul(cleaned, ainv_x.T))
-        vals = map_spline(
-            samples.x, samples.y, samples.valid, ty, tx, coeffs, nans,
-            kx=kx, ky=ky, propagate_nan=propagate_nan,
-            uniform=_grid_uniform_knots(ny, nx, kx, ky),
-        )
+            with tracing.span('pm.map.infill'):
+                cleaned = frames.clone()
+                for i in np.flatnonzero(~flags['all_finite']):
+                    cleaned[i], nans[i] = _infill_device(frames[i])
+        with tracing.span('pm.map.solve'):
+            coeffs = torch.matmul(ainv_y, torch.matmul(cleaned, ainv_x.T))
+        with tracing.span('pm.map.spline'):
+            vals = map_spline(
+                samples.x, samples.y, samples.valid, ty, tx, coeffs, nans,
+                kx=kx, ky=ky, propagate_nan=propagate_nan,
+                uniform=_grid_uniform_knots(ny, nx, kx, ky),
+            )
         if not propagate_nan and not flags['any_finite'].all():
             # host semantics: a frame with no finite values maps to NaN
             dead = torch.from_numpy(~flags['any_finite']).to(device)

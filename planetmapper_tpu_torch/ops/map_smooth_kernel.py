@@ -163,4 +163,4 @@ def launch(x, y, valid, grid, nan_img, any_nan, out, *, iy0: float,
             n_frames, stream,
         )
     check_launch(rc, 'map smooth')
-    LIBRARY.launches += 1
+    LIBRARY.count_launches()

@@ -311,4 +311,4 @@ def launch(x, y, valid, ty, tx, coeffs, nan_grid, any_nan, out, *,
             ctypes.byref(axis_y), ctypes.byref(axis_x), stream,
         )
     check_launch(rc, 'map spline')
-    LIBRARY.launches += 1
+    LIBRARY.count_launches()

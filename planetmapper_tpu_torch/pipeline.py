@@ -41,6 +41,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from . import tracing
 from ._device import f64
 from .core import geometry as geom
 from .core.ephemeris import CLIGHT
@@ -657,8 +658,9 @@ def get_fused_pipeline(body, nx: int, ny: int,
         if use_pallas:
             from .ops.backplanes_kernel import pack_scene
 
-            out = impl.run(pack_scene(xy2angular, disc, radii, anchors),
-                           nx, ny, dev)
+            with tracing.span('pm.scene.pack'):
+                scene = pack_scene(xy2angular, disc, radii, anchors)
+            out = impl.run(scene, nx, ny, dev)
         else:
             out = impl(nx, ny, f64(xy2angular, dev), f64(disc, dev),
                        f64(radii, dev), anchors_from_numpy(anchors, dev))
@@ -721,25 +723,47 @@ def compute_backplanes(
     ``checksum`` is a device scalar summed from strided samples of every
     plane (kept for API parity with the JAX package).
     """
-    nx, ny = body.get_img_size()
-    if nx <= 0 or ny <= 0:
-        raise ValueError('nx and ny must be positive to generate backplanes')
-    fn = get_fused_pipeline(
-        body, nx, ny, planes=None if names is None else tuple(names)
-    )
-    out = fn(*pipeline_inputs(body))
-    checksum = None
-    if with_checksum:
-        checksum = sum(
-            torch.nan_to_num(v[::128, ::128].to(torch.float32)).sum()
-            for v in out.values()
+    with tracing.span('pm.pipeline.compute_backplanes'):
+        nx, ny = body.get_img_size()
+        if nx <= 0 or ny <= 0:
+            raise ValueError(
+                'nx and ny must be positive to generate backplanes'
+            )
+        fn = get_fused_pipeline(
+            body, nx, ny, planes=None if names is None else tuple(names)
         )
-    if as_numpy:
-        out = {k: v.cpu().numpy() for k, v in out.items()}
+        with tracing.span('pm.scene.inputs'):
+            inputs = pipeline_inputs(body)
+        out = fn(*inputs)
+        checksum = None
+        if with_checksum:
+            checksum = sum(
+                torch.nan_to_num(v[::128, ::128].to(torch.float32)).sum()
+                for v in out.values()
+            )
+        if as_numpy:
+            out = _to_numpy(out)
     if with_checksum:
         return out, checksum
     return out
 
+
+def _to_numpy(planes: dict) -> dict[str, np.ndarray]:
+    """
+    The planes copied to numpy arrays (span ``pm.pipeline.to_numpy``).
+    While a profiler records, the pages the copy newly makes resident are
+    counted (``pipeline.copy_fresh_pages``): each a first-touch page fault,
+    about one a 4 KiB page of the planes when the arrays land in pages the
+    host allocator takes afresh, none when it reuses its pages. The reads
+    of the resident set lie outside the span.
+    """
+    before = tracing.resident_pages()
+    with tracing.span('pm.pipeline.to_numpy'):
+        out = {k: v.cpu().numpy() for k, v in planes.items()}
+    after = tracing.resident_pages()
+    if before is not None and after is not None:
+        tracing.count('pipeline.copy_fresh_pages', max(after - before, 0))
+    return out
 
 
 def compute_backplanes_batch(
@@ -792,5 +816,5 @@ def compute_backplanes_batch(
         ]
         out = {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
     if as_numpy:
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        return _to_numpy(out)
     return out

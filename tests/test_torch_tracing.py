@@ -1,0 +1,286 @@
+"""
+The port's spans and counters (``planetmapper_tpu_torch.tracing``): with no
+profiler recording a span enters no ``record_function`` and the traced
+tally stays empty; under ``torch.profiler`` the stages of
+``compute_backplanes`` and of a 'linear' ``map_img`` land on the profiler's
+timeline, each inside the span that encloses it; the kernels' launch counts
+read through their wrappers' functions are the registry's counters. The
+``cuda``-marked cases run on a card (this file imports no JAX:
+``python -m pytest tests/test_torch_tracing.py -m cuda --noconftest -q``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+import planetmapper_tpu_torch as tpm
+from planetmapper_tpu_torch import pipeline, tracing
+from planetmapper_tpu_torch.ops import backplanes_kernel as bk
+from planetmapper_tpu_torch.ops import dsk_kernel
+from planetmapper_tpu_torch.ops import map_smooth_kernel as msk
+from planetmapper_tpu_torch.ops import map_spline_kernel as msp
+from planetmapper_tpu_torch.ops import pchip_kernel as pk
+from planetmapper_tpu_torch.testing.synthetic_kernels import (
+    write_synthetic_kernels,
+)
+
+UTC = '2005-01-01T00:00:00'
+SIZE = 64
+DISC = (32.0, 31.0, 20.0, 12.3)
+MAP = dict(degree_interval=10)
+
+
+@pytest.fixture(scope='module')
+def kernel_path(tmp_path_factory):
+    path = tmp_path_factory.mktemp('synthetic_kernels')
+    write_synthetic_kernels(path, seed=0)
+    previous, source = tpm.get_kernel_path(return_source=True)
+    tpm.clear_kernels()
+    tpm.set_kernel_path(path)
+    yield path
+    tpm.clear_kernels()
+    tpm.set_kernel_path(previous if source == 'set_kernel_path()' else None)
+
+
+def _body(device):
+    body = tpm.BodyXY('Jupiter', observer='EARTH', utc=UTC, nx=SIZE,
+                      ny=SIZE, device=device)
+    body.set_disc_params(*DISC)
+    return body
+
+
+@pytest.fixture(scope='module')
+def body(kernel_path):
+    return _body('cpu')
+
+
+@pytest.fixture(scope='module')
+def frame():
+    """A seeded frame with a NaN block, so that the infill runs."""
+    img = np.random.default_rng(5).uniform(0.0, 1.0, (SIZE, SIZE))
+    img[40:44, 20:25] = np.nan
+    return img.astype(np.float32)
+
+
+class _Entered(Exception):
+    pass
+
+
+class _RaisingRecordFunction:
+    def __init__(self, *args, **kwargs):
+        raise _Entered('record_function entered with no profiler recording')
+
+
+def _spans(prof) -> list[tuple[float, float, str]]:
+    """The trace's ``(start, end, name)`` of every span, in microseconds."""
+    return [(e.time_range.start, e.time_range.end, e.name)
+            for e in prof.events()
+            if e.name.startswith('pm.') or e.name == 'outer']
+
+
+def _inside(spans, name, parent) -> list[tuple[float, float, str]]:
+    """The spans ``name``, each asserted to lie inside one ``parent``."""
+    found = [s for s in spans if s[2] == name]
+    parents = [s for s in spans if s[2] == parent]
+    assert found, f'no span {name}'
+    for start, end, _ in found:
+        assert any(p0 <= start and end <= p1 for p0, p1, _ in parents), \
+            f'{name} outside {parent}'
+    return found
+
+
+def test_span_off_enters_no_record_function(monkeypatch, body, frame):
+    """With no profiler recording, neither a span nor a whole call of the
+    traced paths enters ``record_function``, and a span is the one shared
+    do-nothing context."""
+    assert not tracing.recording()
+    monkeypatch.setattr(torch.profiler, 'record_function',
+                        _RaisingRecordFunction)
+    monkeypatch.setattr(torch.autograd.profiler, 'record_function',
+                        _RaisingRecordFunction)
+    with tracing.span('pm.test.off'):
+        pass
+    assert tracing.span('pm.a') is tracing.span('pm.b')
+    planes = pipeline.compute_backplanes(body)
+    assert set(planes) == set(bk.PLANE_ORDER)
+    out = body.map_img(frame, **MAP)
+    assert torch.isfinite(out).any()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with pytest.raises(_Entered):
+            with tracing.span('pm.test.on'):
+                pass
+
+
+def test_untraced_counts_grow_and_traced_stay_empty():
+    tracing.reset('test.untraced')
+    tracing.count('test.untraced')
+    tracing.count('test.untraced', 2)
+    assert tracing.counts()['test.untraced'] == 3
+    assert 'test.untraced' not in tracing.traced_counts()
+
+
+def test_traced_tally_counts_only_inside_the_profiler_window():
+    tracing.reset('test.window')
+    tracing.count('test.window')
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert tracing.recording()
+        tracing.count('test.window', 5)
+    tracing.count('test.window', 7)
+    assert tracing.counts()['test.window'] == 13
+    assert tracing.traced_counts()['test.window'] == 5
+    tracing.reset('test.window')
+    assert 'test.window' not in tracing.counts()
+    assert 'test.window' not in tracing.traced_counts()
+
+
+def test_reset_clears_both_tallies():
+    with profile(activities=[ProfilerActivity.CPU]):
+        tracing.count('test.reset')
+    assert tracing.traced_counts()['test.reset'] == 1
+    saved = tracing.counts()
+    tracing.reset()
+    assert tracing.counts() == {} and tracing.traced_counts() == {}
+    for name, n in saved.items():  # other tests' counters, put back
+        tracing.count(name, n)
+
+
+def test_compute_backplanes_spans_under_the_profiler(body):
+    """The scene inputs and the copy to numpy inside the call's span, and
+    the copy's fresh pages in the traced tally."""
+    tracing.reset('pipeline.copy_fresh_pages')
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function('outer'):
+            planes = pipeline.compute_backplanes(body)
+    assert set(planes) == set(bk.PLANE_ORDER)
+    spans = _spans(prof)
+    assert len(_inside(spans, 'pm.pipeline.compute_backplanes', 'outer')) == 1
+    _inside(spans, 'pm.scene.inputs', 'pm.pipeline.compute_backplanes')
+    _inside(spans, 'pm.pipeline.to_numpy', 'pm.pipeline.compute_backplanes')
+    pages = tracing.traced_counts()['pipeline.copy_fresh_pages']
+    assert pages >= 0
+    assert tracing.counts()['pipeline.copy_fresh_pages'] == pages
+    # untraced, the copy reads no resident set
+    pipeline.compute_backplanes(body)
+    assert tracing.counts()['pipeline.copy_fresh_pages'] == pages
+
+
+def test_resident_pages_only_while_a_profiler_records():
+    assert tracing.resident_pages() is None
+    with profile(activities=[ProfilerActivity.CPU]):
+        before = tracing.resident_pages()
+        block = np.ones(4 * 2**20 // 8)  # 4 MiB, touched
+        after = tracing.resident_pages()
+    assert isinstance(before, int) and after >= before
+    assert float(block[-1]) == 1.0
+
+
+@pytest.mark.parametrize('resident, fresh', [((100, 160), 60),
+                                             ((100, 90), 0)])
+def test_copy_counts_the_growth_of_the_resident_set(monkeypatch, resident,
+                                                    fresh):
+    """The copy counts the pages it newly made resident, none where the
+    resident set shrank over it."""
+    reads = iter(resident)
+    monkeypatch.setattr(tracing, 'resident_pages', lambda: next(reads))
+    tracing.reset('pipeline.copy_fresh_pages')
+    out = pipeline._to_numpy({'A': torch.zeros(2, 3)})
+    assert out['A'].shape == (2, 3)
+    assert tracing.counts()['pipeline.copy_fresh_pages'] == fresh
+
+
+def test_map_img_spans_under_the_profiler(body, frame):
+    """A 'linear' map_img of a frame with a NaN block: the upload, the
+    samples, the float64 copy, the flags, the infill, the solve and the
+    spline, each once and inside the call."""
+    body.map_img(frame, **MAP)  # the x/y maps, outside the trace
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function('outer'):
+            out = body.map_img(frame, **MAP)
+    assert torch.isfinite(out).any()
+    spans = _spans(prof)
+    for name in ('pm.map.upload', 'pm.map.samples', 'pm.map.to_float64',
+                 'pm.map.flags', 'pm.map.infill', 'pm.map.solve',
+                 'pm.map.spline'):
+        assert len(_inside(spans, name, 'outer')) == 1
+    order = [s[2] for s in sorted(spans) if s[2] != 'outer']
+    assert order == ['pm.map.upload', 'pm.map.samples', 'pm.map.to_float64',
+                     'pm.map.flags', 'pm.map.infill', 'pm.map.solve',
+                     'pm.map.spline']
+
+
+def test_map_img_of_a_finite_frame_has_no_infill_span(body, frame):
+    body.map_img(frame, **MAP)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        body.map_img(np.nan_to_num(frame), **MAP)
+    names = {s[2] for s in _spans(prof)}
+    assert 'pm.map.infill' not in names
+    assert {'pm.map.flags', 'pm.map.solve', 'pm.map.spline'} <= names
+
+
+def test_launch_counts_read_the_registry():
+    """The wrappers' launch counts are the registry's counters, and a reset
+    clears the one counter only."""
+    tracing.reset(msp.LIBRARY.counter, bk.BATCH_COUNTER)
+    tracing.count(msp.LIBRARY.counter, 3)
+    tracing.count(bk.BATCH_COUNTER, 2)
+    assert msp.launch_count() == 3 and msp.LIBRARY.launch_count() == 3
+    assert bk.batch_launch_count() == 2
+    msp.reset_launch_count()
+    assert msp.launch_count() == 0 and bk.batch_launch_count() == 2
+    bk.reset_batch_launch_count()
+    assert bk.batch_launch_count() == 0
+    dsk_kernel.reset_launch_count()
+    dsk_kernel._count('dsk_atan2')
+    assert dsk_kernel.launch_count('dsk_atan2') == 1
+    assert dsk_kernel.launch_count('dsk_pairs') == 0
+    assert tracing.counts()['launches.dsk.dsk_atan2'] == 1
+    dsk_kernel.reset_launch_count()
+    assert {lib.LIBRARY.counter for lib in (bk, msp, msk, pk)} == {
+        'launches.backplanes26', 'launches.map_spline', 'launches.map_smooth',
+        'launches.pchip'}
+
+
+@pytest.fixture(scope='module')
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    return torch.device('cuda')
+
+
+@pytest.mark.cuda
+def test_kernel1_spans_and_launch_count_on_the_card(kernel_path, device):
+    """On the card: the scene's packing and kernel 1's launch inside the
+    call's span, and the launch counted where ``launch_count`` reads."""
+    card = _body(device)
+    pipeline.compute_backplanes(card)  # builds and loads the library
+    before = bk.launch_count()
+    assert tracing.counts()['launches.backplanes26'] == before
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function('outer'):
+            pipeline.compute_backplanes(card)
+        torch.cuda.synchronize()
+    assert bk.launch_count() == before + 1
+    assert tracing.traced_counts()['launches.backplanes26'] >= 1
+    spans = _spans(prof)
+    for name in ('pm.scene.inputs', 'pm.scene.pack', 'pm.kernel1.launch',
+                 'pm.pipeline.to_numpy'):
+        _inside(spans, name, 'pm.pipeline.compute_backplanes')
+
+
+@pytest.mark.cuda
+def test_map_spline_launch_counted_on_the_card(kernel_path, device, frame):
+    card = _body(device)
+    card.map_img(frame, **MAP)
+    before = msp.launch_count()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        card.map_img(frame, **MAP)
+        torch.cuda.synchronize()
+    assert msp.launch_count() == before + 1
+    assert tracing.counts()['launches.map_spline'] == before + 1
+    assert {'pm.map.upload', 'pm.map.infill', 'pm.map.spline'} <= {
+        s[2] for s in _spans(prof)}
