@@ -34,6 +34,8 @@ counterpart here: ``precompile`` builds and loads the CUDA library, and
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 import os
 from typing import Any, Callable
@@ -41,7 +43,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from . import tracing
+from . import host_slots, tracing
 from ._device import f64
 from .core import geometry as geom
 from .core.ephemeris import CLIGHT
@@ -722,6 +724,11 @@ def compute_backplanes(
     With ``with_checksum=True`` returns ``(dict, checksum)`` where
     ``checksum`` is a device scalar summed from strided samples of every
     plane (kept for API parity with the JAX package).
+
+    With ``as_numpy=True`` (the default) the planes of a CUDA body are
+    copied into one of two reused page-locked host slots
+    (:func:`_to_host_slot`): the arrays are views of the slot, which is
+    lent again once no array from it survives.
     """
     with tracing.span('pm.pipeline.compute_backplanes'):
         nx, ny = body.get_img_size()
@@ -742,15 +749,19 @@ def compute_backplanes(
                 for v in out.values()
             )
         if as_numpy:
-            out = _to_numpy(out)
+            if any(v.device.type != 'cuda' for v in out.values()):
+                out = _to_numpy(out)
+            else:
+                out = _to_host_slot(out)
     if with_checksum:
         return out, checksum
     return out
 
 
-def _to_numpy(planes: dict) -> dict[str, np.ndarray]:
+@contextlib.contextmanager
+def _copy_stage():
     """
-    The planes copied to numpy arrays (span ``pm.pipeline.to_numpy``).
+    The copy of the planes to the host (span ``pm.pipeline.to_numpy``).
     While a profiler records, the pages the copy newly makes resident are
     counted (``pipeline.copy_fresh_pages``): each a first-touch page fault,
     about one a 4 KiB page of the planes when the arrays land in pages the
@@ -759,11 +770,92 @@ def _to_numpy(planes: dict) -> dict[str, np.ndarray]:
     """
     before = tracing.resident_pages()
     with tracing.span('pm.pipeline.to_numpy'):
-        out = {k: v.cpu().numpy() for k, v in planes.items()}
+        yield
     after = tracing.resident_pages()
     if before is not None and after is not None:
         tracing.count('pipeline.copy_fresh_pages', max(after - before, 0))
+
+
+def _to_numpy(planes: dict) -> dict[str, np.ndarray]:
+    """The planes copied to fresh numpy arrays, one ``.cpu()`` a plane."""
+    with _copy_stage():
+        return {k: v.cpu().numpy() for k, v in planes.items()}
+
+
+def _slot_plan(planes: dict):
+    """
+    ``(copies, views, n_bytes)`` of the planes' copy into one host slot:
+    the copies ``(source, offset)``, one per device allocation that the
+    planes tile exactly (kernel 1's float32 stack, its float64
+    RADIAL-VELOCITY) and one per other plane; each plane's ``(offset,
+    dtype, shape)`` in the slot; and the slot's size. Regions start on 64
+    bytes.
+    """
+    groups: dict[int, tuple[torch.Tensor, list[str]]] = {}
+    for name, v in planes.items():
+        base = v if v._base is None else v._base
+        groups.setdefault(id(base), (base, []))[1].append(name)
+    copies, views, offset = [], {}, 0
+    for base, names in groups.values():
+        members = [planes[n] for n in names]
+        bounds = sorted((m.data_ptr(), m.data_ptr() + m.nbytes)
+                        for m in members)
+        whole = (
+            base.is_contiguous()
+            and all(m.is_contiguous() and m.dtype == base.dtype
+                    for m in members)
+            and bounds[0][0] == base.data_ptr()
+            and bounds[-1][1] == base.data_ptr() + base.nbytes
+            and all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+        )
+        if whole:
+            copies.append((base, offset))
+            for n, m in zip(names, members):
+                views[n] = (offset + m.data_ptr() - base.data_ptr(),
+                            m.dtype, tuple(m.shape))
+            offset += -(-base.nbytes // 64) * 64
+        else:
+            for n, m in zip(names, members):
+                copies.append((m, offset))
+                views[n] = (offset, m.dtype, tuple(m.shape))
+                offset += -(-m.nbytes // 64) * 64
+    return copies, {n: views[n] for n in planes}, offset
+
+
+def _to_host_slot(planes: dict) -> dict[str, np.ndarray]:
+    """
+    The planes of one :func:`compute_backplanes` call copied into a
+    page-locked host slot (:mod:`.host_slots`): one
+    ``copy_(non_blocking=True)`` per device allocation (:func:`_slot_plan`)
+    on the current stream and one synchronise; the result is numpy views of
+    the slot with the keys, order, shapes, dtypes and values of
+    :func:`_to_numpy`. Counted as ``pipeline.copy_slot_hits``; where
+    earlier results still hold both slots, :func:`_to_numpy` copies instead
+    (``pipeline.copy_slot_misses``).
+    """
+    copies, views, n_bytes = _slot_plan(planes)
+    lease = host_slots.SLOTS.take(n_bytes)
+    if lease is None:
+        tracing.count('pipeline.copy_slot_misses')
+        return _to_numpy(planes)
+    tracing.count('pipeline.copy_slot_hits')
+    device = next(iter(planes.values())).device
+    with _copy_stage():
+        for src, offset in copies:
+            lease.tensor[offset:offset + src.nbytes].view(src.dtype).view(
+                src.shape).copy_(src, non_blocking=True)
+        # the views are cut while the copies run, and handed out after
+        flat = np.asarray(lease)
+        out = {name: np.ndarray(shape, _numpy_dtype(dtype), flat, offset)
+               for name, (offset, dtype, shape) in views.items()}
+        if device.type == 'cuda':
+            torch.cuda.current_stream(device).synchronize()
     return out
+
+
+@functools.cache
+def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dtype).numpy().dtype
 
 
 def compute_backplanes_batch(

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 import planetmapper_tpu_torch as tpm
-from planetmapper_tpu_torch import pipeline
+from planetmapper_tpu_torch import host_slots, pipeline, tracing
 from planetmapper_tpu_torch._device import f64
 from planetmapper_tpu_torch.ops import backplanes_kernel as bk
 from planetmapper_tpu_torch.ops import dsk, dsk_kernel
@@ -176,6 +176,91 @@ def test_compute_backplanes_launches_kernel(kernel_path, device):
     body._pipeline_precision = 'double'
     pipeline.compute_backplanes(body)
     assert bk.launch_count() == 1  # 'double' pins the plain graph
+
+
+# ---------------------------------------------------------------------------
+# The copy to numpy through the page-locked host slots, at 2048^2
+# ---------------------------------------------------------------------------
+
+SLOT_SIZE = 2048
+
+
+@pytest.fixture
+def slot_body(kernel_path, device, monkeypatch):
+    """A 2048^2 card body, and a fresh pool of slots."""
+    monkeypatch.setattr(host_slots, 'SLOTS', host_slots.HostSlots())
+    body, _ = _body(SLOT_SIZE, SLOT_SIZE, (1024.0, 1024.0, 601.0, 12.3),
+                    device)
+    return body
+
+
+def _dither(body, i):
+    body.set_disc_params(1024.0 + 3.0 * i, 1024.0 - 2.0 * i,
+                         601.0 * (1 + 0.01 * i), 12.3)
+
+
+def _assert_same_bytes(got, ref):
+    assert list(got) == list(ref)
+    for name, plane in ref.items():
+        assert got[name].dtype == plane.dtype, name
+        assert got[name].shape == plane.shape, name
+        assert np.array_equal(got[name].view(np.uint8),
+                              plane.view(np.uint8)), name
+
+
+@pytest.mark.parametrize('names', [
+    None, ('LON-GRAPHIC', 'EMISSION', 'RADIAL-VELOCITY', 'DOPPLER')])
+def test_slot_copy_equals_the_pageable_copy_bit_for_bit(slot_body, names):
+    fn = pipeline.get_fused_pipeline(slot_body, SLOT_SIZE, SLOT_SIZE,
+                                     planes=names)
+    planes = fn(*pipeline.pipeline_inputs(slot_body))
+    ref = {k: v.cpu().numpy() for k, v in planes.items()}
+    got = pipeline._to_host_slot(planes)
+    for plane in got.values():
+        while isinstance(plane, np.ndarray):
+            plane = plane.base
+        assert isinstance(plane, host_slots.Lease)
+    _assert_same_bytes(got, ref)
+    _assert_same_bytes(pipeline.compute_backplanes(slot_body, names=names),
+                       ref)
+
+
+def test_held_results_are_never_overwritten(slot_body):
+    """Three calls' results held, with different discs: the third and a
+    fourth fall back, and nothing held changes."""
+    held, copies = [], []
+    start = tracing.counts()
+    for i in range(4):
+        _dither(slot_body, i)
+        held.append(slot_body.generate_backplanes_fused())
+        copies.append({k: v.copy() for k, v in held[-1].items()})
+    for i, (planes, copy) in enumerate(zip(held, copies)):
+        _assert_same_bytes(planes, copy)
+        assert not any(np.shares_memory(planes['EMISSION'], other['EMISSION'])
+                       for other in held[i + 1:])
+    assert not np.array_equal(held[0]['EMISSION'], held[1]['EMISSION'],
+                              equal_nan=True)
+    now = tracing.counts()
+    assert [now.get(f'pipeline.copy_slot_{k}', 0)
+            - start.get(f'pipeline.copy_slot_{k}', 0)
+            for k in ('hits', 'misses')] == [2, 2]
+
+
+def test_a_loop_that_drops_its_results_reuses_the_slots(slot_body):
+    """``planes = body.generate_backplanes_fused()`` in a loop: every call
+    takes a slot, and from the third the two slots are reused in turn."""
+    start = tracing.counts().get('pipeline.copy_slot_hits', 0)
+    addresses = []
+    planes = None
+    for i in range(6):
+        _dither(slot_body, i)
+        planes = slot_body.generate_backplanes_fused()
+        addresses.append(planes['LON-GRAPHIC'].ctypes.data)
+    assert tracing.counts().get('pipeline.copy_slot_hits', 0) - start == 6
+    assert len(host_slots.SLOTS.slots) == 2
+    assert addresses[0] != addresses[1]
+    assert addresses[2:] == addresses[:2] * 2
+    del planes
 
 
 # ---------------------------------------------------------------------------

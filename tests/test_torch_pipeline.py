@@ -15,7 +15,11 @@ synthetic SPICE kernels (Jupiter from the Earth on 2005-01-01):
 - a BodyXY without ``device=`` needs a card, and LON-CENTRIC lies in
   [0, 360) on a CPU body at the default precision, as in the JAX package;
 - the kernel's host scene packing and its bound's operation count, and
-  the map kernels' bounds.
+  the map kernels' bounds;
+- the copy to numpy through the page-locked host slots (the slots ordinary
+  host tensors here): the same arrays as a ``.cpu()`` a plane, a slot lent
+  again only once no array from it survives, the fallback and its counter,
+  a new size, and the paths that keep the old copy.
 
 The kernel itself against its plain version on the card is
 ``tests/test_torch_cuda.py``.
@@ -24,6 +28,7 @@ The kernel itself against its plain version on the card is
 from __future__ import annotations
 
 import math
+import threading
 
 import jax
 import numpy as np
@@ -34,6 +39,7 @@ import planetmapper_tpu as jpm
 import planetmapper_tpu_torch as tpm
 from planetmapper_tpu import pipeline as j_pipeline
 from planetmapper_tpu.kernels import pool as j_pool
+from planetmapper_tpu_torch import host_slots, tracing
 from planetmapper_tpu_torch import pipeline as t_pipeline
 from planetmapper_tpu_torch._device import f64, resolve_device
 from planetmapper_tpu_torch.kernels import pool as t_pool
@@ -731,6 +737,170 @@ def test_select_pipeline_impl_takes_the_jax_keywords(batch_bodies):
     assert not use_pallas
     finite = lon[torch.isfinite(lon)]
     assert bool(((finite >= 0.0) & (finite < 360.0)).all())
+
+
+# ---------------------------------------------------------------------------
+# The copy to numpy: page-locked host slots (the page-locked allocation
+# swapped for an ordinary host tensor)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def slots(monkeypatch):
+    """A fresh pool whose slots are ordinary host tensors; yields a function
+    giving the slot counters' growth since the fixture began."""
+    monkeypatch.setattr(host_slots, '_pin',
+                        lambda n: torch.empty(n, dtype=torch.uint8))
+    monkeypatch.setattr(host_slots, 'SLOTS', host_slots.HostSlots())
+    names = ('pipeline.copy_slot_hits', 'pipeline.copy_slot_misses')
+    start = tracing.counts()
+
+    def grown():
+        now = tracing.counts()
+        return tuple(now.get(n, 0) - start.get(n, 0) for n in names)
+
+    return grown
+
+
+def _kernel_planes(ny, nx, seed, planes=None):
+    """Planes laid out as kernel 1 returns them: the requested float32
+    planes views of one stack, RADIAL-VELOCITY a float64 tensor of its own,
+    in PLANE_ORDER."""
+    order = backplanes_kernel.PLANE_ORDER
+    requested = order if planes is None else [n for n in order if n in planes]
+    gen = torch.Generator().manual_seed(seed)
+    f32 = [n for n in requested if n != 'RADIAL-VELOCITY']
+    out = dict(zip(f32, torch.randn((len(f32), ny, nx), generator=gen)))
+    if 'RADIAL-VELOCITY' in requested:
+        out['RADIAL-VELOCITY'] = torch.randn((ny, nx), generator=gen,
+                                             dtype=torch.float64)
+    return {n: out[n] for n in requested}
+
+
+def _in_slot(arrays, slot):
+    """Whether every array lies in the slot's memory."""
+    start = slot.array.ctypes.data
+    return all(start <= a.ctypes.data < start + slot.nbytes
+               for a in arrays.values())
+
+
+def _lease_of(array):
+    """The object at the end of an array's chain of bases."""
+    while isinstance(array, np.ndarray):
+        array = array.base
+    return array
+
+
+def _assert_same_copy(got, ref):
+    assert list(got) == list(ref)
+    for name, plane in ref.items():
+        assert got[name].dtype == plane.dtype, name
+        assert got[name].shape == plane.shape, name
+        np.testing.assert_array_equal(got[name], plane, err_msg=name)
+
+
+@pytest.mark.parametrize('planes, n_copies', [
+    (None, 2), (('EMISSION', 'RADIAL-VELOCITY', 'LON-GRAPHIC'), 2),
+    (('RADIAL-VELOCITY',), 1), (('RING-RADIUS',), 1),
+])
+def test_slot_copy_equals_the_fresh_copy(slots, planes, n_copies):
+    """One copy per device allocation; the same keys, order, dtypes, shapes
+    and values as one ``.cpu()`` a plane, for all 26 planes and subsets."""
+    kernel = _kernel_planes(NY, NX, 0, planes)
+    copies, _, n_bytes = t_pipeline._slot_plan(kernel)
+    assert len(copies) == n_copies
+    assert n_bytes >= sum(v.nbytes for v in kernel.values())
+    got = t_pipeline._to_host_slot(kernel)
+    assert all(isinstance(_lease_of(v), host_slots.Lease)
+               for v in got.values())
+    _assert_same_copy(got, t_pipeline._to_numpy(kernel))
+    assert slots() == (1, 0)
+
+
+def test_slot_copy_of_the_plain_graph_equals_the_fresh_copy(bodies, slots):
+    """The plain graph's planes (separate float64 tensors, PIXEL-X a
+    broadcast view): one copy a plane, the same arrays."""
+    _, t_body = bodies
+    out = t_pipeline.compute_backplanes(t_body, as_numpy=False)
+    assert len(t_pipeline._slot_plan(out)[0]) == len(out)
+    _assert_same_copy(t_pipeline._to_host_slot(out),
+                      t_pipeline._to_numpy(out))
+
+
+def test_slot_is_reused_only_after_every_array_from_it_is_gone(slots):
+    first = t_pipeline._to_host_slot(_kernel_planes(NY, NX, 1))
+    second = t_pipeline._to_host_slot(_kernel_planes(NY, NX, 2))
+    slot_a, slot_b = host_slots.SLOTS.slots
+    assert _in_slot(first, slot_a) and _in_slot(second, slot_b)
+    # a view of one plane keeps the whole slot
+    kept = first['EMISSION'][2:5, ::3]
+    kept_values = kept.copy()
+    del first
+    third = t_pipeline._to_host_slot(_kernel_planes(NY, NX, 3))
+    assert not _in_slot(third, slot_a)
+    np.testing.assert_array_equal(kept, kept_values)
+    del kept, second
+    fourth = t_pipeline._to_host_slot(_kernel_planes(NY, NX, 4))
+    assert host_slots.SLOTS.slots == [slot_a, slot_b]
+    assert _in_slot(fourth, slot_a)
+    _assert_same_copy(fourth, t_pipeline._to_numpy(_kernel_planes(NY, NX, 4)))
+    assert slots() == (3, 1)
+
+
+def test_both_slots_held_falls_back_and_counts_it(slots):
+    held = [t_pipeline._to_host_slot(_kernel_planes(NY, NX, i))
+            for i in range(3)]
+    assert slots() == (2, 1)
+    assert len(host_slots.SLOTS.slots) == 2
+    # the fallback's arrays are its own, and the held ones are unchanged
+    assert not any(_in_slot(held[2], s) for s in host_slots.SLOTS.slots)
+    for i, planes in enumerate(held):
+        _assert_same_copy(planes,
+                          t_pipeline._to_numpy(_kernel_planes(NY, NX, i)))
+    # threads asking at once get at most the two slots
+    del held
+    leases = []
+    threads = [threading.Thread(
+        target=lambda: leases.append(host_slots.SLOTS.take(64)))
+        for _ in range(8)]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    assert sum(lease is not None for lease in leases) == 2
+    assert len(host_slots.SLOTS.slots) == 2
+
+
+def test_a_new_size_drops_the_free_slots_of_the_old(slots):
+    small = t_pipeline._to_host_slot(_kernel_planes(NY, NX, 0))
+    t_pipeline._to_host_slot(_kernel_planes(NY, NX, 1))  # dropped at once
+    old = host_slots.SLOTS.slots[0].nbytes
+    large = t_pipeline._to_host_slot(_kernel_planes(2 * NY, NX, 2))
+    new = host_slots.SLOTS.slots[1].nbytes
+    # the held slot of the old size stays until its arrays are gone
+    assert [s.nbytes for s in host_slots.SLOTS.slots] == [old, new]
+    del small
+    t_pipeline._to_host_slot(_kernel_planes(2 * NY, NX, 3))
+    assert [s.nbytes for s in host_slots.SLOTS.slots] == [new, new]
+    _assert_same_copy(large,
+                      t_pipeline._to_numpy(_kernel_planes(2 * NY, NX, 2)))
+    assert slots() == (4, 0)
+
+
+def test_cpu_bodies_and_the_batch_keep_the_fresh_copy(bodies, batch_bodies,
+                                                      slots, monkeypatch):
+    """Planes on the host and the batch entry never reach a slot."""
+    def refuse(planes):
+        raise AssertionError('copied into a slot')
+
+    monkeypatch.setattr(t_pipeline, '_to_host_slot', refuse)
+    _, t_body = bodies
+    _, b_body, xys, discs = batch_bodies
+    for out in (t_pipeline.compute_backplanes(t_body),
+                t_body.generate_backplanes_fused(),
+                t_pipeline.compute_backplanes_batch(b_body, xys, discs)):
+        assert not any(isinstance(_lease_of(v), host_slots.Lease)
+                       for v in out.values())
+    assert host_slots.SLOTS.slots == [] and slots() == (0, 0)
 
 
 @pytest.mark.parametrize('frames', [1, 3, 1000])
