@@ -1634,10 +1634,12 @@ class BodyXY(Body):
 
         from .ops import interp_device, pchip_device
 
+        tracing.count('map.frames', img.shape[0] if img.ndim == 3 else 1)
         if interpolation == 'nearest':
-            if not img.is_floating_point():
-                img = img.to(torch.float64)
-            out = interp_device.nearest_interpolation_device(img, samples)
+            with tracing.span('pm.map.nearest'):
+                if not img.is_floating_point():
+                    img = img.to(torch.float64)
+                out = interp_device.nearest_interpolation_device(img, samples)
         elif isinstance(interpolation, (int, tuple)):
             with tracing.span('pm.map.to_float64'):
                 img = img.to(torch.float64)
@@ -1648,8 +1650,10 @@ class BodyXY(Body):
                 spline_smoothing=spline_smoothing,
             )
         elif interpolation == 'smooth':
+            with tracing.span('pm.map.to_float64'):
+                img = img.to(torch.float64)
             out = pchip_device.smooth_interpolation_device(
-                img.to(torch.float64), samples,
+                img, samples,
                 propagate_nan=propagate_nan,
                 oversample_by=smooth_oversample_by,
                 max_oversampled_img_size=smooth_max_oversampled_img_size,

@@ -9,7 +9,9 @@ sampled bilinearly at the map samples. On a card that is three launches
 for a frame or a whole cube: the hand-written kernels
 :func:`.pchip_kernel.pchip_axis` (once per axis, every frame at once) and
 :func:`.map_smooth_kernel.map_smooth`. :func:`oversample` is the plain
-per-frame oversampling.
+per-frame oversampling. The oversampling is the ``pm.map.pchip`` span and
+the sampler the ``pm.map.smooth`` span; ``map.smooth_grid_values`` counts
+the oversampled grids' values.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import math
 
 import torch
 
+from .. import tracing
 from .interp_device import MapSamples
 from .map_smooth_kernel import map_smooth
 from .pchip_kernel import _pchip_axis, pchip_axis
@@ -98,13 +101,16 @@ def smooth_interpolation_device(
     iy0, iy1, ix0, ix1 = box
     ky_rep = pick_rep(iy1 - iy0, oversample_by, max_oversampled_img_size)
     kx_rep = pick_rep(ix1 - ix0, oversample_by, max_oversampled_img_size)
-    grids = oversample_frames(frames, box, ky_rep, kx_rep)
+    with tracing.span('pm.map.pchip'):
+        grids = oversample_frames(frames, box, ky_rep, kx_rep)
+    tracing.count('map.smooth_grid_values', grids.numel())
     n_ys, n_xs = grids.shape[1:]
-    vals = map_smooth(
-        samples.x, samples.y, samples.valid, grids, torch.isnan(frames),
-        iy0=iy0, ix0=ix0,
-        y_step=(iy1 - iy0 - 1) / (n_ys - 1) if n_ys > 1 else 1.0,
-        x_step=(ix1 - ix0 - 1) / (n_xs - 1) if n_xs > 1 else 1.0,
-        propagate_nan=propagate_nan,
-    ).reshape(out_shape)
+    with tracing.span('pm.map.smooth'):
+        vals = map_smooth(
+            samples.x, samples.y, samples.valid, grids, torch.isnan(frames),
+            iy0=iy0, ix0=ix0,
+            y_step=(iy1 - iy0 - 1) / (n_ys - 1) if n_ys > 1 else 1.0,
+            x_step=(ix1 - ix0 - 1) / (n_xs - 1) if n_xs > 1 else 1.0,
+            propagate_nan=propagate_nan,
+        ).reshape(out_shape)
     return vals if cube else vals[0]
