@@ -3,11 +3,11 @@ Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the port's five kernel libraries (``planetmapper_tpu_torch/csrc/
+Builds the port's six kernel libraries (``planetmapper_tpu_torch/csrc/
 *.cu``) with nvcc, one process each, all at once, and prints each kernel
 instance's registers and spills, and the resident blocks of the
 backplane kernels (single-frame, batched in linear blocks and in tiles),
-the PCHIP kernel and map_smooth. Then, on Jupiter seen
+the PCHIP kernel, map_smooth and map_infill. Then, on Jupiter seen
 from the Earth on 2005-01-01 (synthetic SPICE kernels written at run time):
 
 - backplanes: drives ``pipeline.compute_backplanes`` on a 2048x2048 BodyXY
@@ -38,11 +38,13 @@ from the Earth on 2005-01-01 (synthetic SPICE kernels written at run time):
   the 720x1440 0.25-degree map of the JAX package's map benchmark
   (bench.py:160-293), from a 150x150 frame in every mode (spline degree 5
   included) and from a 1024x1024 frame in 'linear', 'cubic' and degree 4,
-  frames and cubes, with and without a NaN block; holds every output of
-  the three map kernels (spline, PCHIP, smooth) against their plain
-  versions on the same inputs, and small maps against the host scipy
-  reference; times the kernels with a cold L2 (after a read of a buffer
-  larger than it) and back to back (warm), their plain versions,
+  frames and cubes, with and without a NaN block (one launch each of the
+  NaN infill and the spline kernel a spline ``map_img``); holds every
+  output of the four map kernels (infill, spline, PCHIP, smooth) against
+  their plain versions on the same inputs, and small maps against the
+  host scipy reference; times the kernels with a cold L2 (after a read of
+  a buffer larger than it) and back to back (warm), the infill on the
+  benchmark's 2048x2048 ``map_linear`` frame, their plain versions,
   ``grid_sample`` and ``torch.sum`` as yardsticks and blocked ``map_img``
   calls.
 - planes: times the 26 ``get_backplane_img`` calls on a fresh 2048x2048
@@ -57,11 +59,11 @@ from the Earth on 2005-01-01 (synthetic SPICE kernels written at run time):
   ``fit_disc_position``, ``fit_disc_radius``, ``save_observation`` (27
   HDUs) and ``save_mapped_observation`` onto the 720x1440 map in 'linear'
   and 'smooth', with peak memory and file sizes; counts the map kernels'
-  launches on that path; reads the files back (HDU names, data), holds
+  launches on that path (one infill a spline map); reads the files back (HDU names, data), holds
   the saved backplanes against kernel 1 and the mapped HDUs against
   ``map_img`` bit for bit; saves again from a fresh Observation of the
   file, with ``save_observation``'s time split between the plane getters,
-  their host copies and the FITS write, and with every call of the three
+  their host copies and the FITS write, and with every call of the four
   map kernels held against its plain version on the same inputs; and
   holds a 128x128 4-frame card Observation's three files against a CPU
   Observation's, card by card. The saves pass ``include_wireframe=False``:
@@ -92,11 +94,12 @@ from the Earth on 2005-01-01 (synthetic SPICE kernels written at run time):
   float64 op over the same bytes for the pairs, ``torch.atan2`` in
   float32).
 - cli: ``cli.main(['--prewarm', '512', '1024', '2048'])`` in this process
-  (the libraries built or loaded; per size one backplane kernel launch and
-  at least one map spline launch, counted from 0), the 2048x2048 planes
-  against kernel 1's plain version; then on each prewarm body a cubic
-  1-degree ``map_img`` of a seeded source with a NaN block, every map
-  spline call held against its plain version (the 512x512 source is the
+  (the libraries built or loaded; per size one backplane kernel launch,
+  at least one map spline launch and one infill launch, counted from 0),
+  the 2048x2048 planes against kernel 1's plain version; then on each
+  prewarm body a cubic 1-degree ``map_img`` of a seeded source with a NaN
+  block, every map infill and spline call held against its plain version
+  (the 512x512 source is the
   TPU's kernel 2 work, the 1024x1024 and 2048x2048 ones kernel 3's) with
   the wrapper's launch plan logged; ``python -m planetmapper_tpu_torch
   --version``; one cold ``--prewarm 2048`` subprocess, timed start to
@@ -144,11 +147,13 @@ from planetmapper_tpu_torch.io import fits as pt_fits
 from planetmapper_tpu_torch.ops import backplanes_kernel as bk
 from planetmapper_tpu_torch.ops import cuda_build, dsk, interp, interp_device
 from planetmapper_tpu_torch.ops import dsk_kernel as dskk
+from planetmapper_tpu_torch.ops import map_infill_kernel as mik
 from planetmapper_tpu_torch.ops import map_smooth_kernel as msk
 from planetmapper_tpu_torch.ops import map_spline_kernel as msp
 from planetmapper_tpu_torch.ops import pchip_device
 from planetmapper_tpu_torch.ops import pchip_kernel as pk
-from planetmapper_tpu_torch.testing import bounds, compare, dsk_cases
+from planetmapper_tpu_torch.testing import (bounds, compare, dsk_cases,
+                                            infill_cases)
 from planetmapper_tpu_torch.testing.observation_files import (
     disc_cube,
     read_fits,
@@ -281,8 +286,8 @@ def check_against_plain(label, got, ref, disc, row0=0.0) -> dict:
 
 
 def build_phase() -> None:
-    libraries = [bk.LIBRARY, msp.LIBRARY, msk.LIBRARY, pk.LIBRARY,
-                 dskk.LIBRARY]
+    libraries = [bk.LIBRARY, mik.LIBRARY, msp.LIBRARY, msk.LIBRARY,
+                 pk.LIBRARY, dskk.LIBRARY]
     t0 = time.perf_counter()
     cuda_build.build_all(libraries)
     log(f'[build] {len(libraries)} nvcc builds in parallel + load '
@@ -331,6 +336,10 @@ def build_phase() -> None:
     log(f'[build] map_smooth: {smooth["registers"]} registers, '
         f'{smooth["local_bytes"]} bytes of local memory per thread, '
         f'{smooth["blocks_per_sm"]} resident blocks of 256 threads per SM')
+    infill = mik.occupancy()
+    log(f'[build] map_infill (stencil, selection): {infill["registers"]} '
+        f'registers, {infill["local_bytes"]} bytes of local memory per '
+        f'thread, {infill["blocks_per_sm"]} resident blocks per SM')
     return occ
 
 
@@ -970,7 +979,7 @@ def fit_phase(device, card: str) -> None:
 
 class KernelCalls:
     """
-    Records every call of the three map kernel wrappers made by ``map_img``
+    Records every call of the four map kernel wrappers made by ``map_img``
     (their inputs and outputs), so that each output can be held against
     the plain version on the same inputs. Wraps the names the device
     modules call; the wrappers themselves, and their launch counts, are
@@ -983,7 +992,7 @@ class KernelCalls:
     @contextlib.contextmanager
     def recording(self, label):
         originals = (interp_device.map_spline, pchip_device.map_smooth,
-                     pchip_device.pchip_axis)
+                     pchip_device.pchip_axis, interp_device.map_infill)
 
         def wrap(kind, fn):
             def recorded(*args, **kwargs):
@@ -995,11 +1004,12 @@ class KernelCalls:
         interp_device.map_spline = wrap('spline', originals[0])
         pchip_device.map_smooth = wrap('smooth', originals[1])
         pchip_device.pchip_axis = wrap('pchip', originals[2])
+        interp_device.map_infill = wrap('infill', originals[3])
         try:
             yield
         finally:
             (interp_device.map_spline, pchip_device.map_smooth,
-             pchip_device.pchip_axis) = originals
+             pchip_device.pchip_axis, interp_device.map_infill) = originals
 
 
 def map_runs():
@@ -1035,10 +1045,33 @@ def compare_pchip_with_plain(label, args, kwargs, out,
     return err
 
 
+def compare_infill_with_plain(label, args, out, phase='map') -> float:
+    """The infill kernel against its plain version on the same frames (on
+    the host): cleaned, the NaN grid and the finite counts bit for bit
+    (torch.equal, as the card tests)."""
+    frames = args[0]
+    ref = mik.map_infill_plain(frames.cpu())
+    got = [t.cpu() for t in out]
+    equal = [g.dtype == r.dtype and torch.equal(g, r)
+             for g, r in zip(got, ref)]
+    err = float((got[0] - ref[0]).abs().max())
+    partial = int((ref[2] < frames.shape[-2] * frames.shape[-1]).sum())
+    log(f'[{phase}] {label}: infill kernel ({tuple(frames.shape)}, '
+        f'{partial} frame(s) with a non-finite cell, '
+        f'{int((~torch.isfinite(frames)).sum())} non-finite cells) vs plain: '
+        f'cleaned, nans, finite equal {equal}, max_abs_err {err:.3e} (bar 0: '
+        'bit for bit)')
+    if not all(equal) or err != 0.0:
+        raise SmokeFailure(f'{label}: infill kernel differs from plain')
+    return err
+
+
 def compare_with_plain(label, kind, size, args, kwargs, out,
                        phase='map') -> float:
     if kind == 'pchip':
         return compare_pchip_with_plain(label, args, kwargs, out, phase)
+    if kind == 'infill':
+        return compare_infill_with_plain(label, args, out, phase)
     plain_fn = msp.map_spline_plain if kind == 'spline' else \
         msk.map_smooth_plain
     ref = plain_fn(*args, **kwargs).cpu().numpy()
@@ -1167,9 +1200,8 @@ def map_phase(device):
     outputs = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    msp.reset_launch_count()
-    msk.reset_launch_count()
-    pk.reset_launch_count()
+    for lib in (mik, msp, msk, pk):
+        lib.reset_launch_count()
     t0 = time.perf_counter()
     for size, label, mode, key in runs:
         with calls.recording(label):
@@ -1178,15 +1210,19 @@ def map_phase(device):
             )
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {'map_spline': msp.launch_count(),
+    launches = {'map_infill': mik.launch_count(),
+                'map_spline': msp.launch_count(),
                 'map_smooth': msk.launch_count(),
                 'pchip_axis': pk.launch_count()}
     peak = torch.cuda.max_memory_allocated()
     log(f'[map] {len(runs)} map_img calls {elapsed:.2f} s (first calls), '
         f'kernel launches {launches}, peak device memory '
         f'{peak / 2**20:.1f} MiB')
+    spline_runs = sum(m not in ('nearest', 'smooth') for *_, m, _ in runs)
     expected = {
-        'map_spline': sum(m not in ('nearest', 'smooth') for *_, m, _ in runs),
+        # one launch a spline map_img, frame or cube
+        'map_infill': spline_runs,
+        'map_spline': spline_runs,
         'map_smooth': sum(m == 'smooth' for *_, m, _ in runs),
         # one launch per axis, for frames and cubes alike
         'pchip_axis': 2 * sum(m == 'smooth' for *_, m, _ in runs),
@@ -1205,7 +1241,7 @@ def map_phase(device):
         # half of the 0.25-deg map is on the visible hemisphere
         if not 0.4 < frac < 0.6:
             raise SmokeFailure(f'{label}: finite fraction {frac:.4f}')
-    errors = {'spline': 0.0, 'smooth': 0.0, 'pchip': 0.0}
+    errors = {'spline': 0.0, 'smooth': 0.0, 'pchip': 0.0, 'infill': 0.0}
     for label, kind, args, kwargs, out in calls.calls:
         size = int(label.split('^')[0])
         err = compare_with_plain(label, kind, size, args, kwargs, out)
@@ -1338,6 +1374,29 @@ def pchip_timing(by_label, smooth_args, smooth_kw, smooth_t, flush, card):
     return t
 
 
+#: The infill's timed call: the benchmark's map_linear frame
+INFILL_TIMED = '2048^2 map_linear frame: map_infill'
+
+
+def infill_timing(device, flush, card) -> dict:
+    """
+    map_infill on the benchmark's ``map_linear`` frame (2048x2048, 4 NaN
+    blocks of 3 px: the 3x3 means and a median selection), held bit for
+    bit against its plain version, then cold and warm beside its bound and
+    its plain version on the card (back to back).
+    """
+    frames = torch.from_numpy(infill_cases.map_linear_frame(seed=0)).to(
+        device)
+    compare_infill_with_plain(INFILL_TIMED, (frames,),
+                              mik.map_infill(frames), phase='map-time')
+    t = time_pair(f'{card} | {INFILL_TIMED} {tuple(frames.shape)}',
+                  lambda: mik.map_infill(frames),
+                  lambda: mik.map_infill_plain(frames), None, flush)
+    bound = bounds.infill_call_bound(frames)
+    t['bound'], t['bound_by'] = bound['ms'], bound['bound_by']
+    return t
+
+
 def map_timing_phase(bodies, images, calls, card):
     """Kernels, plain versions, yardsticks; cubes per frame; blocked calls."""
     spline_occupancy(calls)
@@ -1345,7 +1404,8 @@ def map_timing_phase(bodies, images, calls, card):
                 for label, kind, args, kwargs, _ in calls.calls}
     results = {}
     grid_sample = torch.nn.functional.grid_sample
-    flush = l2_flush(calls.calls[0][4].device)
+    device = next(iter(bodies.values())).device
+    flush = l2_flush(device)
     for label in ('150^2 linear frame', '150^2 cubic frame',
                   '1024^2 cubic with_nan'):
         args, kw = by_label[(label, 'spline', None)]
@@ -1389,6 +1449,7 @@ def map_timing_phase(bodies, images, calls, card):
     results['150^2 smooth frame'] = t
     results['150^2 smooth frame: pchip'] = pchip_timing(by_label, args, kw,
                                                         t, flush, card)
+    results[INFILL_TIMED] = infill_timing(device, flush, card)
     log(f'[map-time] {card} | grid_sample yardstick: float64 in and out, '
         'without the NaN rules; cubic and the PCHIP oversampling have no '
         'one-call counterpart (none)')
@@ -1701,7 +1762,7 @@ def observation_run(device, path, card):
         steps[name] = (ms, peak)
         return out
 
-    for lib in (msp, msk, pk):
+    for lib in (mik, msp, msk, pk):
         lib.reset_launch_count()
     obs = step('open + disc_from_wcs',
                lambda: pt.Observation(path, device=device))
@@ -1739,7 +1800,8 @@ def observation_run(device, path, card):
              lambda: obs.save_mapped_observation(
                  paths[mode], interpolation=mode, include_wireframe=False,
                  print_info=False, **MAP_KW))
-    launches = {'map_spline': msp.launch_count(),
+    launches = {'map_infill': mik.launch_count(),
+                'map_spline': msp.launch_count(),
                 'pchip_axis': pk.launch_count(),
                 'map_smooth': msk.launch_count()}
     sizes = {k: os.path.getsize(p) for k, p in paths.items()}
@@ -1752,7 +1814,9 @@ def observation_run(device, path, card):
             'was allocated before' + (f', file {size / 2**20:.1f} MiB'
                                       if size else ''))
     log(f'[observation] kernel launches in the run: {json.dumps(launches)}')
-    if min(launches.values()) < 1:
+    # one infill launch a spline map_img, as one map_spline launch
+    if min(launches.values()) < 1 or \
+            launches['map_infill'] != launches['map_spline']:
         raise SmokeFailure(f'the observation path launched {launches}')
     return obs, paths, steps, launches
 
@@ -1788,9 +1852,9 @@ def instrumented_run(obs, path, card) -> tuple[dict, dict]:
                               equal_nan=True):
             raise SmokeFailure(f'{mode}: the second run mapped another cube')
     kinds = sorted(kind for _, kind, *_ in calls.calls)
-    if kinds != ['pchip', 'pchip', 'smooth', 'spline']:
+    if kinds != ['infill', 'pchip', 'pchip', 'smooth', 'spline']:
         raise SmokeFailure(f'the mapped saves called {kinds}')
-    errors = {'spline': 0.0, 'smooth': 0.0, 'pchip': 0.0}
+    errors = {'spline': 0.0, 'smooth': 0.0, 'pchip': 0.0, 'infill': 0.0}
     for label, kind, args, kwargs, out in calls.calls:
         err = compare_with_plain(label, kind, OBS_SIZE, args, kwargs, out,
                                  phase='observation')
@@ -2159,8 +2223,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 class LineClock:
-    """A stdout stand-in that keeps each line written, with the kernel
-    libraries' launch counts and the host clock at the time it was written."""
+    """A stdout stand-in that keeps each line written, with the launch
+    counts of kernel 1, the map spline and the map infill kernels at the
+    time it was written."""
 
     def __init__(self):
         self.lines = []
@@ -2171,7 +2236,8 @@ class LineClock:
         while '\n' in self._buffer:
             line, self._buffer = self._buffer.split('\n', 1)
             self.lines.append((line, bk.launch_count(),
-                               msp.LIBRARY.launch_count()))
+                               msp.LIBRARY.launch_count(),
+                               mik.launch_count()))
         return len(text)
 
     def flush(self):
@@ -2224,9 +2290,10 @@ def spline_plan(args, kwargs) -> str:
 
 def prewarm_map_checks(bodies) -> float:
     """On each prewarm body, a cubic 1-degree ``map_img`` of
-    :func:`prewarm_source`; every map spline call held against its plain
-    version at ``MAP_BARS``. The largest error."""
-    worst = 0.0
+    :func:`prewarm_source`; its map infill call held bit for bit against
+    its plain version, its map spline call at ``MAP_BARS``. The largest
+    errors ``{kind: error}``."""
+    worst = {'spline': 0.0, 'infill': 0.0}
     for body in bodies:
         size = body.get_img_size()[0]
         recorder = KernelCalls()
@@ -2234,27 +2301,29 @@ def prewarm_map_checks(bodies) -> float:
             body.map_img(prewarm_source(size), interpolation='cubic',
                          degree_interval=1, as_numpy=False)
         torch.cuda.synchronize()
-        spline = [c for c in recorder.calls if c[1] == 'spline']
-        if not spline or len(spline) != len(recorder.calls):
+        kinds = [c[1] for c in recorder.calls]
+        if kinds != ['infill', 'spline']:
             raise SmokeFailure(f'cubic map_img of {size}^2 made the calls '
-                               f'{[c[1] for c in recorder.calls]}')
-        for label, kind, args, kwargs, out in spline:
-            log(f'[cli] {label} cubic map_img onto the 180x360 map: '
-                f'{spline_plan(args, kwargs)}')
-            worst = max(worst, compare_with_plain(
+                               f'{kinds}')
+        for label, kind, args, kwargs, out in recorder.calls:
+            if kind == 'spline':
+                log(f'[cli] {label} cubic map_img onto the 180x360 map: '
+                    f'{spline_plan(args, kwargs)}')
+            worst[kind] = max(worst[kind], compare_with_plain(
                 f'{label} cubic', kind, size, args, kwargs, out,
                 phase='cli'))
-        del recorder, spline
+        del recorder
     return worst
 
 
 def cli_phase(device, kernel_dir, card: str) -> dict:
     """
     [cli]: ``cli.main(['--prewarm', '512', '1024', '2048'])`` in this
-    process (kernel 1 launched once a size, the map spline kernel at least
-    once a size), the 2048^2 planes held against kernel 1's plain version;
-    the map spline kernel on each prewarm body held against its plain
-    version (:func:`prewarm_map_checks`); ``python -m
+    process (kernel 1 and the map infill kernel launched once a size, the
+    map spline kernel at least once a size), the 2048^2 planes held against
+    kernel 1's plain version; the map infill and spline kernels on each
+    prewarm body held against their plain versions
+    (:func:`prewarm_map_checks`); ``python -m
     planetmapper_tpu_torch --version``; one cold ``--prewarm 2048``
     subprocess.
     """
@@ -2271,6 +2340,7 @@ def cli_phase(device, kernel_dir, card: str) -> dict:
     clock = LineClock()
     bk.reset_launch_count()
     msp.LIBRARY.reset_launch_count()
+    mik.reset_launch_count()
     pipeline.compute_backplanes = recording
     t0 = time.perf_counter()
     try:
@@ -2283,21 +2353,24 @@ def cli_phase(device, kernel_dir, card: str) -> dict:
     for line, *_ in clock.lines:
         log(f'[cli] {line}')
     launches = dict(backplanes26=bk.launch_count(),
-                    map_spline=msp.LIBRARY.launch_count())
+                    map_spline=msp.LIBRARY.launch_count(),
+                    map_infill=mik.launch_count())
     log(f'[cli] {card} | cli.main --prewarm {" ".join(map(str, PREWARM_SIZES))}'
         f' {total:.3f} s in this process; launches {json.dumps(launches)}')
     # each size's launches: the counts at its map line less those at the
     # line before it
-    marks = [(line, b, m) for line, b, m in clock.lines
+    marks = [counts for line, *counts in clock.lines
              if 'map reprojection' in line]
-    per_size, last = {}, (0, 0)
-    for size, (_, b, m) in zip(PREWARM_SIZES, marks):
-        per_size[size] = dict(backplanes26=b - last[0], map_spline=m - last[1])
-        last = (b, m)
+    per_size, last = {}, (0, 0, 0)
+    for size, counts in zip(PREWARM_SIZES, marks):
+        per_size[size] = dict(zip(('backplanes26', 'map_spline',
+                                   'map_infill'),
+                                  np.subtract(counts, last).tolist()))
+        last = counts
     log(f'[cli] launches per size: {json.dumps(per_size)}')
     if len(marks) != len(PREWARM_SIZES) or any(
             n['backplanes26'] != 1 or n['map_spline'] < 1
-            for n in per_size.values()):
+            or n['map_infill'] != 1 for n in per_size.values()):
         raise SmokeFailure(f'--prewarm launched {per_size}')
     bodies = [b for b, _ in seen]
     if [b.get_img_size() for b in bodies] != [
@@ -2311,7 +2384,7 @@ def cli_phase(device, kernel_dir, card: str) -> dict:
                         to_numpy(plain(size, size, *device_inputs(body))),
                         body.get_disc_params())
     del seen, out, body
-    spline_err = prewarm_map_checks(bodies)
+    errors = prewarm_map_checks(bodies)
     del bodies
 
     proc = subprocess.run(
@@ -2327,7 +2400,7 @@ def cli_phase(device, kernel_dir, card: str) -> dict:
     log(f'[cli] {card} | cold subprocess --prewarm 2048: {seconds:.3f} s; '
         + '; '.join(lines))
     return dict(launches=launches, per_size=per_size, cold=seconds,
-                spline_err=spline_err)
+                errors=errors)
 
 
 #: The registry routines [gui] runs, each from gui_start on the GUI's
@@ -2884,8 +2957,8 @@ def main() -> int:
             log(f'[wireframe] phase {time.perf_counter() - t_wf:.1f} s')
             t_cli = time.perf_counter()
             cli_out = cli_phase(device, kdir, card_line())
-            map_errors['spline'] = max(map_errors['spline'],
-                                       cli_out['spline_err'])
+            for kind, err in cli_out['errors'].items():
+                map_errors[kind] = max(map_errors[kind], err)
             log(f'[cli] phase {time.perf_counter() - t_cli:.1f} s')
             t_gui = time.perf_counter()
             gui_phase(device, card_line())
@@ -2907,6 +2980,7 @@ def main() -> int:
     spline_t = map_times['150^2 linear frame']
     smooth_t = map_times['150^2 smooth frame']
     pchip_t = map_times['150^2 smooth frame: pchip']
+    infill_t = map_times[INFILL_TIMED]
     log(f'[done] {time.perf_counter() - t_start:.1f} s; max_abs_err: '
         f'backplanes26 the largest angle error [deg] of the {SIZE}x{SIZE} '
         'main path, backplanes26_batch that of every 100th frame of the '
@@ -2918,7 +2992,9 @@ def main() -> int:
         'those of the 1000-epoch series), map_spline the 150^2 linear '
         'frame, map_smooth the 150^2 smooth frame onto the 720x1440 map '
         'and pchip_axis its two launches (rows, columns; bound: the box to '
-        'the grid); the map '
+        'the grid), map_infill the benchmark\'s 2048^2 map_linear frame '
+        '(max_abs_err 0: every call bit for bit with its plain version; '
+        'ms_warm its warm time); the map '
         'kernels\' ms and library_ms with a cold L2, their plain_ms back to '
         'back; dsk_pairs its four ops and dsk_atan2 its one at 2048x2048 '
         'values (ms, plain_ms and library_ms the ops\' added, cold and back '
@@ -2994,6 +3070,22 @@ def main() -> int:
             bound_ms=pchip_t['bound'],
             bound_by=pchip_t['bound_by'],
             library_ms=pchip_t['library'],
+        ),
+        dict(
+            name='map_infill',
+            route='cuda',
+            source='planetmapper_tpu_torch/csrc/map_infill.cu',
+            # the XLA NaN infill in front of the spline solve (no
+            # pallas_call of its own)
+            replaces='planetmapper_tpu/ops/interp_device.py:611',
+            launches=map_launches['map_infill'],
+            max_abs_err=map_errors['infill'],
+            ms=infill_t['kernel'],
+            ms_warm=infill_t['kernel_warm'],
+            plain_ms=infill_t['plain'],
+            bound_ms=infill_t['bound'],
+            bound_by=infill_t['bound_by'],
+            library_ms=None,
         ),
         dsk_entry('dsk_pairs', dskk.OPS, dsk_out['launches']['dsk_pairs'],
                   dsk_out['errors'], dsk_out['times'],

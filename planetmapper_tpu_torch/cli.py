@@ -112,11 +112,12 @@ def _prewarm(target: str, observer: str, sizes: list[int], *,
             torch.cuda.synchronize(device)
 
     if device.type == 'cuda':
-        from .ops import backplanes_kernel, map_smooth_kernel
-        from .ops import map_spline_kernel, pchip_kernel
+        from .ops import backplanes_kernel, map_infill_kernel
+        from .ops import map_smooth_kernel, map_spline_kernel, pchip_kernel
 
-        libraries = [backplanes_kernel.LIBRARY, map_spline_kernel.LIBRARY,
-                     map_smooth_kernel.LIBRARY, pchip_kernel.LIBRARY]
+        libraries = [backplanes_kernel.LIBRARY, map_infill_kernel.LIBRARY,
+                     map_spline_kernel.LIBRARY, map_smooth_kernel.LIBRARY,
+                     pchip_kernel.LIBRARY]
         t0 = time.time()
         cuda_build.build_all(libraries)
         print(

@@ -6,13 +6,16 @@ interp_device``).
 - ``nearest``: one gather per sample (plain PyTorch: there is no TPU kernel
   behind it in the JAX package either).
 - spline degrees 1-5 with ``spline_smoothing=0`` (the default) and sources
-  up to :data:`_DEVICE_SOLVE_MAX` px: NaN infill (:func:`_infill_device`)
+  up to :data:`_DEVICE_SOLVE_MAX` px: the NaN infill of every frame
+  (:func:`.map_infill_kernel.map_infill`, one hand-written kernel on a card)
   and the collocation solve ``C = Ainv_y @ cleaned @ Ainv_x.T`` run in
   float64 on the device against the cached inverses of
   :func:`_grid_spline_solver` (a plain matrix product, as the JAX package
-  leaves it to XLA), then the hand-written kernel
-  :func:`.map_spline_kernel.map_spline` evaluates every frame, told by
-  :func:`_grid_uniform_knots` that the knots are unit-spaced.
+  leaves it to XLA; an axis whose inverse is exactly the identity, degree
+  1, takes no product: its coefficients are the cleaned pixels), then the
+  hand-written kernel :func:`.map_spline_kernel.map_spline` evaluates every
+  frame, told by :func:`_grid_uniform_knots` that the knots are
+  unit-spaced. With the default options nothing of it waits on the card.
 - ``spline_smoothing > 0`` or larger sources: scipy's FITPACK solves each
   frame on the host, and the same kernel evaluates it, told by
   :func:`.map_spline_kernel.uniform_knots` whether the knots are
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import tracing
+from .map_infill_kernel import map_infill
 from .map_spline_kernel import map_spline, uniform_knots
 
 #: Largest source side solved on the device (dense inverses of the two
@@ -81,48 +85,6 @@ def _device_xy(x_map, y_map, device: torch.device) -> MapSamples:
     )
 
 
-def _frame_flags(frames: torch.Tensor) -> dict[str, np.ndarray]:
-    """Per-frame host flags (one device sync): all finite, any finite."""
-    finite = torch.isfinite(frames.reshape(frames.shape[0], -1))
-    flags = torch.stack([finite.all(dim=1), finite.any(dim=1)]).cpu().numpy()
-    return dict(all_finite=flags[0], any_finite=flags[1])
-
-
-def _infill_device(frame: torch.Tensor):
-    """
-    The reference's NaN infill (body_xy.py:1871-1904, :func:`..interp.
-    replace_nans_with_interpolated_values`) on the device: non-finite cells
-    with a finite cell in their clipped 3x3 neighbourhood take the
-    neighbourhood mean; the others take the frame's median of finite
-    values (0 if it has none). Returns ``(cleaned, nan_grid)``; the
-    propagation grid is ``isnan`` (infinities are infilled for the solve
-    but not propagated, reference body_xy.py:1668).
-    """
-    finite = torch.isfinite(frame)
-    values = torch.sort(frame[finite]).values
-    n = values.numel()
-    if n:
-        # the mean of the two middle values, as np.nanmedian (torch's
-        # nanmedian returns the lower one)
-        med = (values[(n - 1) // 2] + values[n // 2]) / 2
-    else:
-        med = torch.zeros((), dtype=frame.dtype, device=frame.device)
-    z = torch.nn.functional.pad(torch.where(finite, frame, 0.0), (1, 1, 1, 1))
-    g = torch.nn.functional.pad(finite.to(frame.dtype), (1, 1, 1, 1))
-    ny, nx = frame.shape
-    s = torch.zeros_like(frame)
-    cnt = torch.zeros_like(frame)
-    for dy in range(3):
-        for dx in range(3):
-            s = s + z[dy:dy + ny, dx:dx + nx]
-            cnt = cnt + g[dy:dy + ny, dx:dx + nx]
-    nb_mean = s / torch.where(cnt > 0, cnt, 1.0)
-    cleaned = torch.where(
-        finite, frame, torch.where(cnt > 0, nb_mean, med)
-    )
-    return cleaned, torch.isnan(frame)
-
-
 @functools.lru_cache(maxsize=None)
 def _grid_spline_solver(ny: int, nx: int, kx: int, ky: int):
     """
@@ -162,11 +124,37 @@ def _grid_uniform_knots(ny: int, nx: int, kx: int, ky: int):
 @functools.lru_cache(maxsize=16)
 def _device_solver(ny: int, nx: int, kx: int, ky: int,
                    device: torch.device):
-    """:func:`_grid_spline_solver` as float64 tensors on ``device``."""
-    return tuple(
-        torch.from_numpy(a).to(device)
-        for a in _grid_spline_solver(ny, nx, kx, ky)
+    """
+    :func:`_grid_spline_solver` as float64 tensors on ``device``, each
+    inverse None where it is exactly the identity (a degree-1 axis: its
+    coefficients are the pixels, and :func:`_collocation_solve` skips its
+    product).
+    """
+    ty, tx, ainv_y, ainv_x = _grid_spline_solver(ny, nx, kx, ky)
+    return (
+        torch.from_numpy(ty).to(device), torch.from_numpy(tx).to(device),
+        *(None if np.array_equal(a, np.eye(a.shape[0]))
+          else torch.from_numpy(a).to(device) for a in (ainv_y, ainv_x)),
     )
+
+
+def _collocation_solve(cleaned: torch.Tensor, ainv_y, ainv_x):
+    """
+    ``ainv_y @ (cleaned @ ainv_x.T)`` of the frames ``cleaned``, without
+    the product of an axis whose inverse is None (the identity); counts
+    each frame's products run (``map.solves``) and skipped
+    (``map.solve_skipped``).
+    """
+    coeffs = cleaned
+    n_frames = cleaned.shape[0]
+    for ainv, right in ((ainv_x, True), (ainv_y, False)):
+        if ainv is None:
+            tracing.count('map.solve_skipped', n_frames)
+            continue
+        coeffs = torch.matmul(coeffs, ainv.T) if right else \
+            torch.matmul(ainv, coeffs)
+        tracing.count('map.solves', n_frames)
+    return coeffs
 
 
 def _fitpack_coeffs(img, kx, ky, spline_smoothing, warn_nan):
@@ -207,38 +195,33 @@ def spline_interpolation_device(
     cube = img.ndim == 3
     frames = img if cube else img[None]
     ny, nx = frames.shape[-2:]
-    with tracing.span('pm.map.flags'):
-        flags = _frame_flags(frames)
     device = frames.device
 
     if spline_smoothing == 0 and max(ny, nx) <= _DEVICE_SOLVE_MAX:
-        if warn_nan:
-            for ok in flags['all_finite']:
-                if not ok:
-                    print(
-                        'Warning, image contains NaN values which will '
-                        'be corrected'
-                    )
+        with tracing.span('pm.map.flags'):
+            if warn_nan:  # the one read of the card, for the print
+                finite = torch.isfinite(frames.reshape(frames.shape[0], -1))
+                for ok in finite.all(dim=1).tolist():
+                    if not ok:
+                        print(
+                            'Warning, image contains NaN values which will '
+                            'be corrected'
+                        )
         ty, tx, ainv_y, ainv_x = _device_solver(ny, nx, kx, ky, device)
-        cleaned = frames
-        nans = torch.zeros(frames.shape, dtype=torch.bool, device=device)
-        if not flags['all_finite'].all():
-            with tracing.span('pm.map.infill'):
-                cleaned = frames.clone()
-                for i in np.flatnonzero(~flags['all_finite']):
-                    cleaned[i], nans[i] = _infill_device(frames[i])
+        with tracing.span('pm.map.infill'):
+            cleaned, nans, finite = map_infill(frames)
         with tracing.span('pm.map.solve'):
-            coeffs = torch.matmul(ainv_y, torch.matmul(cleaned, ainv_x.T))
+            coeffs = _collocation_solve(cleaned, ainv_y, ainv_x)
         with tracing.span('pm.map.spline'):
             vals = map_spline(
-                samples.x, samples.y, samples.valid, ty, tx, coeffs, nans,
-                kx=kx, ky=ky, propagate_nan=propagate_nan,
+                samples.x, samples.y, samples.valid, ty, tx, coeffs,
+                nans.view(torch.uint8), kx=kx, ky=ky,
+                propagate_nan=propagate_nan,
                 uniform=_grid_uniform_knots(ny, nx, kx, ky),
             )
-        if not propagate_nan and not flags['any_finite'].all():
+        if not propagate_nan:
             # host semantics: a frame with no finite values maps to NaN
-            dead = torch.from_numpy(~flags['any_finite']).to(device)
-            vals = torch.where(dead[:, None], torch.nan, vals)
+            vals = torch.where((finite == 0)[:, None], torch.nan, vals)
     else:
         # host FITPACK branch (smoothing picks knots per frame)
         host = frames.cpu().numpy()

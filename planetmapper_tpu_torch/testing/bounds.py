@@ -408,6 +408,17 @@ def pchip_bound(*, cells: int, grid_values: int, finite_cells: int,
     return dict(ms=ms, bound_by=by, bytes=n_bytes, f64_ops=ops)
 
 
+def infill_call_bound(frames: torch.Tensor) -> dict:
+    """
+    The bound of one ``map_infill`` call on ``frames`` (..., ny, nx)
+    float64: each cell read once (8 bytes), its cleaned value (8 bytes)
+    and NaN flag (1 byte) written once. ``dict(ms, bound_by, bytes)``.
+    """
+    n_bytes = 17 * frames.numel()
+    ms, by = roofline_ms(n_bytes)
+    return dict(ms=ms, bound_by=by, bytes=n_bytes)
+
+
 def _pchip_pass_counts(lines: torch.Tensor, out: torch.Tensor):
     """``(finite cells, evaluated positions)`` of one pass over the lines
     (..., n) with output ``out`` (..., n_eval): the finite cells of the

@@ -26,12 +26,13 @@ from planetmapper_tpu_torch._device import f64
 from planetmapper_tpu_torch.ops import backplanes_kernel as bk
 from planetmapper_tpu_torch.ops import dsk, dsk_kernel
 from planetmapper_tpu_torch.ops import interp_device, pchip_device
+from planetmapper_tpu_torch.ops import map_infill_kernel as mik
 from planetmapper_tpu_torch.ops import map_smooth_kernel as msk
 from planetmapper_tpu_torch.ops import map_spline_kernel as msp
 from planetmapper_tpu_torch.ops import pchip_kernel as pk
 from planetmapper_tpu_torch.ops.cuda_build import check_launch
 from planetmapper_tpu_torch.testing import (compare, dsk_cases,
-                                            observation_files)
+                                            infill_cases, observation_files)
 from planetmapper_tpu_torch.testing.synthetic_kernels import (
     write_synthetic_kernels,
 )
@@ -546,11 +547,8 @@ def test_map_spline_matches_plain_version(device, kxy, nan, n, frames):
     ty, tx, ainv_y, ainv_x = interp_device._device_solver(
         n, n, kx, ky, device
     )
-    cleaned = img.clone()
-    nans = torch.zeros(img.shape, dtype=torch.bool, device=device)
-    for i in range(frames):
-        cleaned[i], nans[i] = interp_device._infill_device(img[i])
-    coeffs = ainv_y @ (cleaned @ ainv_x.T)
+    cleaned, nans, _ = mik.map_infill(img)
+    coeffs = interp_device._collocation_solve(cleaned, ainv_y, ainv_x)
     # the main path's uniform-knot path, and the search path on the same
     # knots
     for uniform in (interp_device._grid_uniform_knots(n, n, kx, ky), None):
@@ -563,6 +561,66 @@ def test_map_spline_matches_plain_version(device, kxy, nan, n, frames):
             torch.cuda.synchronize()
             assert msp.launch_count() == before + 1
             _assert_within_one_ulp(got, msp.map_spline_plain(*args, **kw))
+
+
+def _assert_infill_equal(got, ref):
+    """The kernel's three outputs against the plain version's, bit for bit
+    (cleaned holds no NaN; torch.equal takes -0.0 == 0.0, which matters
+    only where the plain version's sort puts zeros of both signs in the
+    middle)."""
+    names = ('cleaned', 'nans', 'finite')
+    for name, g, r in zip(names, got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        assert torch.equal(g.cpu(), r.cpu()), name
+
+
+@pytest.mark.parametrize('case', infill_cases.RULE_CASES
+                         + infill_cases.SELECT_CASES + ('map_linear',))
+def test_map_infill_matches_plain_version(device, case):
+    for seed in (0, 1):
+        cube = torch.from_numpy(infill_cases.infill_case(case, seed))
+        before = mik.launch_count()
+        got = mik.map_infill(cube.to(device))
+        torch.cuda.synchronize()
+        assert mik.launch_count() == before + 1
+        _assert_infill_equal(got, mik.map_infill_plain(cube))
+
+
+def test_map_infill_takes_a_cube_in_one_launch(device):
+    cube = np.concatenate([infill_cases.infill_case(case)[:, :12, :9]
+                           for case in infill_cases.RULE_CASES])
+    frames = torch.from_numpy(cube)
+    mik.reset_launch_count()
+    got = mik.map_infill(frames.to(device))
+    torch.cuda.synchronize()
+    assert mik.launch_count() == 1
+    assert tracing.counts()['launches.map_infill'] == 1
+    _assert_infill_equal(got, mik.map_infill_plain(frames))
+    # a frame is the cube of one
+    one = mik.map_infill(frames[1].to(device))
+    _assert_infill_equal(one, mik.map_infill_plain(frames[1]))
+    occupancy = mik.occupancy()
+    print('map_infill occupancy (stencil, select):', occupancy)
+    assert occupancy['local_bytes'] == (0, 0)
+
+
+@pytest.mark.parametrize('interpolation', [1, 3])
+def test_spline_map_with_the_defaults_never_waits_on_the_card(
+        device, interpolation):
+    n = 150
+    img, samples = _map_case(n, 3, True, 7, device)
+    kw = dict(interpolation=interpolation, warn_nan=False,
+              propagate_nan=True, spline_smoothing=0)
+    interp_device.spline_interpolation_device(img, samples, **kw)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        out = interp_device.spline_interpolation_device(img, samples, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    assert out.shape == (3,) + samples.shape
+    assert torch.isfinite(out).any()
 
 
 @pytest.mark.parametrize('kxy', [(3, 3), (1, 1), (5, 1)])
@@ -737,6 +795,24 @@ def test_map_img_launches_map_kernels(kernel_path, device):
             # the x/y maps come from two devices (the kernels alone, on
             # the same inputs, are held to one ulp of each value above)
             _assert_within_map_bar(got, ref)
+
+
+@pytest.mark.parametrize('interpolation', ['linear', 'quadratic', 'cubic'])
+def test_spline_maps_on_the_card_match_cpu_body(kernel_path, device,
+                                                interpolation):
+    bodies = _map_bodies(device)
+    img = np.random.default_rng(3).normal(size=(150, 150))
+    img[40:44, 50:53] = np.nan  # its middle cells take the median
+    img[90, 20] = np.inf
+    cube = np.stack([img, img[::-1], np.full_like(img, np.nan)])
+    for source in (img, cube):
+        mik.reset_launch_count()
+        got = bodies['cuda'].map_img(source, interpolation=interpolation,
+                                     degree_interval=2)
+        assert mik.launch_count() == 1
+        ref = bodies['cpu'].map_img(source, interpolation=interpolation,
+                                    degree_interval=2)
+        _assert_within_map_bar(got, ref)
 
 
 def test_cuda_body_map_chain_matches_cpu_body(kernel_path, device):
@@ -1347,15 +1423,16 @@ def test_hst_body_kernel_planes_match_cpu_body(tle_kernel_path, device):
 
 def test_prewarm_runs_the_kernels_on_the_card(kernel_path, device, capsys):
     """``--prewarm 64``: the libraries built or loaded, kernel 1 and the map
-    spline kernel launched, the steps' lines printed."""
+    infill and spline kernels launched, the steps' lines printed."""
     from planetmapper_tpu_torch import cli
 
-    before = bk.launch_count(), msp.LIBRARY.launch_count()
+    before = bk.launch_count(), msp.launch_count(), mik.launch_count()
     cli.main(['--prewarm', '64'])
     assert bk.launch_count() == before[0] + 1
-    assert msp.LIBRARY.launch_count() > before[1]
+    assert msp.launch_count() > before[1]
+    assert mik.launch_count() == before[2] + 1
     lines = capsys.readouterr().out.splitlines()
-    assert lines[0].startswith('prewarm: 4 kernel libraries built or loaded')
+    assert lines[0].startswith('prewarm: 5 kernel libraries built or loaded')
     assert lines[1].startswith('prewarm JUPITER/EARTH 64x64: backplane')
     assert lines[2].startswith('prewarm 64x64: map reprojection ran in')
     assert lines[3].startswith('kernel build directory: ')

@@ -31,7 +31,9 @@ The kernels themselves against their plain versions on the card are
 from __future__ import annotations
 
 import math
+import re
 from fractions import Fraction
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +43,7 @@ import torch
 
 import planetmapper_tpu as jpm
 import planetmapper_tpu_torch as tpm
+from planetmapper_tpu_torch import tracing
 from planetmapper_tpu.kernels import pool as j_pool
 from planetmapper_tpu.ops import interp as j_interp
 from planetmapper_tpu.ops import interp_device as j_idev
@@ -50,11 +53,13 @@ from planetmapper_tpu_torch.kernels import pool as t_pool
 from planetmapper_tpu_torch.ops import interp as t_interp
 from planetmapper_tpu_torch.ops import interp_device as t_idev
 from planetmapper_tpu_torch.ops import (
+    map_infill_kernel,
     map_smooth_kernel,
     map_spline_kernel,
     pchip_kernel,
 )
 from planetmapper_tpu_torch.ops import pchip_device as t_pchip
+from planetmapper_tpu_torch.testing import infill_cases
 from planetmapper_tpu_torch.testing.synthetic_kernels import (
     write_synthetic_kernels,
 )
@@ -205,6 +210,83 @@ def test_grid_spline_solver_matches_jax(ny, nx, kx, ky):
     for g, r in zip(got, ref):
         assert isinstance(g, np.ndarray)
         np.testing.assert_allclose(g, np.asarray(r), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize('ny, nx', [(8, 8), (12, 9), (21, 17), (64, 64),
+                                    (150, 150), (1024, 1024), (2048, 2048)])
+def test_degree_one_inverses_are_the_identity(ny, nx):
+    # the skip's precondition at the sizes the tests and the benchmark map
+    _, _, ainv_y, ainv_x = t_idev._grid_spline_solver(ny, nx, 1, 1)
+    assert np.array_equal(ainv_y, np.eye(ny))
+    assert np.array_equal(ainv_x, np.eye(nx))
+    solver = t_idev._device_solver(ny, nx, 1, 1, torch.device('cpu'))
+    assert solver[2] is None and solver[3] is None
+
+
+def _spline_samples(n: int, seed: int) -> t_idev.MapSamples:
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(-2, n + 1, 30),
+                         np.linspace(-2, n + 1, 50), indexing='ij')
+    x_map = xx + np.sin(yy / 5.0)
+    y_map = yy + np.cos(xx / 7.0)
+    x_map[rng.uniform(size=x_map.shape) < 0.05] = np.nan
+    return t_idev._device_xy(x_map, y_map, torch.device('cpu'))
+
+
+def _spline_frames(n: int, seed: int) -> np.ndarray:
+    img = np.random.default_rng(seed).normal(size=(3, n, n))
+    img[:, 10:13, 20:23] = np.nan
+    img[1, 5, 5] = np.inf
+    img[2] = np.nan
+    return img
+
+
+@pytest.mark.parametrize('cube', [False, True])
+@pytest.mark.parametrize('propagate_nan', [True, False])
+def test_degree_one_map_equals_the_map_with_the_products(cube,
+                                                         propagate_nan):
+    n = 40
+    img = _spline_frames(n, 4)
+    samples = _spline_samples(n, 4)
+    got = t_idev.spline_interpolation_device(
+        _t(img if cube else img[0]), samples, interpolation=1,
+        warn_nan=False, propagate_nan=propagate_nan,
+        spline_smoothing=0,
+    )
+    frames = _t(img if cube else img[:1])
+    ty, tx, ainv_y, ainv_x = t_idev._grid_spline_solver(n, n, 1, 1)
+    cleaned, nans, finite = map_infill_kernel.map_infill(frames)
+    coeffs = _t(ainv_y) @ (cleaned @ _t(ainv_x).T)
+    want = map_spline_kernel.map_spline(
+        samples.x, samples.y, samples.valid, _t(ty), _t(tx), coeffs, nans,
+        kx=1, ky=1, propagate_nan=propagate_nan,
+    )
+    if not propagate_nan:
+        want = torch.where((finite == 0)[:, None], torch.nan, want)
+    want = want.reshape((-1,) + samples.shape)
+    # the same values, a zero's sign aside (np.array_equal: -0.0 == 0.0)
+    assert np.array_equal(got.numpy(), (want if cube else want[0]).numpy(),
+                          equal_nan=True)
+    assert torch.isfinite(got).any()
+    if cube:
+        assert torch.isnan(got[2]).all()
+
+
+@pytest.mark.parametrize('interpolation, solves, skipped', [
+    (1, 0, 2), ((1, 3), 1, 1), ((3, 1), 1, 1), (2, 2, 0), (3, 2, 0),
+])
+def test_solve_counters_count_each_frames_axis_products(interpolation,
+                                                        solves, skipped):
+    n = 24
+    frames = _spline_frames(n, 5)
+    tracing.reset('map.solves', 'map.solve_skipped')
+    t_idev.spline_interpolation_device(
+        _t(frames), _spline_samples(n, 5), interpolation=interpolation,
+        warn_nan=False, propagate_nan=True, spline_smoothing=0,
+    )
+    counts = tracing.counts()
+    assert counts.get('map.solves', 0) == solves * len(frames)
+    assert counts.get('map.solve_skipped', 0) == skipped * len(frames)
 
 
 # ---------------------------------------------------------------------------
@@ -749,12 +831,56 @@ def test_infill_matches_host(case):
     else:
         img[:] = np.nan
     ref = j_interp.replace_nans_with_interpolated_values(img, False)
-    cleaned, nans = t_idev._infill_device(_t(img))
+    cleaned, nans = map_infill_kernel.infill_plain(_t(img))
     np.testing.assert_allclose(cleaned.numpy(), ref, rtol=0, atol=1e-12)
     assert np.array_equal(nans.numpy(), np.isnan(img))
     j_cleaned, _ = j_idev._infill_device(jnp, jnp.asarray(img))
     np.testing.assert_allclose(cleaned.numpy(), np.asarray(j_cleaned),
                                rtol=0, atol=1e-12)
+    # the wrapper on a CPU tensor is the plain version, bit for bit
+    got = map_infill_kernel.map_infill(_t(img))
+    assert torch.equal(got[0], cleaned) and torch.equal(got[1], nans)
+
+
+@pytest.mark.parametrize('case', infill_cases.RULE_CASES
+                         + infill_cases.SELECT_CASES)
+def test_map_infill_wrapper_matches_plain_frame_by_frame(case):
+    cube = infill_cases.infill_case(case)
+    cleaned, nans, finite = map_infill_kernel.map_infill(_t(cube))
+    assert cleaned.dtype == torch.float64 and cleaned.shape == cube.shape
+    for i, frame in enumerate(cube):
+        ref, ref_nans = map_infill_kernel.infill_plain(_t(frame))
+        assert torch.equal(cleaned[i], ref), i
+        assert torch.equal(nans[i], ref_nans)
+        host = j_interp.replace_nans_with_interpolated_values(frame, False)
+        np.testing.assert_allclose(cleaned[i].numpy(), host, rtol=0,
+                                   atol=1e-12)
+    assert np.array_equal(nans.numpy(), np.isnan(cube))
+    assert finite.dtype == torch.int32
+    assert finite.tolist() == np.isfinite(cube).sum(axis=(1, 2)).tolist()
+    # a frame with no non-finite cell passes through
+    if case == 'all_finite':
+        assert torch.equal(cleaned, _t(cube))
+    # a frame is the cube of one
+    one = map_infill_kernel.map_infill(_t(cube[-1]))
+    assert torch.equal(one[0], cleaned[-1]) and one[2].shape == ()
+
+
+def _cu_constant(name: str) -> int:
+    """A ``constexpr`` integer of ``csrc/map_infill.cu``."""
+    source = (Path(map_infill_kernel.__file__).parents[1] / 'csrc'
+              / 'map_infill.cu').read_text()
+    found = re.search(rf'constexpr (?:int|long long) {name} = (\d+);', source)
+    return int(found.group(1))
+
+
+def test_selection_passes_cover_every_digit_and_the_next_bucket():
+    # csrc/map_infill.cu launches a fixed number of selection passes: one
+    # a digit of a 64-bit key, and one more for the upper middle value
+    # where it is the least key of a later bucket (the card tests' one_ulp
+    # case, which takes them all, holds the kernel to its plain version)
+    digit_bits = _cu_constant('kDigitBits')
+    assert _cu_constant('kSelectPasses') == -(-64 // digit_bits) + 1
 
 
 # ---------------------------------------------------------------------------

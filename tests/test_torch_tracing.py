@@ -20,6 +20,7 @@ import planetmapper_tpu_torch as tpm
 from planetmapper_tpu_torch import pipeline, tracing
 from planetmapper_tpu_torch.ops import backplanes_kernel as bk
 from planetmapper_tpu_torch.ops import dsk_kernel
+from planetmapper_tpu_torch.ops import map_infill_kernel
 from planetmapper_tpu_torch.ops import map_smooth_kernel as msk
 from planetmapper_tpu_torch.ops import map_spline_kernel as msp
 from planetmapper_tpu_torch.ops import pchip_kernel as pk
@@ -211,13 +212,36 @@ def test_map_img_spans_under_the_profiler(body, frame):
                      'pm.map.spline']
 
 
-def test_map_img_of_a_finite_frame_has_no_infill_span(body, frame):
+def test_map_img_of_a_finite_frame_infills_no_frame(body, frame,
+                                                   monkeypatch):
+    """A finite frame is passed through: no frame's infill runs. The
+    stage's span stays, as every stage's does (on a card the infill kernel
+    runs on every frame and finds on the device that none needs it)."""
     body.map_img(frame, **MAP)
+
+    def no_infill(frame):
+        raise AssertionError('a finite frame was infilled')
+
+    monkeypatch.setattr(map_infill_kernel, 'infill_plain', no_infill)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         body.map_img(np.nan_to_num(frame), **MAP)
     names = {s[2] for s in _spans(prof)}
-    assert 'pm.map.infill' not in names
-    assert {'pm.map.flags', 'pm.map.solve', 'pm.map.spline'} <= names
+    assert {'pm.map.flags', 'pm.map.infill', 'pm.map.solve',
+            'pm.map.spline'} <= names
+
+
+def test_map_img_counts_the_solves_it_skips(body, frame):
+    """'linear' skips both axes' products of each frame, 'cubic' runs
+    both; the traced tally counts them while the profiler records."""
+    body.map_img(frame, **MAP)
+    tracing.reset('map.solves', 'map.solve_skipped')
+    cube = np.stack([frame, frame[::-1]])
+    with profile(activities=[ProfilerActivity.CPU]):
+        body.map_img(cube, **MAP)
+        body.map_img(frame, interpolation='cubic', **MAP)
+    traced = tracing.traced_counts()
+    assert traced['map.solve_skipped'] == 4
+    assert traced['map.solves'] == 2
 
 
 def test_launch_counts_read_the_registry():
