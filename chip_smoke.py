@@ -18,15 +18,15 @@ from the Earth on 2005-01-01 (synthetic SPICE kernels written at run time):
 - batch: ``pipeline.compute_backplanes_batch`` of 8 disc sets at
   2048x2048 (frames this large take one single-frame launch each), each
   frame bit for bit against a single call; the batched kernel forced on
-  the same scenes (in 32x8 tiles), bit for bit with the single-frame
+  the same frames (in 32x8 tiles), bit for bit with the single-frame
   launches and against its plain version, and at 640x640 and 768x768 (the
   two sides of the route's threshold) bit for bit with single-frame
   launches; both routes by device time and the entry point against 8
   synchronised single calls, in turns.
 - timeseries: ``parallel.backplane_time_series`` of bench.py:343's 1000
   epochs at 50x50 (one launch of the batched kernel, in linear blocks),
-  the call split into the anchors, the packing, the kernel and the copy
-  out; 3 epochs against per-body calls; the 1000 scenes with all 26 planes
+  the call split into the anchors, the kernel's call and the copy out; 3
+  epochs against per-body calls; the 1000 frames with all 26 planes
   bit for bit with 1000 single-frame launches, against the plain version
   and timed beside the bound; 8 epochs at 2048x2048.
 - sharded: a 4-entry mesh of the one card, ``sharded_backplanes`` at
@@ -245,11 +245,13 @@ def to_numpy(out: dict) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in out.items()}
 
 
-def device_inputs(body) -> tuple:
-    """The body's pipeline inputs as float64 tensors on its device."""
-    *values, anchors = pipeline.pipeline_inputs(body)
-    return (*(f64(v, body.device) for v in values),
-            pipeline.anchors_from_numpy(anchors, body.device))
+def one_frame(impl, nx, ny, inputs, device, row0=0.0) -> dict:
+    """One frame of ``impl.frames`` (kernel 1's or the plain graph's) from
+    a body's host inputs (``pipeline.pipeline_inputs``), as tensors."""
+    xy2angular, disc, radii, anchors = inputs
+    out = impl.frames(nx, ny, xy2angular[None], disc[None], radii, anchors,
+                      device=device, row0=row0)
+    return {k: v[0] for k, v in out.items()}
 
 
 def centre_pixel(shape, disc, row0=0.0) -> dict[str, np.ndarray]:
@@ -368,7 +370,7 @@ def main_path_phase(device, size=SIZE, disc=DISC):
     body = pt.BodyXY('Jupiter', observer='EARTH', utc=UTC, sz=size,
                      device=device)
     body.set_disc_params(*disc)
-    args = device_inputs(body)
+    inputs = pipeline.pipeline_inputs(body)
     log(f'[scene] BodyXY + anchors {time.perf_counter() - t0:.2f} s on '
         f'{body.device}; Jupiter at {body.target_distance / AU_KM:.3f} AU')
     _, use_pallas = pipeline.select_pipeline_impl(body, size, size)
@@ -405,11 +407,11 @@ def main_path_phase(device, size=SIZE, disc=DISC):
 
     plain = pipeline.fused_backplanes_fn(**FLAGS)
     reports = check_against_plain(
-        f'main {size}x{size}', main_out, to_numpy(plain(size, size, *args)),
-        disc,
+        f'main {size}x{size}', main_out,
+        to_numpy(one_frame(plain, size, size, inputs, device)), disc,
     )
     n_disc = int(np.isfinite(main_out['EMISSION']).sum())
-    return body, args, launches, peak, reports, n_disc
+    return body, inputs, launches, peak, reports, n_disc
 
 
 def cases_phase(device) -> None:
@@ -418,7 +420,7 @@ def cases_phase(device) -> None:
     body = pt.BodyXY('Jupiter', observer='EARTH', utc=UTC, nx=nx, ny=ny,
                      device=device)
     body.set_disc_params(*disc)
-    args = device_inputs(body)
+    inputs = pipeline.pipeline_inputs(body)
     row0, rows = BAND
     full = None
     for speed in (True, False):
@@ -426,15 +428,17 @@ def cases_phase(device) -> None:
             optimize_speed=speed, lst_quant=True, **FLAGS,
         )
         plain = pipeline.fused_backplanes_fn(optimize_speed=speed, **FLAGS)
-        frame = to_numpy(kern(nx, ny, *args))
+        frame = to_numpy(one_frame(kern, nx, ny, inputs, device))
         check_against_plain(
             f'ragged {nx}x{ny} optimize_speed={speed}', frame,
-            to_numpy(plain(nx, ny, *args)), disc,
+            to_numpy(one_frame(plain, nx, ny, inputs, device)), disc,
         )
-        band = to_numpy(kern(nx, rows, *args, row0=float(row0)))
+        band = to_numpy(one_frame(kern, nx, rows, inputs, device,
+                                   float(row0)))
         check_against_plain(
             f'row0={row0} band optimize_speed={speed}', band,
-            to_numpy(plain(nx, rows, *args, row0=float(row0))), disc,
+            to_numpy(one_frame(plain, nx, rows, inputs, device, float(row0))),
+            disc,
             row0=row0,
         )
         for name, plane in band.items():
@@ -445,11 +449,11 @@ def cases_phase(device) -> None:
             f'(optimize_speed={speed})')
         if speed:
             full = frame
-    triaxial_case(nx, ny, disc, args)
+    triaxial_case(nx, ny, disc, inputs, device)
     for planes in SUBSETS:
-        sub = to_numpy(bk.build_backplanes_kernel(
+        sub = to_numpy(one_frame(bk.build_backplanes_kernel(
             optimize_speed=True, lst_quant=True, planes=planes, **FLAGS,
-        )(nx, ny, *args))
+        ), nx, ny, inputs, device))
         if set(sub) != set(planes):
             raise SmokeFailure(f'subset {planes} returned {sorted(sub)}')
         for name in planes:
@@ -458,14 +462,14 @@ def cases_phase(device) -> None:
     log(f'[subsets] {len(SUBSETS)} subsets equal the full set exactly')
 
 
-def triaxial_case(nx, ny, disc, args) -> None:
+def triaxial_case(nx, ny, disc, inputs, device) -> None:
     """A triaxial body (4 Bowring steps) against the robust plain graph."""
-    xy2angular, disc_t, radii, anchors = args
-    radii = radii * torch.tensor(TRIAXIAL_SCALE, dtype=torch.float64,
-                                 device=radii.device)
+    xy2angular, disc_t, radii, anchors = inputs
+    radii = radii * np.array(TRIAXIAL_SCALE)
+    inputs = (xy2angular, disc_t, radii, anchors)
 
     # _kernel_geodetic_iters reads only a body's radii
-    shape = type('Shape', (), {'radii': radii.cpu().numpy()})()
+    shape = type('Shape', (), {'radii': radii})()
     iters = pipeline._kernel_geodetic_iters(shape)
     if iters != 4:
         raise SmokeFailure(f'triaxial radii take {iters} Bowring steps')
@@ -476,16 +480,16 @@ def triaxial_case(nx, ny, disc, args) -> None:
         optimize_speed=True, robust_geodetic=True, **FLAGS,
     )
     launches = bk.launch_count()
-    got = to_numpy(kern(nx, ny, xy2angular, disc_t, radii, anchors))
+    got = to_numpy(one_frame(kern, nx, ny, inputs, device))
     if bk.launch_count() != launches + 1:
         raise SmokeFailure('the triaxial case launched no kernel')
     check_against_plain(
         f'triaxial radii x {TRIAXIAL_SCALE} {nx}x{ny}', got,
-        to_numpy(plain(nx, ny, xy2angular, disc_t, radii, anchors)), disc,
+        to_numpy(one_frame(plain, nx, ny, inputs, device)), disc,
     )
 
 
-def timing_phase(body, args, card: str) -> dict[str, float]:
+def timing_phase(body, inputs, card: str) -> dict[str, float]:
     """
     The kernel and its plain version at the full frame; the main path's
     call as a caller pays for it; one blocked call with the copy out.
@@ -493,47 +497,54 @@ def timing_phase(body, args, card: str) -> dict[str, float]:
     - device time (CUDA events, calls queued behind a device-side sleep):
       the kernel alone, on a packed scene, and the plain float64 graph;
     - one synchronised call (host clock, median): the kernel alone on a
-      packed scene; the main path, ``compute_backplanes(body,
-      as_numpy=False)``, which packs the scene on the host first; the
-      contract's impl on CUDA tensors, which copies them to the host first;
+      packed scene; the kernel's call, ``impl.frames``, which packs the
+      scene first; the main path, ``compute_backplanes(body,
+      as_numpy=False)``, which also reads the inputs from the body;
     - the main path back to back (host clock, one synchronise at the end);
-    - ``pack_scene`` alone (host clock).
+    - the packing alone (host clock): whole, and the frame part over the
+      shared part that the kernel keeps.
     """
     kern = bk.build_backplanes_kernel(
         optimize_speed=True, lst_quant=True, **FLAGS,
     )
     plain = pipeline.fused_backplanes_fn(**FLAGS)
-    host = pipeline.pipeline_inputs(body)
-    scene = bk.pack_scene(*host)
-    device = args[0].device
+    device = body.device
+    xy2angular, disc, radii, anchors = inputs
+    scene = bk.pack_scenes(xy2angular[None], disc[None], radii, anchors)
 
     def kernel():
-        kern.run(scene, SIZE, SIZE, device)
+        kern._launch(scene, SIZE, SIZE, device=device)
 
     def main_path():
         pipeline.compute_backplanes(body, as_numpy=False)
 
-    device_ms = in_turns({'kernel': (kernel, 50),
-                          'plain': (lambda: plain(SIZE, SIZE, *args), 5)},
-                         cuda_time_ms)
+    device_ms = in_turns(
+        {'kernel': (kernel, 50),
+         'plain': (lambda: one_frame(plain, SIZE, SIZE, inputs, device), 5)},
+        cuda_time_ms)
     call_ms = in_turns({
         'kernel': (kernel, 20),
+        'kernel\'s call': (lambda: one_frame(kern, SIZE, SIZE, inputs,
+                                             device), 20),
         'main path': (main_path, 20),
-        'from device tensors': (lambda: kern(SIZE, SIZE, *args), 20),
     }, host_clock_ms)
     back_ms = in_turns({'main path': (main_path, 50)}, back_to_back_ms)
     reps = 500
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        bk.pack_scene(*host)
-    pack_us = (time.perf_counter() - t0) * 1e6 / reps
+    pack_us = {}
+    for name, shared in (('whole', None), ('frame part', scene[0])):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            bk.pack_scenes(xy2angular[None], disc[None], radii, anchors,
+                           shared=shared)
+        pack_us[name] = (time.perf_counter() - t0) * 1e6 / reps
     log(f'[time] {card} | {SIZE}x{SIZE} device ms per call (CUDA events, '
         f'two turns): {json.dumps(device_ms)}')
     log(f'[time] {card} | {SIZE}x{SIZE} ms of one synchronised call (host '
         f'clock, median of 20, two turns): {json.dumps(call_ms)}')
     log(f'[time] {card} | {SIZE}x{SIZE} main path back to back (host clock '
-        f'per call over 50, two turns): {json.dumps(back_ms)}; pack_scene '
-        f'{pack_us:.1f} us per call (host clock, {reps} calls)')
+        f'per call over 50, two turns): {json.dumps(back_ms)}; pack_scenes '
+        f'of one frame, us per call (host clock, {reps} calls): '
+        f'{json.dumps(pack_us)}')
     prep = np.mean(call_ms['main path']) - np.mean(call_ms['kernel'])
     log(f'[time] {card} | the main path\'s call takes {prep * 1e3:.1f} us '
         'more than the kernel alone, both synchronised')
@@ -607,14 +618,11 @@ def route_checks(device) -> None:
         disc = (*(v * scale for v in DISC[:3]), DISC[3])
         body.set_disc_params(*disc)
         discs = sweep_discs(disc)
-        scenes = bk.pack_scenes(affines(body, discs), discs,
-                                np.asarray(body.radii, dtype=np.float64),
-                                body._get_pipeline_anchors())
+        _, _, radii, anchors = pipeline.pipeline_inputs(body)
         impl, _ = pipeline.select_pipeline_impl(body, size, size)
-        frames = impl.run_batch(scenes, size, size, device,
-                                frame_launches=True)
-        batched = impl.run_batch(scenes, size, size, device,
-                                 frame_launches=False)
+        sweep = (size, size, affines(body, discs), discs, radii, anchors)
+        frames = impl.frames(*sweep, device=device, frame_launches=True)
+        batched = impl.frames(*sweep, device=device, frame_launches=False)
         bad = equal_planes(batched, frames)
         if bad:
             raise SmokeFailure(f'{size}x{size}: the batched kernel differs '
@@ -676,11 +684,9 @@ def batch_phase(body, card: str) -> None:
 
     # the batched kernel on the same scenes, against the single-frame ones
     impl, _ = pipeline.select_pipeline_impl(body, SIZE, SIZE)
-    anchors = body._get_pipeline_anchors()
-    radii = np.asarray(body.radii, dtype=np.float64)
-    scenes = bk.pack_scenes(xys, discs, radii, anchors)
-    batched = impl.run_batch(scenes, SIZE, SIZE, device,
-                             frame_launches=False)
+    _, _, radii, anchors = pipeline.pipeline_inputs(body)
+    sweep = (SIZE, SIZE, xys, discs, radii, anchors)
+    batched = impl.frames(*sweep, device=device, frame_launches=False)
     bad = equal_planes(batched, out)
     if bad:
         raise SmokeFailure(f'the batched kernel differs from the '
@@ -691,25 +697,21 @@ def batch_phase(body, card: str) -> None:
         'launch) equals the single-frame launches bit for bit (26 planes)')
     route_checks(device)
     body.set_disc_params(*discs[0])
-    args0 = device_inputs(body)
     plain = pipeline.fused_backplanes_fn(**FLAGS)
     check_against_plain('batch frame 0', to_numpy(
         {k: v[0] for k, v in batched.items()}),
-        to_numpy(plain(SIZE, SIZE, *args0)), discs[0])
+        to_numpy(one_frame(plain, SIZE, SIZE, pipeline.pipeline_inputs(body),
+                           device)), discs[0])
     del out, batched
 
-    def plain_frames():
-        for disc, a in zip(discs, xys):
-            plain(SIZE, SIZE, f64(a, device), f64(disc, device),
-                  f64(radii, device),
-                  pipeline.anchors_from_numpy(anchors, device))
-
+    scenes = bk.pack_scenes(xys, discs, radii, anchors)
     device_ms = in_turns({
-        'batched kernel': (lambda: impl.run_batch(
-            scenes, SIZE, SIZE, device, frame_launches=False), 10),
-        'single-frame launches': (lambda: impl.run_batch(
-            scenes, SIZE, SIZE, device, frame_launches=True), 10),
-        'plain, frame by frame': (plain_frames, 1),
+        'batched kernel': (lambda: impl._launch(
+            scenes, SIZE, SIZE, device=device, frame_launches=False), 10),
+        'single-frame launches': (lambda: impl._launch(
+            scenes, SIZE, SIZE, device=device, frame_launches=True), 10),
+        'plain, frame by frame': (
+            lambda: plain.frames(*sweep, device=device), 1),
     }, cuda_time_ms)
 
     def entry_batch():
@@ -743,8 +745,9 @@ def timeseries_phase(device, card: str) -> dict:
     LON-GRAPHIC), the call timed as a user makes it and split into the
     anchors (CPU tensors), the packing, the kernel (device time) and the
     copy out; 3 epochs held against per-body compute_backplanes; the same
-    1000 scenes with all 26 planes (the kernels line: every 100th frame
-    against the plain version, times beside the bound); 8 epochs at
+    1000 frames with all 26 planes (the kernels line: every 100th frame
+    against the plain version, the kernel's times beside the bound, and
+    the kernel's call, which packs and uploads the scenes); 8 epochs at
     2048x2048 with all planes, frame 0 against the body's own call.
     """
     from planetmapper_tpu_torch.parallel import (
@@ -785,14 +788,16 @@ def timeseries_phase(device, card: str) -> dict:
     anchors_ms = (time.perf_counter() - t0) * 1e3
     discs = np.broadcast_to(np.asarray(body.get_disc_params()), (n, 4))
     radii = np.asarray(body.radii, dtype=np.float64)
+    series = (size, size, xys, discs, radii, anchors)
     t0 = time.perf_counter()
     scenes = bk.pack_scenes(xys, discs, radii, anchors)
     pack_ms = (time.perf_counter() - t0) * 1e3
     impl, _ = pipeline.select_pipeline_impl(body, size, size,
                                             planes=tuple(names))
     scenes_dev = torch.from_numpy(scenes).to(device)
-    kernel_ms = in_turns({'kernel': (lambda: impl.run_batch(
-        scenes_dev, size, size, device), 20)}, cuda_time_ms)['kernel']
+    kernel_ms = in_turns({'kernel': (lambda: impl._launch(
+        scenes_dev, size, size, device=device), 20)},
+        cuda_time_ms)['kernel']
     log(f'[timeseries] {card} | {n} epochs at {size}x{size} ({names}): the '
         f'call {call_ms:.1f} ms ({call_ms / n * 1e3:.2f} us a frame; '
         f'{launches} launch), the copy to numpy {copy_ms:.2f} ms; alone: '
@@ -810,29 +815,28 @@ def timeseries_phase(device, card: str) -> dict:
         check_against_plain(f'time series epoch {i} vs its own body', got,
                             ref, body.get_disc_params())
 
-    # the kernels line: the 1000 scenes with all 26 planes, bit for bit
+    # the kernels line: the 1000 frames with all 26 planes, bit for bit
     # against single-frame launches
     full, _ = pipeline.select_pipeline_impl(body, size, size)
-    every = full.run_batch(scenes_dev, size, size, device)
-    bad = equal_planes(every, full.run_batch(scenes, size, size, device,
-                                             frame_launches=True))
+    every = full.frames(*series, device=device)
+    bad = equal_planes(every, full.frames(*series, device=device,
+                                          frame_launches=True))
     if bad:
         raise SmokeFailure(f'the {n} batched frames differ from single-frame '
                            f'launches in {bad}')
     plan = bk.batch_plan(n, size, size)
-    log(f'[timeseries] the {n} scenes with 26 planes through the batched '
+    log(f'[timeseries] the {n} frames with 26 planes through the batched '
         f'kernel ({"tiles" if plan.tiles else "linear blocks"} of '
         f'{plan.threads} threads, {plan.blocks_per_frame} blocks a frame, '
         f'{len(plan.launches)} launch) equal {n} single-frame launches bit '
         'for bit')
     plain = pipeline.fused_backplanes_fn(**FLAGS)
-    d_radii = f64(radii, device)
-    d_disc = f64(np.array(discs[0]), device)
 
     def plain_frame(i):
-        return plain(size, size, f64(xys[i], device), d_disc, d_radii,
-                     pipeline.anchors_from_numpy(
-                         {k: v[i] for k, v in anchors.items()}, device))
+        out = plain.frames(size, size, xys[i:i + 1], discs[i:i + 1], radii,
+                           {k: v[i:i + 1] for k, v in anchors.items()},
+                           device=device)
+        return {k: v[0] for k, v in out.items()}
 
     errors = []
     for i in range(0, n, 100):
@@ -845,9 +849,10 @@ def timeseries_phase(device, card: str) -> dict:
     n_discs = torch.isfinite(every['EMISSION']).sum(dim=(1, 2)).tolist()
     del every
     full_ms = in_turns({
-        'kernel': (lambda: full.run_batch(scenes_dev, size, size, device),
-                   20),
-        'plain': (lambda: [plain_frame(i) for i in range(n)], 1),
+        'kernel': (lambda: full._launch(scenes_dev, size, size,
+                                        device=device), 20),
+        'kernel\'s call': (lambda: full.frames(*series, device=device), 20),
+        'plain': (lambda: plain.frames(*series, device=device), 1),
     }, cuda_time_ms)
     bound = bounds.backplane_batch_bound(size, size, n_discs)
     log(f'[timeseries] {card} | backplanes26_batch, {n} frames of '
@@ -2381,7 +2386,9 @@ def cli_phase(device, kernel_dir, card: str) -> dict:
     size = PREWARM_SIZES[-1]
     plain = pipeline.fused_backplanes_fn(**FLAGS)
     check_against_plain(f'cli {size}x{size}', to_numpy(out),
-                        to_numpy(plain(size, size, *device_inputs(body))),
+                        to_numpy(one_frame(plain, size, size,
+                                           pipeline.pipeline_inputs(body),
+                                           device)),
                         body.get_disc_params())
     del seen, out, body
     errors = prewarm_map_checks(bodies)
@@ -2632,7 +2639,9 @@ def tle_phase(device, card: str) -> dict:
                                'times')
         plain = pipeline.fused_backplanes_fn(**FLAGS)
         check_against_plain(f'tle {SIZE}x{SIZE}', to_numpy(out),
-                            to_numpy(plain(SIZE, SIZE, *device_inputs(body))),
+                            to_numpy(one_frame(
+                                plain, SIZE, SIZE,
+                                pipeline.pipeline_inputs(body), device)),
                             DISC)
         del out
         card_body, cpu_body = (
@@ -2891,14 +2900,14 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix='synthetic_kernels_') as kdir:
             write_synthetic_kernels(kdir, seed=0, satellites=True)
             pt.set_kernel_path(kdir)
-            body, args, launches, peak, reports, n_disc = main_path_phase(
+            body, inputs, launches, peak, reports, n_disc = main_path_phase(
                 device
             )
             if launches < 1:
                 raise SmokeFailure('compute_backplanes launched no kernel')
             cases_phase(device)
             card = card_line()
-            bp_times = timing_phase(body, args, card)
+            bp_times = timing_phase(body, inputs, card)
             bp_bound = bounds.backplane_bound(SIZE, SIZE, n_disc)
             log(f'[time] {card} | backplanes26 bound {bp_bound["ms"]:.4f} ms '
                 f'({bp_bound["bound_by"]}: {bp_bound["f64_ops"]} FP64 + '

@@ -9,41 +9,34 @@ out and the precision of each plane. Here:
 - :data:`LIBRARY` (:mod:`.cuda_build`) compiles the source with ``nvcc``
   into a shared library with a plain C interface under ``build/`` and loads
   it with ``ctypes``, at first use on a CUDA device, never at import.
-- :func:`pack_scene` reduces the scene (the ``xy2angular`` matrix, the disc
-  parameters, the radii and the anchors) to the kernel's 106 float64 values
-  with numpy on the host. The kernel receives them by value in its launch
+- :func:`pack_scenes` reduces the scenes of N frames (each frame's
+  ``xy2angular`` matrix and disc parameters, the radii and the anchors) to
+  the kernel's 106 float64 values a frame with numpy on the host. A scene
+  is a shared part, from the radii and the anchors, and a frame part; the
+  last packing is kept (:data:`_last_packed`), so that a call on a body's
+  cached anchors packs only its frame parts.
+- :func:`build_backplanes_kernel` returns an ``impl`` whose one call,
+  ``impl.frames(nx, ny, xy2angulars, discs, radii, anchors, *, device,
+  row0=0.0)``, packs the scenes and launches the kernel on the current
+  stream, counting each launch; a build or launch fault raises.
+  The single-frame kernel takes its scene by value in its launch
   parameters, so a launch copies no scene buffer and runs no preparatory
-  kernel. Given CUDA tensors, it first brings them to the host in one
-  small device-to-host copy (which waits for the device).
-- :func:`build_backplanes_kernel` returns ``impl(nx, ny, xy2angular, disc,
-  radii, anchors, row0=0.0) -> dict`` with the contract of the JAX
-  package's kernel. On CUDA tensors it packs the scene, launches the kernel
-  on the current stream and counts the launch; a build or launch fault
-  raises. Only CPU tensors take the plain version,
-  :func:`..pipeline.fused_backplanes_fn` (at ``precision='mixed'``, the
-  kernel's LON-CENTRIC range). ``impl.run(scene, nx, ny, device, row0)``
-  launches on a packed scene: the main path packs it from the body's host
-  anchors, so its call copies nothing from the device. RADIAL-VELOCITY is
-  stored by the kernel in float64 (the contract's type), the other planes
-  in float32.
-- Frames: :func:`pack_scenes` packs N scenes at once (a leading frame axis;
-  each frame word for word :func:`pack_scene`'s), :func:`with_frames` only
-  the affines and discs of N frames over one packed scene. ``impl.run_batch
-  (scenes, nx, ny, device, row0)`` computes N frames as (N, ny, nx) planes:
-  the launches of :func:`batch_plan` (one, unless a batch outgrows the
-  grid) of the batched kernel (:func:`batch_launch_count`) in 32x8 tiles
-  or linear blocks by the frame's width, or, for frames of
+  kernel. One frame is one launch of it; N frames are the launches of
+  :func:`batch_plan` of the batched kernel (:func:`batch_launch_count`) in
+  32x8 tiles or linear blocks by the frame's width, or, for frames of
   :data:`FRAME_LAUNCH_PIXELS` or more (:func:`frame_route`), one launch of
-  the single-frame kernel a frame from one C call. ``impl.batch(nx, ny,
-  xy2angulars, discs, radii, anchors)`` is the batch's contract on
-  tensors: the kernel on CUDA tensors, the plain graph frame by frame on CPU
-  tensors.
+  the single-frame kernel a frame from one C call. RADIAL-VELOCITY is
+  stored by the kernel in float64 (the contract's type), the other planes
+  in float32. Its plain version, with the same call, is
+  :func:`..pipeline.fused_backplanes_fn` (at ``precision='mixed'``, the
+  kernel's LON-CENTRIC range).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -52,6 +45,7 @@ import torch
 from .. import tracing
 from ..core.ephemeris import CLIGHT
 from ..pipeline import ANCHOR_SHAPES as _ANCHOR_SHAPES
+from ..pipeline import frame_inputs
 from .cuda_build import CudaLibrary, check_launch
 
 DEG = math.pi / 180.0
@@ -90,12 +84,19 @@ _SCENE_LAYOUT = (
     ('ring_plane_normal', 3), ('ring_plane_constant', 1),
 )
 SCENE_SIZE = sum(n for _, n in _SCENE_LAYOUT)
+#: Each value's (first word, words) in a scene.
+_SLOTS = {name: (sum(n for _, n in _SCENE_LAYOUT[:i]), size)
+          for i, (name, size) in enumerate(_SCENE_LAYOUT)}
 
 _F_POSITIVE_WEST = 1
 _F_PROGRADE = 2
 _F_HAVE_SUN = 4
 _F_OPTIMIZE_SPEED = 8
 _F_LST_QUANT = 16
+
+#: Light-time updates before the final intercept.
+LT_ITERS = 2
+
 
 def _configure(lib) -> None:
     lib.backplanes26_scene_size.restype = ctypes.c_int
@@ -158,7 +159,7 @@ ptxas_log = LIBRARY.ptxas_log
 BATCH_COUNTER = f'{LIBRARY.counter}_batch'
 
 #: Frames of this many pixels or more take one launch of the single-frame
-#: kernel each in a batch (``run_batch``): its scene is constant-bank
+#: kernel each in a batch (``impl.frames``): its scene is constant-bank
 #: operands, while the batched kernel's scene reads cost it 1.04x per frame
 #: at 768x768 and 1.13x at 2048x2048; it saves 0.4% at 640x640, 9% at
 #: 512x512 and 36% at 256x256, where launches dominate
@@ -268,24 +269,6 @@ def occupancy(batch: str | None = None) -> dict[str, int]:
                     (v.value for v in values)))
 
 
-def _host_values(xy2angular, disc, radii, anchors) -> dict[str, np.ndarray]:
-    """The inputs as float64 numpy arrays (CUDA tensors: one copy)."""
-    named = dict(anchors, xy2angular=xy2angular, disc=disc, radii=radii)
-    tensors = [k for k, v in named.items() if isinstance(v, torch.Tensor)]
-    out = {k: np.asarray(v, dtype=np.float64) for k, v in named.items()
-           if k not in tensors}
-    if tensors:
-        flat = torch.cat([
-            named[k].detach().reshape(-1).to(torch.float64) for k in tensors
-        ]).cpu().numpy()
-        start = 0
-        for k in tensors:
-            n = named[k].numel()
-            out[k] = flat[start:start + n].reshape(tuple(named[k].shape))
-            start += n
-    return out
-
-
 def _frame_parts(a, disc, radii, angular2km, target_lt) -> dict:
     """
     The frame-dependent scene values from ``xy2angular`` matrices ``a``
@@ -353,29 +336,26 @@ def _scene_parts(radii, v) -> dict:
 
 
 def _fill(scenes: np.ndarray, parts: dict) -> None:
-    """Write ``parts`` (each (N, ...)) into their slots of ``scenes``."""
+    """Write ``parts`` (each one value, or N along a leading axis) into
+    their slots of ``scenes``."""
     n = scenes.shape[0]
-    start = 0
-    for name, size in _SCENE_LAYOUT:
-        if name in parts:
-            value = np.asarray(parts[name], dtype=np.float64).reshape(n, -1)
-            if value.shape[1] != size:
-                raise ValueError(f'scene value {name!r} has '
-                                 f'{value.shape[1]} elements, expected '
-                                 f'{size}')
-            scenes[:, start:start + size] = value
-        start += size
+    for name, value in parts.items():
+        start, size = _SLOTS[name]
+        value = np.asarray(value, dtype=np.float64)
+        if value.size not in (size, n * size):
+            raise ValueError(f'scene value {name!r} has {value.size} '
+                             f'elements, expected {size} a frame')
+        scenes[:, start:start + size] = value.reshape(-1, size)
 
 
-def _frames(n: int, values: dict) -> dict:
-    """Each anchor (or radii) value broadcast to a leading axis of ``n``."""
+def _values(n: int, values: dict) -> dict:
+    """Each anchor (or radii) value as float64, shared (its own shape) or
+    per frame (a leading axis of ``n``)."""
     shapes = dict(_ANCHOR_SHAPES, radii=(3,))
     out = {}
     for key, shape in shapes.items():
         value = np.asarray(values[key], dtype=np.float64)
-        if value.shape == shape:
-            value = np.broadcast_to(value, (n,) + shape)
-        if value.shape != (n,) + shape:
+        if value.shape not in (shape, (n,) + shape):
             raise ValueError(f'{key} has shape {value.shape}, expected '
                              f'{shape} or {(n,) + shape}')
         out[key] = value
@@ -384,111 +364,76 @@ def _frames(n: int, values: dict) -> dict:
     return out
 
 
-def _frame_inputs(xy2angulars, discs) -> tuple[np.ndarray, np.ndarray]:
-    """The (N, 3, 3) affines and (N, 4) discs of N >= 1 frames, float64."""
-    a = np.asarray(xy2angulars, dtype=np.float64)
-    disc = np.asarray(discs, dtype=np.float64)
-    if (a.ndim != 3 or a.shape[1:] != (3, 3) or disc.shape != (len(a), 4)
-            or not len(a)):
-        raise ValueError(f'xy2angulars must be (N, 3, 3) and discs (N, 4) '
-                         f'with N >= 1, got {a.shape} and {disc.shape}')
-    return a, disc
-
-
-def pack_scenes(xy2angulars, discs, radii, anchors) -> np.ndarray:
+def pack_scenes(xy2angulars, discs, radii, anchors,
+                shared=None) -> np.ndarray:
     """
-    The kernel's float64 scenes of N frames, (N, :data:`SCENE_SIZE`), in the
-    order of ``_SCENE_LAYOUT``, computed with numpy on the host:
+    The kernel's float64 scenes of N >= 1 frames, (N, :data:`SCENE_SIZE`),
+    in the order of ``_SCENE_LAYOUT``, computed with numpy on the host:
     ``xy2angulars`` (N, 3, 3) and ``discs`` (N, 4) per frame; ``radii``
     (3,) and each anchor either shared (its own shape) or per frame (a
-    leading axis of N). Frame i equals ``pack_scene`` of frame i's values
-    word for word: each step is elementwise over the frame axis.
+    leading axis of N).
+
+    A scene is a shared part, from the radii and the anchors, and a frame
+    part, from the frame's affine and disc. ``shared``, a scene packed
+    earlier from these radii and shared anchors (any one row of this
+    function's result), stands for the shared part: it is repeated and
+    only the frame parts are written in, word for word what packing both
+    parts gives (each step is elementwise over the frame axis).
     """
-    a, disc = _frame_inputs(xy2angulars, discs)
+    a, disc = frame_inputs(xy2angulars, discs)
     n = len(a)
-    v = _frames(n, dict(anchors, radii=radii))
-    scenes = np.empty((n, SCENE_SIZE), dtype=np.float64)
-    _fill(scenes, _scene_parts(v['radii'], v))
-    _fill(scenes, _frame_parts(a, disc, v['radii'], v['angular2km'],
-                               v['target_lt']))
+    if shared is None:
+        v = _values(n, dict(anchors, radii=radii))
+        scenes = np.empty((n, SCENE_SIZE), dtype=np.float64)
+        parts = _scene_parts(v['radii'], v)
+    else:
+        scenes = np.repeat(
+            np.asarray(shared, dtype=np.float64).reshape(1, SCENE_SIZE), n,
+            axis=0)
+        v = dict(radii=np.asarray(radii, dtype=np.float64),
+                 angular2km=np.asarray(anchors['angular2km'],
+                                       dtype=np.float64),
+                 target_lt=np.asarray(anchors['target_lt'],
+                                      dtype=np.float64))
+        parts = {}
+    parts.update(_frame_parts(a, disc, v['radii'], v['angular2km'],
+                              v['target_lt']))
+    _fill(scenes, parts)
     return scenes
 
 
-def with_frames(base: np.ndarray, xy2angulars, discs, radii,
-                anchors) -> np.ndarray:
-    """
-    The scenes of N frames that share one scene's anchors: ``base`` (a
-    packed scene of these ``radii`` and shared ``anchors``) repeated, with
-    each frame's ray, km and angular affines and disc written in. Equals
-    :func:`pack_scenes` of the same values word for word, without packing
-    the anchors again.
-    """
-    a, disc = _frame_inputs(xy2angulars, discs)
-    n = len(a)
-    scenes = np.repeat(np.asarray(base, dtype=np.float64)[None], n, axis=0)
-    radii = np.broadcast_to(np.asarray(radii, dtype=np.float64), (n, 3))
-    angular2km = np.broadcast_to(
-        np.asarray(anchors['angular2km'], dtype=np.float64), (n, 2, 2))
-    target_lt = np.broadcast_to(
-        np.asarray(anchors['target_lt'], dtype=np.float64), (n,))
-    _fill(scenes, _frame_parts(a, disc, radii, angular2km, target_lt))
+#: The last packing over anchors that every frame shares: ``(anchors,
+#: radii, frame, scene)``, the radii as bytes, ``frame`` the bytes of a lone
+#: frame's affine and disc (None for a batch) and ``scene`` its first
+#: scene, (1, :data:`SCENE_SIZE`). A body's anchors are one cached dict, so
+#: a call on the same dict and radii packs only its frame parts, and a lone
+#: frame packed last time (the blocks of a sharded call) packs nothing. This
+#: holds because no anchors dict is edited in place: new anchors are a new
+#: dict.
+_last_packed = None
+
+
+def _scenes(xy2angulars, discs, radii, anchors) -> np.ndarray:
+    """:func:`pack_scenes`, over the last call's shared part or scene
+    where they serve (:data:`_last_packed`)."""
+    global _last_packed
+    a, disc = frame_inputs(xy2angulars, discs)
+    radii = np.asarray(radii, dtype=np.float64)
+    key = radii.tobytes()
+    frame = a.tobytes() + disc.tobytes() if len(a) == 1 else None
+    last = _last_packed
+    if last is not None and last[0] is anchors and last[1] == key:
+        if frame is not None and last[2] == frame:
+            return last[3]
+        scenes = pack_scenes(a, disc, radii, anchors, shared=last[3][0])
+    else:
+        scenes = pack_scenes(a, disc, radii, anchors)
+        if any(np.shape(anchors[k]) != shape
+               for k, shape in _ANCHOR_SHAPES.items()):
+            return scenes  # per-frame anchors are not kept
+    _last_packed = (anchors, key, frame,
+                    scenes if frame is not None else scenes[:1].copy())
     return scenes
-
-
-def pack_scene(xy2angular, disc, radii, anchors) -> np.ndarray:
-    """
-    The kernel's float64 scene of one frame in the order of
-    ``_SCENE_LAYOUT``, computed with numpy on the host from numpy arrays or
-    tensors (CUDA tensors are brought to the host in one copy first). The
-    same arithmetic as :func:`pack_scenes`, step for step, without its
-    frame axis (the main path's call packs one scene and pays for every
-    microsecond here).
-    """
-    v = _host_values(xy2angular, disc, radii, anchors)
-    if not abs(float(v['solar_lon_e'])) <= math.pi:
-        raise ValueError('solar_lon_e must lie in [-pi, pi]')
-    a, radii, a2k = v['xy2angular'], v['radii'], v['angular2km']
-    re = radii[0]
-    # _frame_parts of one frame, written for one (no frame axis to
-    # broadcast over), step for step
-    km = a2k[:, 0, None] * a[0] + a2k[:, 1, None] * a[1]
-    km_per_arcsec = 2.0 * re / (
-        2.0 * 60.0 * 60.0 / DEG * np.arcsin(re / (v['target_lt'] * CLIGHT))
-    )
-    disc = v['disc']
-    r_cut = disc[2] * np.max(radii) / re * 1.05 + 1.0
-    parts = _scene_parts(radii, v)
-    parts.update(
-        ray=np.concatenate([-a[0], a[1]]) * (DEG / 3600.0 / math.pi),
-        km=km,
-        angular=km / km_per_arcsec,
-        disc=np.array([disc[0], disc[1], r_cut * r_cut]),
-    )
-    flat = []
-    for name, size in _SCENE_LAYOUT:
-        value = np.asarray(parts[name], dtype=np.float64).reshape(-1)
-        if value.size != size:
-            raise ValueError(f'scene value {name!r} has {value.size} '
-                             f'elements, expected {size}')
-        flat.append(value)
-    return np.concatenate(flat)
-
-
-def _check_inputs(xy2angular, disc, radii, anchors) -> torch.device:
-    device = radii.device
-    named = dict(xy2angular=xy2angular, disc=disc, radii=radii)
-    named.update({f'anchors[{k!r}]': v for k, v in anchors.items()})
-    shapes = dict(xy2angular=(3, 3), disc=(4,), radii=(3,))
-    for name, t in named.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f'{name} must be a torch.Tensor')
-        if t.device != device:
-            raise ValueError(f'{name} is on {t.device}, radii on {device}')
-        if t.dtype != torch.float64:
-            raise TypeError(f'{name} must be float64, got {t.dtype}')
-        if name in shapes and tuple(t.shape) != shapes[name]:
-            raise ValueError(f'{name} must have shape {shapes[name]}')
-    return device
 
 
 def build_backplanes_kernel(
@@ -498,16 +443,15 @@ def build_backplanes_kernel(
     have_sun: bool,
     optimize_speed: bool,
     lst_quant: bool,
-    n_lt_iters: int = 2,
     planes: tuple[str, ...] | None = None,
     geodetic_iters: int = 0,
 ):
     """
-    Build ``impl(nx, ny, xy2angular, disc, radii, anchors, row0=0.0) ->
-    dict`` computing the 26 planes (or the ``planes`` subset) in one kernel
-    launch on CUDA tensors. ``n_lt_iters`` light-time updates precede the
-    final intercept; ``geodetic_iters`` is the Bowring refinement count of
-    the graphic latitudes (0 biaxial, 4 triaxial).
+    Build the kernel's ``impl``, whose ``impl.frames`` computes the 26
+    planes (or the ``planes`` subset) of N frames on a CUDA device.
+    :data:`LT_ITERS` light-time updates precede the final intercept;
+    ``geodetic_iters`` is the Bowring refinement count of the graphic
+    latitudes (0 biaxial, 4 triaxial).
     """
     if planes is not None and set(planes) - set(PLANE_ORDER):
         raise ValueError(
@@ -533,61 +477,34 @@ def build_backplanes_kernel(
     slots = (ctypes.c_int * len(PLANE_ORDER))(
         *[slot_of.get(name, -1) for name in PLANE_ORDER]
     )
+    consts = (slots, LT_ITERS, int(geodetic_iters), flags)
 
-    def run(scene, nx, ny, device, row0=0.0):
+    def frames(nx, ny, xy2angulars, discs, radii, anchors, *, device,
+               row0=0.0, frame_launches=None):
         """
-        The requested planes of a scene packed by :func:`pack_scene` (host
-        float64), computed by one launch on the CUDA ``device``.
-        """
-        if (not isinstance(scene, np.ndarray) or scene.dtype != np.float64
-                or scene.shape != (SCENE_SIZE,)
-                or not scene.flags.c_contiguous):
-            raise ValueError(
-                f'scene must be a contiguous float64 numpy array of '
-                f'{SCENE_SIZE} values (pack_scene)'
-            )
-        device = torch.device(device)
-        if device.type != 'cuda':
-            raise ValueError(f'no backplane kernel for device {device}')
-        if nx <= 0 or ny <= 0:
-            raise ValueError(f'image size must be positive, got {nx}x{ny}')
-        with tracing.span('pm.kernel1.launch'):
-            stacked = torch.empty((len(stacked_names), ny, nx),
-                                  dtype=torch.float32, device=device)
-            rv = None
-            if 'RADIAL-VELOCITY' in requested:
-                rv = torch.empty((ny, nx), dtype=torch.float64, device=device)
-            lib = load_library()
-            with torch.cuda.device(device):
-                stream = torch.cuda.current_stream(device).cuda_stream
-                rc = lib.backplanes26_launch(
-                    scene.ctypes.data, stacked.data_ptr(),
-                    None if rv is None else rv.data_ptr(), int(nx), int(ny),
-                    float(row0), slots, int(n_lt_iters), int(geodetic_iters),
-                    flags, stream,
-                )
-            check_launch(rc, 'backplane')
-            LIBRARY.count_launches()
-        planes = dict(zip(stacked_names, stacked))
-        planes['RADIAL-VELOCITY'] = rv
-        return {name: planes[name] for name in requested}
+        The requested planes of N >= 1 frames, each (N, ny, nx), on the
+        CUDA ``device``, from host float64 values as :func:`pack_scenes`
+        takes them. Each plane is a contiguous view of one (NP, N, ny, nx)
+        float32 allocation; RADIAL-VELOCITY has its own (N, ny, nx) float64
+        one.
 
-    def run_batch(scenes, nx, ny, device, row0=0.0, frame_launches=None):
+        One frame is one launch of the single-frame kernel (counted by
+        :func:`launch_count`). Frames of :data:`FRAME_LAUNCH_PIXELS` or
+        more are N launches of it from one C call, each with its scene by
+        value, because there the batched kernel's scene reads cost more
+        than a launch; smaller ones take the launches of :func:`batch_plan`
+        of the batched kernel (each counted by :func:`batch_launch_count`).
+        ``frame_launches`` forces one route (for tests and timing).
         """
-        The requested planes of N frames, each (N, ny, nx), from their
-        scenes packed by :func:`pack_scenes` ((N, SCENE_SIZE) float64, host
-        numpy or a tensor on ``device``), on the CUDA ``device``. Each plane
-        is a contiguous view of one (NP, N, ny, nx) float32 allocation;
-        RADIAL-VELOCITY has its own (N, ny, nx) float64 one.
+        with tracing.span('pm.scene.pack'):
+            scenes = _scenes(xy2angulars, discs, radii, anchors)
+        return launch(scenes, nx, ny, device=device, row0=row0,
+                      frame_launches=frame_launches)
 
-        Frames of fewer than :data:`FRAME_LAUNCH_PIXELS` pixels take the
-        launches of :func:`batch_plan` of the batched kernel (each counted
-        by :func:`batch_launch_count`); larger frames are N launches of the
-        single-frame kernel from one C call, each with its scene by value
-        (counted by :func:`launch_count`), because there the batched
-        kernel's scene reads cost more than a launch. ``frame_launches``
-        forces one route (for tests and timing).
-        """
+    def launch(scenes, nx, ny, *, device, row0=0.0, frame_launches=None):
+        """:func:`frames`' launches on scenes that :func:`pack_scenes`
+        packed: host numpy, or for the batched kernel's linear blocks a
+        tensor on ``device`` too (to time the kernel alone)."""
         device = torch.device(device)
         if device.type != 'cuda':
             raise ValueError(f'no backplane kernel for device {device}')
@@ -595,118 +512,53 @@ def build_backplanes_kernel(
             device = torch.device('cuda', torch.cuda.current_device())
         if nx <= 0 or ny <= 0:
             raise ValueError(f'image size must be positive, got {nx}x{ny}')
+        nx, ny, row0 = int(nx), int(ny), float(row0)
+        n = len(scenes)
         if frame_launches is None:
-            frame_launches = frame_route(nx, ny)
-        if scenes.ndim != 2 or scenes.shape[0] < 1:
-            raise ValueError(
-                f'scenes must be a contiguous float64 (N, {SCENE_SIZE}) '
-                f'array with N >= 1 (pack_scenes), got {tuple(scenes.shape)}'
-            )
-        plan = None if frame_launches else batch_plan(
-            int(scenes.shape[0]), int(nx), int(ny))
-        if frame_launches or plan.tiles:
-            # the launches take their scenes by value, from the host
-            if isinstance(scenes, torch.Tensor):
-                scenes = scenes.cpu().numpy()
-            scenes = np.ascontiguousarray(scenes, dtype=np.float64)
-        elif isinstance(scenes, np.ndarray):
-            scenes = torch.from_numpy(
-                np.ascontiguousarray(scenes, dtype=np.float64)
-            ).to(device, non_blocking=True)
-        if (scenes.dtype not in (np.float64, torch.float64)
-                or scenes.shape[1] != SCENE_SIZE
-                or (isinstance(scenes, torch.Tensor) and (
-                    scenes.device != device or not scenes.is_contiguous()))):
-            raise ValueError(
-                f'scenes must be a contiguous float64 (N, {SCENE_SIZE}) '
-                f'array with N >= 1 (pack_scenes), got {tuple(scenes.shape)}'
-            )
-        n = int(scenes.shape[0])
-        stacked = torch.empty((len(stacked_names), n, ny, nx),
-                              dtype=torch.float32, device=device)
-        rv = None
-        if 'RADIAL-VELOCITY' in requested:
-            rv = torch.empty((n, ny, nx), dtype=torch.float64, device=device)
-        lib = load_library()
-        rv_ptr = None if rv is None else rv.data_ptr()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            if frame_launches:
-                rc = lib.backplanes26_launch_frames(
-                    scenes.ctypes.data, stacked.data_ptr(), rv_ptr, int(nx),
-                    int(ny), n, float(row0), slots, int(n_lt_iters),
-                    int(geodetic_iters), flags, stream,
-                )
-                check_launch(rc, 'batched backplane')
-                LIBRARY.count_launches(n)
-            else:
-                for first, count in plan.launches:
-                    if plan.tiles:
-                        rc = lib.backplanes26_launch_batch_tiles(
-                            scenes.ctypes.data, stacked.data_ptr(), rv_ptr,
-                            int(nx), int(ny), n, first, count, float(row0),
-                            slots, int(n_lt_iters), int(geodetic_iters),
-                            flags, stream,
-                        )
-                    else:
-                        rc = lib.backplanes26_launch_batch(
-                            scenes.data_ptr(), stacked.data_ptr(), rv_ptr,
-                            int(nx), int(ny), n, first, count, plan.threads,
-                            float(row0), slots, int(n_lt_iters),
-                            int(geodetic_iters), flags, stream,
-                        )
+            frame_launches = n == 1 or frame_route(nx, ny)
+        plan = None if frame_launches else batch_plan(n, nx, ny)
+        with tracing.span('pm.kernel1.launch'):
+            stacked = torch.empty((len(stacked_names), n, ny, nx),
+                                  dtype=torch.float32, device=device)
+            rv = None
+            if 'RADIAL-VELOCITY' in requested:
+                rv = torch.empty((n, ny, nx), dtype=torch.float64,
+                                 device=device)
+            outs = (stacked.data_ptr(), None if rv is None else rv.data_ptr())
+            lib = load_library()
+            with torch.cuda.device(device):
+                stream = torch.cuda.current_stream(device).cuda_stream
+                if frame_launches and n == 1:
+                    rc = lib.backplanes26_launch(scenes.ctypes.data, *outs,
+                                                 nx, ny, row0, *consts,
+                                                 stream)
+                    check_launch(rc, 'backplane')
+                    LIBRARY.count_launches()
+                elif frame_launches:
+                    rc = lib.backplanes26_launch_frames(
+                        scenes.ctypes.data, *outs, nx, ny, n, row0, *consts,
+                        stream)
                     check_launch(rc, 'batched backplane')
-                    tracing.count(BATCH_COUNTER)
+                    LIBRARY.count_launches(n)
+                else:
+                    if not plan.tiles:
+                        # linear blocks read their scenes from the card
+                        on_card = scenes if isinstance(
+                            scenes, torch.Tensor) else torch.from_numpy(
+                                scenes).to(device, non_blocking=True)
+                    for first, count in plan.launches:
+                        if plan.tiles:
+                            rc = lib.backplanes26_launch_batch_tiles(
+                                scenes.ctypes.data, *outs, nx, ny, n, first,
+                                count, row0, *consts, stream)
+                        else:
+                            rc = lib.backplanes26_launch_batch(
+                                on_card.data_ptr(), *outs, nx, ny, n, first,
+                                count, plan.threads, row0, *consts, stream)
+                        check_launch(rc, 'batched backplane')
+                        tracing.count(BATCH_COUNTER)
         planes = dict(zip(stacked_names, stacked))
         planes['RADIAL-VELOCITY'] = rv
         return {name: planes[name] for name in requested}
 
-    def plain_fn():
-        from ..pipeline import fused_backplanes_fn
-
-        return fused_backplanes_fn(
-            positive_west=positive_west, prograde=prograde,
-            have_sun=have_sun, optimize_speed=optimize_speed,
-            precision='mixed', robust_geodetic=geodetic_iters > 0,
-        )
-
-    def impl(nx, ny, xy2angular, disc, radii, anchors, row0=0.0):
-        device = _check_inputs(xy2angular, disc, radii, anchors)
-        if device.type == 'cpu':
-            out = plain_fn()(nx, ny, xy2angular, disc, radii, anchors,
-                             row0=row0)
-            return {name: out[name] for name in requested}
-        if device.type != 'cuda':
-            raise ValueError(f'no backplane kernel for device {device}')
-        return run(pack_scene(xy2angular, disc, radii, anchors), nx, ny,
-                   device, row0)
-
-    def batch(nx, ny, xy2angulars, discs, radii, anchors, row0=0.0):
-        """
-        The requested planes of N frames, each (N, ny, nx): ``xy2angulars``
-        (N, 3, 3) and ``discs`` (N, 4) per frame, ``radii`` (3,), each
-        anchor shared or per frame (a leading axis of N); float64 tensors
-        on one device. CUDA tensors: one launch of the batched kernel on
-        scenes packed on the host (one copy from the card first). CPU
-        tensors: the plain graph, frame by frame.
-        """
-        device = radii.device
-        if device.type == 'cpu':
-            plain = plain_fn()
-            frames = []
-            for i in range(xy2angulars.shape[0]):
-                frame = {k: v[i] if v.ndim > len(_ANCHOR_SHAPES[k]) else v
-                         for k, v in anchors.items()}
-                frames.append(plain(nx, ny, xy2angulars[i], discs[i], radii,
-                                    frame, row0=row0))
-            return {name: torch.stack([f[name] for f in frames])
-                    for name in requested}
-        v = _host_values(xy2angulars, discs, radii, anchors)
-        scenes = pack_scenes(v['xy2angular'], v['disc'], v['radii'],
-                             {k: v[k] for k in _ANCHOR_SHAPES})
-        return run_batch(scenes, nx, ny, device, row0)
-
-    impl.run = run
-    impl.run_batch = run_batch
-    impl.batch = batch
-    return impl
+    return SimpleNamespace(frames=frames, _launch=launch)

@@ -27,8 +27,6 @@ from typing import Any
 import numpy as np
 import torch
 
-from .._device import f64
-
 
 class Mesh:
     """
@@ -237,6 +235,12 @@ def sharded_backplanes(body, mesh: Mesh | None = None, *, use_pallas=None,
         body, nx, ny_blk, use_pallas=use_pallas, interpret=interpret
     )
     xy2angular, disc, radii, anchors = pipeline.pipeline_inputs(body)
+
+    def block(dev, row0=0.0):
+        out = impl.frames(nx, ny_blk, xy2angular[None], disc[None], radii,
+                          anchors, device=dev, row0=row0)
+        return {k: v[0] for k, v in out.items()}
+
     if trace_only:
         if use_pallas:
             from ..ops.backplanes_kernel import PLANE_ORDER
@@ -244,29 +248,10 @@ def sharded_backplanes(body, mesh: Mesh | None = None, *, use_pallas=None,
             dtypes = {name: torch.float64 if name == 'RADIAL-VELOCITY'
                       else torch.float32 for name in PLANE_ORDER}
         else:
-            meta = torch.device('meta')
-            out = impl(nx, ny_blk, f64(xy2angular, meta), f64(disc, meta),
-                       f64(radii, meta),
-                       pipeline.anchors_from_numpy(anchors, meta))
-            dtypes = {k: v.dtype for k, v in out.items()}
+            dtypes = {k: v.dtype for k, v in block('meta').items()}
         return {k: torch.empty((ny_padded, nx), dtype=dtype, device='meta')
                 for k, dtype in dtypes.items()}
-    scene = None
-    if use_pallas:
-        from ..ops.backplanes_kernel import pack_scene
-
-        scene = pack_scene(xy2angular, disc, radii, anchors)
-    blocks = []
-    for i, dev in enumerate(entries):
-        row0 = float(i * ny_blk)
-        if use_pallas:
-            blocks.append(impl.run(scene, nx, ny_blk, dev, row0))
-        else:
-            blocks.append(impl(
-                nx, ny_blk, f64(xy2angular, dev), f64(disc, dev),
-                f64(radii, dev), pipeline.anchors_from_numpy(anchors, dev),
-                row0=row0,
-            ))
+    blocks = [block(dev, float(i * ny_blk)) for i, dev in enumerate(entries)]
     out = _gather(blocks, entries[0])
     if ny_padded != ny:
         out = {k: v[:ny] for k, v in out.items()}

@@ -84,41 +84,22 @@ def backplane_time_series(
         ets = np.concatenate([ets, np.full(n_padded - n_times, ets[-1])])
         rank = dist.get_rank()
     anchors, xy2angular = _batched_pipeline_inputs(body, ets)
-    impl, use_pallas = pipeline.select_pipeline_impl(
+    impl, _ = pipeline.select_pipeline_impl(
         body, nx, ny, planes=pipeline._canonical_planes(wanted)
     )
     disc = np.asarray(body.get_disc_params(), dtype=np.float64)
     radii = np.asarray(body.radii, dtype=np.float64)
     discs = np.broadcast_to(disc, (n_padded, 4))
 
-    scenes = None
-    if use_pallas:
-        from ..ops.backplanes_kernel import pack_scenes
-
-        scenes = pack_scenes(xy2angular, discs, radii, anchors)
-
     def run(device, frames: slice, row0: int, rows: int) -> dict:
-        if use_pallas:
-            return impl.run_batch(scenes[frames], nx, rows, device,
-                                  float(row0))
-        out = []
-        for i in range(frames.start, frames.stop):
-            frame = impl(
-                nx, rows, f64(xy2angular[i], device), f64(disc, device),
-                f64(radii, device),
-                pipeline.anchors_from_numpy(
-                    {k: v[i] for k, v in anchors.items()}, device),
-                row0=float(row0),
-            )
-            out.append(frame if wanted is None
-                       else {k: frame[k] for k in wanted})
-        return {k: torch.stack([f[k] for f in out]) for k in out[0]}
+        out = impl.frames(nx, rows, xy2angular[frames], discs[frames], radii,
+                          {k: v[frames] for k, v in anchors.items()},
+                          device=device, row0=float(row0))
+        return out if wanted is None else {k: out[k] for k in wanted}
 
     out = placement.compute(run, n_padded, ny, rank)
     if n_padded != n_times:
         out = {k: v[:n_times] for k, v in out.items()}
-    if wanted is not None:
-        out = {k: out[k] for k in wanted}
     if as_numpy:
         return {k: v.cpu().numpy() for k, v in out.items()}
     return out

@@ -21,9 +21,13 @@ pixel grid (port of ``planetmapper_tpu.pipeline``).
     it reports LON-CENTRIC in [0, 360) like the kernel, so CPU and CUDA
     bodies agree without a wrap.
 
-:func:`compute_backplanes_batch` computes N disc sets over one body's
-anchors with the kernel's frame axis (``impl.run_batch``); the time series
-of :mod:`.parallel.timeseries` batch the anchors themselves over epochs
+:func:`select_pipeline_impl` picks one; every caller then makes one call,
+``impl.frames(nx, ny, xy2angulars, discs, radii, anchors, *, device,
+row0=0.0)``, on host float64 values of N >= 1 frames
+(:func:`pipeline_inputs` reads them from a body), which returns (N, ny, nx)
+planes: the single call takes one frame, :func:`compute_backplanes_batch`
+N disc sets over one body's anchors, and the time series of
+:mod:`.parallel.timeseries` batch the anchors themselves over epochs
 (:func:`_anchor_core` is elementwise over any leading time axis).
 
 The JAX package's progressive cold start, AOT prewarm, session warm thread
@@ -69,6 +73,17 @@ ANCHOR_SHAPES: dict[str, tuple[int, ...]] = dict(
     solar_lon_e=(),
     obsvec2angular=(3, 3), angular2km=(2, 2),
 )
+
+
+def frame_inputs(xy2angulars, discs) -> tuple[np.ndarray, np.ndarray]:
+    """The (N, 3, 3) affines and (N, 4) discs of N >= 1 frames, float64."""
+    a = np.array(xy2angulars, dtype=np.float64)
+    disc = np.array(discs, dtype=np.float64)
+    if (a.ndim != 3 or a.shape[1:] != (3, 3) or disc.shape != (len(a), 4)
+            or not len(a)):
+        raise ValueError(f'xy2angulars must be (N, 3, 3) and discs (N, 4) '
+                         f'with N >= 1, got {a.shape} and {disc.shape}')
+    return a, disc
 
 
 def _time_derivative(fn):
@@ -253,6 +268,10 @@ def fused_backplanes_fn(
     ``robust_geodetic``: triaxial bodies (middle axis != re) put intercept
     points inside the biaxial (re, rp) spheroid, where the on-surface
     conversion diverges; they take the exact nearest-point solve.
+
+    ``impl.frames`` is the kernel's call (:mod:`.ops.backplanes_kernel`)
+    on the graph: host float64 values of N frames, each anchor shared or
+    per frame, the graph run frame by frame on ``device``.
     """
     if precision not in ('double', 'mixed'):
         raise ValueError(
@@ -485,6 +504,24 @@ def fused_backplanes_fn(
         out['RING-DISTANCE'] = torch.where(ring_invalid, nan, ring_distance)
         return out
 
+    def frames(nx, ny, xy2angulars, discs, radii, anchors, *, device,
+               row0=0.0):
+        """The planes of N frames, each (N, ny, nx), on ``device``."""
+        a, disc = frame_inputs(xy2angulars, discs)
+        per_frame = {k for k, shape in ANCHOR_SHAPES.items()
+                     if np.ndim(anchors[k]) > len(shape)}
+        common = None if per_frame else anchors_from_numpy(anchors, device)
+        radii = f64(radii, device)
+        out = [impl(nx, ny, f64(a[i], device), f64(disc[i], device), radii,
+                    common or anchors_from_numpy(
+                        {k: v[i] if k in per_frame else v
+                         for k, v in anchors.items()}, device),
+                    row0=row0)
+               for i in range(len(a))]
+        return {k: torch.stack([f[k] for f in out]) if len(out) > 1
+                else out[0][k][None] for k in out[0]}
+
+    impl.frames = frames
     return impl
 
 
@@ -536,20 +573,16 @@ def _kernel_geodetic_iters(body) -> int | None:
     return None
 
 
-def _lt_iters() -> int:
-    return int(os.environ.get('PLANETMAPPER_TPU_LT_ITERS', '2'))
-
-
 def select_pipeline_impl(body, nx: int, ny: int,
                          use_pallas: bool | None = None,
                          planes: tuple[str, ...] | None = None,
                          interpret: bool = False):
     """
     Build the per-pixel pipeline impl for a body: ``(impl, use_pallas)``
-    where ``impl(nx, ny, xy2angular, disc, radii, anchors, row0=...)``
-    computes the planes for rows ``[row0, row0 + ny)`` and ``use_pallas``
-    says whether it launches the CUDA kernel. The keywords are the JAX
-    package's, read for the card:
+    where ``impl.frames(nx, ny, xy2angulars, discs, radii, anchors, *,
+    device, row0=0.0)`` computes the planes of N frames for
+    rows ``[row0, row0 + ny)`` and ``use_pallas`` says whether it launches
+    the CUDA kernel. The keywords are the JAX package's, read for the card:
 
     - ``use_pallas=None`` (default): the CUDA kernel on a CUDA device when
       the precision is ``'mixed'`` and the kernel's geodetic solve holds for
@@ -602,7 +635,6 @@ def select_pipeline_impl(body, nx: int, ny: int,
             have_sun=body._engine._pos_s is not None,
             optimize_speed=bool(body._optimize_speed),
             lst_quant=_lst_quantization(),
-            n_lt_iters=_lt_iters(),
             planes=planes,
             geodetic_iters=geodetic_iters,
         )
@@ -641,34 +673,20 @@ def get_fused_pipeline(body, nx: int, ny: int,
                        planes: tuple[str, ...] | None = None) -> Callable:
     """
     The pipeline for a body's configuration and image size on the body's
-    device: ``fn(xy2angular, disc, radii, anchors) -> dict`` of tensors on
-    that device, with ``fn.precompile()`` (builds and loads the CUDA
-    library when the kernel serves; no-op otherwise) and
-    ``fn.wait_steady(timeout=None)`` (the same: once the library is loaded
-    the kernel serves every call).
-
-    The inputs are the host values of :func:`pipeline_inputs`. The kernel
-    packs its scene from them on the host
-    (:func:`.ops.backplanes_kernel.pack_scene`); the plain graph takes them
-    to the body's device.
+    device: ``fn(xy2angular, disc, radii, anchors) -> dict`` of (ny, nx)
+    tensors on that device, from the host values of
+    :func:`pipeline_inputs` (one frame of ``impl.frames``), with
+    ``fn.precompile()`` (builds and loads the CUDA library when the kernel
+    serves; no-op otherwise) and ``fn.wait_steady(timeout=None)`` (the
+    same: once the library is loaded the kernel serves every call).
     """
     planes = _canonical_planes(planes)
     impl, use_pallas = select_pipeline_impl(body, nx, ny, planes=planes)
-    dev = body.device
 
     def fn(xy2angular, disc, radii, anchors):
-        if use_pallas:
-            from .ops.backplanes_kernel import pack_scene
-
-            with tracing.span('pm.scene.pack'):
-                scene = pack_scene(xy2angular, disc, radii, anchors)
-            out = impl.run(scene, nx, ny, dev)
-        else:
-            out = impl(nx, ny, f64(xy2angular, dev), f64(disc, dev),
-                       f64(radii, dev), anchors_from_numpy(anchors, dev))
-        if planes is not None:
-            out = {k: out[k] for k in planes}
-        return out
+        out = impl.frames(nx, ny, xy2angular[None], disc[None], radii,
+                          anchors, device=body.device)
+        return {k: out[k][0] for k in planes or out}
 
     def precompile():
         if use_pallas:
@@ -700,9 +718,9 @@ def wait_for_steady_state(
 
 def pipeline_inputs(body):
     """
-    ``(xy2angular, disc, radii, anchors)`` of a body for
-    ``get_fused_pipeline``'s ``fn``: float64 numpy values on the host (the
-    anchors a dict of them, cached per body).
+    ``(xy2angular, disc, radii, anchors)`` of a body, the host float64
+    values that ``impl.frames`` takes (the affine and disc of one frame;
+    the anchors a dict of them, cached per body).
     """
     return (
         np.asarray(body._get_xy2angular_matrix(), dtype=np.float64),
@@ -864,7 +882,7 @@ def compute_backplanes_batch(
     """
     All default backplanes for N disc-parameter sets over one body's
     anchors: ``out[name]`` has shape ``(N, ny, nx)``. On a CUDA body the N
-    frames are one launch of the batched kernel; elsewhere the plain graph
+    frames are the kernel's launches for a batch; elsewhere the plain graph
     runs frame by frame on the body's device. The natural shape for
     disc-fit parameter sweeps and GUI scrubbing.
 
@@ -872,41 +890,17 @@ def compute_backplanes_batch(
     parameter set, see :meth:`BodyXY._get_xy2angular_matrix`);
     ``discs``: (N, 4) arrays of (x0, y0, r0, rotation).
 
-    The part of the kernel's scene that the frames share (everything but
-    the affines and the disc) is packed once per body and cached with its
+    The kernel packs the part of its scene that the frames share
+    (everything but the affines and the disc) once for the body's cached
     anchors; a call packs only what changes per frame.
     """
-    from .ops import backplanes_kernel
-
     nx, ny = body.get_img_size()
     if nx <= 0 or ny <= 0:
         raise ValueError('nx and ny must be positive to generate backplanes')
-    xy2angulars, discs = backplanes_kernel._frame_inputs(xy2angulars, discs)
-    impl, use_pallas = select_pipeline_impl(body, nx, ny)
-    radii = np.asarray(body.radii, dtype=np.float64)
-    anchors = body._get_pipeline_anchors()
-    dev = body.device
-    if use_pallas:
-        base = body._stable_cache.get('pipeline scene (packed)')
-        if base is None:
-            base = backplanes_kernel.pack_scene(
-                body._get_xy2angular_matrix(),
-                np.asarray(body.get_disc_params(), dtype=np.float64),
-                radii, anchors,
-            )
-            body._stable_cache['pipeline scene (packed)'] = base
-        scenes = backplanes_kernel.with_frames(
-            base, xy2angulars, discs, radii, anchors
-        )
-        out = impl.run_batch(scenes, nx, ny, dev)
-    else:
-        radii_t = f64(radii, dev)
-        anchors_t = anchors_from_numpy(anchors, dev)
-        frames = [
-            impl(nx, ny, f64(a, dev), f64(d, dev), radii_t, anchors_t)
-            for a, d in zip(xy2angulars, discs)
-        ]
-        out = {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
+    impl, _ = select_pipeline_impl(body, nx, ny)
+    _, _, radii, anchors = pipeline_inputs(body)
+    out = impl.frames(nx, ny, xy2angulars, discs, radii, anchors,
+                      device=body.device)
     if as_numpy:
         return _to_numpy(out)
     return out

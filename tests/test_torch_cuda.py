@@ -62,16 +62,24 @@ def kernel_path(tmp_path_factory, device):
 
 
 def _body(nx, ny, disc, device):
+    """A card body of ``disc`` and its host inputs (``pipeline_inputs``)."""
     body = tpm.BodyXY('Jupiter', observer='EARTH', utc='2005-01-01T00:00:00',
                       nx=nx, ny=ny, device=device)
     body.set_disc_params(*disc)
-    *values, anchors = pipeline.pipeline_inputs(body)
-    return body, (*(f64(v, device) for v in values),
-                  pipeline.anchors_from_numpy(anchors, device))
+    return body, pipeline.pipeline_inputs(body)
 
 
 def _numpy(out):
     return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def _frame(impl, nx, ny, inputs, device, row0=0.0):
+    """One frame of ``impl.frames`` on the host inputs of one body, as
+    numpy (ny, nx) planes."""
+    xy2angular, disc, radii, anchors = inputs
+    out = impl.frames(nx, ny, xy2angular[None], disc[None], radii, anchors,
+                      device=device, row0=row0)
+    return {k: v[0].cpu().numpy() for k, v in out.items()}
 
 
 @pytest.mark.parametrize('nx, ny, disc', [
@@ -83,19 +91,19 @@ def _numpy(out):
 def test_kernel_matches_plain_version(
     kernel_path, device, nx, ny, disc, optimize_speed
 ):
-    _, args = _body(nx, ny, disc, device)
+    _, inputs = _body(nx, ny, disc, device)
     kernel = bk.build_backplanes_kernel(
         optimize_speed=optimize_speed, lst_quant=True, **FLAGS,
     )
     plain = pipeline.fused_backplanes_fn(optimize_speed=optimize_speed, **FLAGS)
     before = bk.launch_count()
-    got = _numpy(kernel(nx, ny, *args))
+    got = _frame(kernel, nx, ny, inputs, device)
     torch.cuda.synchronize()
     assert bk.launch_count() == before + 1
     assert got['EMISSION'].dtype == np.float32
     assert got['RADIAL-VELOCITY'].dtype == np.float64
     reports = compare.compare_backplanes(
-        got, _numpy(plain(nx, ny, *args)), float32_ulps=1,
+        got, _frame(plain, nx, ny, inputs, device), float32_ulps=1,
     )
     assert not compare.failures(reports), compare.failures(reports)
     assert np.isfinite(got['EMISSION']).sum() > 100
@@ -103,13 +111,13 @@ def test_kernel_matches_plain_version(
 
 def test_row0_band_equals_full_frame(kernel_path, device):
     nx, ny = 100, 70
-    _, args = _body(nx, ny, (50.3, 34.7, 30.0, 12.3), device)
+    _, inputs = _body(nx, ny, (50.3, 34.7, 30.0, 12.3), device)
     kernel = bk.build_backplanes_kernel(
         optimize_speed=True, lst_quant=True, **FLAGS,
     )
-    full = _numpy(kernel(nx, ny, *args))
-    top = _numpy(kernel(nx, 29, *args))
-    bottom = _numpy(kernel(nx, ny - 29, *args, row0=29.0))
+    full = _frame(kernel, nx, ny, inputs, device)
+    top = _frame(kernel, nx, 29, inputs, device)
+    bottom = _frame(kernel, nx, ny - 29, inputs, device, row0=29.0)
     for name, plane in full.items():
         assert np.array_equal(
             np.concatenate([top[name], bottom[name]]), plane, equal_nan=True
@@ -118,15 +126,15 @@ def test_row0_band_equals_full_frame(kernel_path, device):
 
 def test_subsets_equal_full_set(kernel_path, device):
     nx, ny = 128, 64
-    _, args = _body(nx, ny, (64.3, 32.3, 28.8, 12.3), device)
-    full = _numpy(bk.build_backplanes_kernel(
+    _, inputs = _body(nx, ny, (64.3, 32.3, 28.8, 12.3), device)
+    full = _frame(bk.build_backplanes_kernel(
         optimize_speed=True, lst_quant=True, **FLAGS,
-    )(nx, ny, *args))
+    ), nx, ny, inputs, device)
     for planes in [('LON-GRAPHIC', 'LOCAL-SOLAR-TIME'), ('AZIMUTH',),
                    ('DISTANCE', 'DOPPLER', 'RING-DISTANCE')]:
-        sub = _numpy(bk.build_backplanes_kernel(
+        sub = _frame(bk.build_backplanes_kernel(
             optimize_speed=True, lst_quant=True, planes=planes, **FLAGS,
-        )(nx, ny, *args))
+        ), nx, ny, inputs, device)
         assert set(sub) == set(planes)
         for name in planes:
             assert np.array_equal(sub[name], full[name], equal_nan=True), name
@@ -134,49 +142,67 @@ def test_subsets_equal_full_set(kernel_path, device):
 
 def test_triaxial_kernel_matches_robust_plain_graph(kernel_path, device):
     nx, ny, disc = 100, 70, (50.3, 34.7, 30.0, 12.3)
-    _, (xy2angular, disc_t, radii, anchors) = _body(nx, ny, disc, device)
+    _, (xy2angular, disc, radii, anchors) = _body(nx, ny, disc, device)
     # Jupiter scaled to a triaxial body inside the kernel's geodetic range
-    radii = radii * f64([1.0, 0.98, 0.935], device)
-    shape = type('Shape', (), {'radii': radii.cpu().numpy()})()
+    radii = radii * np.array([1.0, 0.98, 0.935])
+    shape = type('Shape', (), {'radii': radii})()
     assert pipeline._kernel_geodetic_iters(shape) == 4
     kernel = bk.build_backplanes_kernel(
         optimize_speed=True, lst_quant=True, geodetic_iters=4, **FLAGS,
     )
     plain = pipeline.fused_backplanes_fn(robust_geodetic=True, **FLAGS)
-    args = (xy2angular, disc_t, radii, anchors)
+    inputs = (xy2angular, disc, radii, anchors)
     before = bk.launch_count()
-    got = _numpy(kernel(nx, ny, *args))
+    got = _frame(kernel, nx, ny, inputs, device)
     torch.cuda.synchronize()
     assert bk.launch_count() == before + 1
     reports = compare.compare_backplanes(
-        got, _numpy(plain(nx, ny, *args)), float32_ulps=1,
+        got, _frame(plain, nx, ny, inputs, device), float32_ulps=1,
     )
     assert not compare.failures(reports), compare.failures(reports)
     assert np.isfinite(got['LAT-GRAPHIC']).sum() > 100
 
 
-def test_scene_from_device_tensors_equals_host_packing(kernel_path, device):
-    body, args = _body(96, 80, (47.6, 40.2, 30.0, 12.3), device)
-    host = pipeline.pipeline_inputs(body)
-    np.testing.assert_array_equal(bk.pack_scene(*args), bk.pack_scene(*host))
+def test_scene_from_device_tensors_equals_host_packing(kernel_path, device,
+                                                       monkeypatch):
+    """A frame over the kernel's kept shared part (another disc's) equals
+    the frame packed whole, and compute_backplanes, bit for bit."""
+    body, inputs = _body(96, 80, (47.6, 40.2, 30.0, 12.3), device)
     kernel = bk.build_backplanes_kernel(
         optimize_speed=True, lst_quant=True, **FLAGS,
     )
-    from_tensors = _numpy(kernel(96, 80, *args))
-    from_host = _numpy(kernel.run(bk.pack_scene(*host), 96, 80, device))
-    for name, plane in from_tensors.items():
-        assert np.array_equal(plane, from_host[name], equal_nan=True), name
+    monkeypatch.setattr(bk, '_last_packed', None)
+    whole = _frame(kernel, 96, 80, inputs, device)
+    xy2angular, disc, radii, anchors = inputs
+    kernel.frames(96, 80, xy2angular[None], disc[None] + 1.0, radii,
+                  anchors, device=device)
+    assert bk._last_packed[0] is anchors
+    cached = _frame(kernel, 96, 80, inputs, device)
+    main = pipeline.compute_backplanes(body)
+    for name, plane in whole.items():
+        assert np.array_equal(plane, cached[name], equal_nan=True), name
+        assert np.array_equal(plane, main[name], equal_nan=True), name
 
 
 def test_compute_backplanes_launches_kernel(kernel_path, device):
-    body, _ = _body(96, 80, (47.6, 40.2, 30.0, 12.3), device)
+    """The default card body takes one launch for every plane; at
+    'double' it takes the plain graph and launches nothing, and its
+    planes are the plain graph's own."""
+    body, inputs = _body(96, 80, (47.6, 40.2, 30.0, 12.3), device)
     bk.reset_launch_count()
     out = pipeline.compute_backplanes(body)
     assert bk.launch_count() == 1
     assert set(out) == set(bk.PLANE_ORDER)
     body._pipeline_precision = 'double'
-    pipeline.compute_backplanes(body)
+    double = pipeline.compute_backplanes(body)
     assert bk.launch_count() == 1  # 'double' pins the plain graph
+    assert set(double) == set(bk.PLANE_ORDER)
+    plain = pipeline.fused_backplanes_fn(
+        precision='double', optimize_speed=bool(body._optimize_speed),
+        robust_geodetic=pipeline._robust_geodetic(body), **FLAGS)
+    plain = _frame(plain, 96, 80, inputs, device)
+    for name, plane in plain.items():
+        assert np.array_equal(double[name], plane, equal_nan=True), name
 
 
 # ---------------------------------------------------------------------------
@@ -302,23 +328,22 @@ def test_batched_kernel_equals_single_launches(kernel_path, device, planes,
     nx, ny = 101, 67
     body, _ = _body(nx, ny, (50.3, 30.7, 28.0, 12.3), device)
     xys, discs = _sweep(body, 5)
-    anchors = body._get_pipeline_anchors()
-    radii = np.asarray(body.radii)
+    _, _, radii, anchors = pipeline.pipeline_inputs(body)
     kernel = bk.build_backplanes_kernel(
         optimize_speed=True, lst_quant=True, planes=planes, **FLAGS,
     )
-    scenes = bk.pack_scenes(xys, discs, radii, anchors)
     before = (bk.launch_count(), bk.batch_launch_count())
-    got = kernel.run_batch(scenes, nx, ny, device, row0,
-                           frame_launches=frame_launches)
+    got = kernel.frames(nx, ny, xys, discs, radii, anchors, device=device,
+                        row0=row0, frame_launches=frame_launches)
     torch.cuda.synchronize()
     assert (bk.launch_count(), bk.batch_launch_count()) == (
         (before[0] + 5, before[1]) if frame_launches
         else (before[0], before[1] + 1))
     for i in range(len(discs)):
-        single = kernel.run(np.ascontiguousarray(scenes[i]), nx, ny, device,
-                            row0)
-        _equal({k: v[i] for k, v in got.items()}, single)
+        single = kernel.frames(nx, ny, xys[i:i + 1], discs[i:i + 1], radii,
+                               anchors, device=device, row0=row0)
+        _equal({k: v[i] for k, v in got.items()},
+               {k: v[0] for k, v in single.items()})
     if planes is not None:
         assert tuple(got) == tuple(n for n in bk.PLANE_ORDER if n in planes)
     assert got[next(iter(got))].shape == (5, ny, nx)
@@ -326,16 +351,18 @@ def test_batched_kernel_equals_single_launches(kernel_path, device, planes,
 
 def test_batched_kernel_walks_frames_past_the_grid_z_limit(kernel_path,
                                                             device):
-    body, _ = _body(5, 3, (2.0, 1.0, 1.5, 0.0), device)
+    _, (xy2angular, disc, radii, anchors) = _body(
+        5, 3, (2.0, 1.0, 1.5, 0.0), device)
     n = 65535 + 40
-    scene = bk.pack_scene(*pipeline.pipeline_inputs(body))
-    scenes = np.repeat(scene[None], n, axis=0)
     kernel = bk.build_backplanes_kernel(
         optimize_speed=True, lst_quant=True,
         planes=('EMISSION', 'RADIAL-VELOCITY', 'RA'), **FLAGS,
     )
-    got = kernel.run_batch(scenes, 5, 3, device)
-    single = kernel.run(scene, 5, 3, device)
+    got = kernel.frames(5, 3, np.repeat(xy2angular[None], n, axis=0),
+                        np.repeat(disc[None], n, axis=0), radii, anchors,
+                        device=device)
+    single = kernel.frames(5, 3, xy2angular[None], disc[None], radii,
+                           anchors, device=device)
     for name, plane in single.items():
         every = got[name].reshape(n, -1)
         ref = plane.reshape(1, -1).expand_as(every)
@@ -360,20 +387,20 @@ def test_batched_kernel_at_main_path_sizes(kernel_path, device, n, size,
     from planetmapper_tpu_torch.parallel import timeseries
 
     anchors, xys = timeseries._batched_pipeline_inputs(body, ets)
-    scenes = bk.pack_scenes(xys, np.broadcast_to(body.get_disc_params(),
-                                                 (n, 4)),
-                            np.asarray(body.radii), anchors)
+    frames = (xys, np.broadcast_to(body.get_disc_params(), (n, 4)),
+              np.asarray(body.radii), anchors)
     kernel = bk.build_backplanes_kernel(
         optimize_speed=True, lst_quant=True, **FLAGS,
     )
     before = bk.batch_launch_count()
-    got = kernel.run_batch(scenes, size, size, device, frame_launches=False)
+    got = kernel.frames(size, size, *frames, device=device,
+                        frame_launches=False)
     torch.cuda.synchronize()
     plan = bk.batch_plan(n, size, size)
     assert plan.tiles == tiles
     assert bk.batch_launch_count() == before + len(plan.launches)
-    _equal(got, kernel.run_batch(scenes, size, size, device,
-                                 frame_launches=True))
+    _equal(got, kernel.frames(size, size, *frames, device=device,
+                              frame_launches=True))
 
 
 @pytest.mark.parametrize('fill', [0.0, 2.0])
@@ -391,32 +418,30 @@ def test_batched_kernel_in_either_layout_equals_single_launches(
         optimize_speed=True, lst_quant=True,
         planes=('EMISSION', 'RADIAL-VELOCITY', 'LON-GRAPHIC', 'RA'), **FLAGS,
     )
-    scenes = bk.pack_scenes(xys, discs, np.asarray(body.radii),
-                            body._get_pipeline_anchors())
+    frames = (xys, discs, np.asarray(body.radii),
+              body._get_pipeline_anchors())
     assert bk.batch_plan(3, nx, ny).tiles == (fill == 0.0)
-    _equal(kernel.run_batch(scenes, nx, ny, device, 9.0,
-                            frame_launches=False),
-           kernel.run_batch(scenes, nx, ny, device, 9.0,
-                            frame_launches=True))
+    _equal(kernel.frames(nx, ny, *frames, device=device, row0=9.0,
+                         frame_launches=False),
+           kernel.frames(nx, ny, *frames, device=device, row0=9.0,
+                         frame_launches=True))
 
 
 def test_batched_kernel_matches_plain_version(kernel_path, device):
     nx, ny = 128, 64
-    body, args = _body(nx, ny, (64.3, 32.3, 28.8, 12.3), device)
+    body, (_, _, radii, anchors) = _body(
+        nx, ny, (64.3, 32.3, 28.8, 12.3), device)
     xys, discs = _sweep(body, 3)
-    anchors = pipeline.anchors_from_numpy(body._get_pipeline_anchors(),
-                                          device)
     kernel = bk.build_backplanes_kernel(
         optimize_speed=True, lst_quant=True, **FLAGS,
     )
     plain = pipeline.fused_backplanes_fn(**FLAGS)
-    got = kernel.batch(nx, ny, f64(xys, device), f64(discs, device), args[2],
-                       anchors)
+    got = kernel.frames(nx, ny, xys, discs, radii, anchors, device=device)
+    ref = plain.frames(nx, ny, xys, discs, radii, anchors, device=device)
     for i in range(3):
-        ref = _numpy(plain(nx, ny, f64(xys[i], device), f64(discs[i], device),
-                           args[2], anchors))
         reports = compare.compare_backplanes(
-            _numpy({k: v[i] for k, v in got.items()}), ref, float32_ulps=1,
+            _numpy({k: v[i] for k, v in got.items()}),
+            _numpy({k: v[i] for k, v in ref.items()}), float32_ulps=1,
         )
         assert not compare.failures(reports), compare.failures(reports)
 

@@ -390,25 +390,36 @@ def test_generate_backplanes_fused_matches_jax_mixed(bodies):
 # ---------------------------------------------------------------------------
 
 def test_kernel_wrapper_runs_plain_version_on_cpu(bodies):
-    j_body, t_body = bodies
-    xy2angular, disc, radii = _inputs(t_body)
-    anchors = t_body._get_pipeline_anchors()
+    """On a CPU body the selected impl is the plain graph: one frame of its
+    ``frames`` equals the graph's own call word for word; the kernel's
+    ``frames`` refuses the CPU and launches nothing."""
+    _, t_body = bodies
+    xy2angular, disc, radii, anchors = t_pipeline.pipeline_inputs(t_body)
     backplanes_kernel.reset_launch_count()
-    planes = ('LON-GRAPHIC', 'RING-RADIUS', 'RA')
-    wrapper = backplanes_kernel.build_backplanes_kernel(
-        positive_west=True, prograde=True, have_sun=True,
-        optimize_speed=True, lst_quant=True, planes=planes,
-    )
-    got = _run_port(wrapper, NX, NY, xy2angular, disc, radii, anchors)
+    impl, use_pallas = t_pipeline.select_pipeline_impl(t_body, NX, NY)
+    assert not use_pallas
+    got = impl.frames(NX, NY, xy2angular[None], disc[None], radii, anchors,
+                      device='cpu')
     plain = _run_port(
         t_pipeline.fused_backplanes_fn(
             positive_west=True, prograde=True, have_sun=True,
+            precision='mixed',
         ),
         NX, NY, xy2angular, disc, radii, anchors,
     )
-    assert tuple(got) == ('LON-GRAPHIC', 'RA', 'RING-RADIUS')  # PLANE_ORDER
-    for name in planes:
-        np.testing.assert_array_equal(got[name], plain[name], err_msg=name)
+    assert set(got) == set(backplanes_kernel.PLANE_ORDER)
+    for name, plane in plain.items():
+        assert got[name].shape == (1, NY, NX)
+        np.testing.assert_array_equal(got[name][0].numpy(), plane,
+                                      err_msg=name)
+    wrapper = backplanes_kernel.build_backplanes_kernel(
+        positive_west=True, prograde=True, have_sun=True,
+        optimize_speed=True, lst_quant=True,
+        planes=('LON-GRAPHIC', 'RING-RADIUS', 'RA'),
+    )
+    with pytest.raises(ValueError, match='no backplane kernel'):
+        wrapper.frames(NX, NY, xy2angular[None], disc[None], radii, anchors,
+                       device='cpu')
     assert backplanes_kernel.launch_count() == 0
 
 
@@ -493,20 +504,26 @@ def test_lon_centric_range_matches_jax_mixed(bodies):
 
 
 def test_pack_scene_from_numpy_and_tensors(bodies):
+    """One frame packed from the body's host values: float64 and finite,
+    the same words over its own shared part and through the kernel's
+    cache; a solar_lon_e outside [-pi, pi] is refused."""
     _, t_body = bodies
-    host = t_pipeline.pipeline_inputs(t_body)
-    tensors = (*(f64(v) for v in host[:3]),
-               t_pipeline.anchors_from_numpy(host[3], 'cpu'))
-    scene = backplanes_kernel.pack_scene(*host)
-    assert scene.dtype == np.float64
-    assert scene.shape == (backplanes_kernel.SCENE_SIZE,)
-    assert np.isfinite(scene).all()
+    xy2angular, disc, radii, anchors = t_pipeline.pipeline_inputs(t_body)
+    scenes = backplanes_kernel.pack_scenes(xy2angular[None], disc[None],
+                                           radii, anchors)
+    assert scenes.dtype == np.float64
+    assert scenes.shape == (1, backplanes_kernel.SCENE_SIZE)
+    assert np.isfinite(scenes).all()
     np.testing.assert_array_equal(
-        backplanes_kernel.pack_scene(*tensors), scene
-    )
-    bad = dict(host[3], solar_lon_e=np.float64(4.0))
+        backplanes_kernel.pack_scenes(xy2angular[None], disc[None], radii,
+                                      anchors, shared=scenes[0]), scenes)
+    np.testing.assert_array_equal(
+        backplanes_kernel._scenes(xy2angular[None], disc[None], radii,
+                                  anchors), scenes)
+    bad = dict(anchors, solar_lon_e=np.float64(4.0))
     with pytest.raises(ValueError, match='solar_lon_e'):
-        backplanes_kernel.pack_scene(*host[:3], bad)
+        backplanes_kernel.pack_scenes(xy2angular[None], disc[None], radii,
+                                      bad)
 
 
 # ---------------------------------------------------------------------------
@@ -572,19 +589,22 @@ def test_compute_backplanes_batch_matches_jax_and_single_calls(batch_bodies):
 
 
 def test_pack_scenes_equals_pack_scene_word_for_word(batch_bodies):
+    """Packing over a shared part packed earlier (from another frame) equals
+    packing both parts word for word, with shared anchors and with each
+    frame's own; each frame of a batch equals the frame packed alone."""
     _, t_body, xys, discs = batch_bodies
-    radii = np.asarray(t_body.radii, dtype=np.float64)
-    anchors = t_body._get_pipeline_anchors()
+    _, _, radii, anchors = t_pipeline.pipeline_inputs(t_body)
     scenes = backplanes_kernel.pack_scenes(xys, discs, radii, anchors)
     assert scenes.shape == (3, backplanes_kernel.SCENE_SIZE)
+    shared = backplanes_kernel.pack_scenes(xys[2:], discs[2:], radii,
+                                           anchors)[0]
+    np.testing.assert_array_equal(
+        backplanes_kernel.pack_scenes(xys, discs, radii, anchors,
+                                      shared=shared), scenes)
     for i in range(3):
         np.testing.assert_array_equal(
-            scenes[i],
-            backplanes_kernel.pack_scene(xys[i], discs[i], radii, anchors))
-    base = backplanes_kernel.pack_scene(xys[0], discs[0], radii, anchors)
-    np.testing.assert_array_equal(
-        backplanes_kernel.with_frames(base, xys, discs, radii, anchors),
-        scenes)
+            scenes[i], backplanes_kernel.pack_scenes(
+                xys[i:i + 1], discs[i:i + 1], radii, anchors)[0])
     # per-frame anchors (a time series): each frame its own
     from planetmapper_tpu_torch.parallel import timeseries
 
@@ -593,41 +613,107 @@ def test_pack_scenes_equals_pack_scene_word_for_word(batch_bodies):
     per_frame = backplanes_kernel.pack_scenes(series_xys, discs, radii,
                                               series)
     for i in range(3):
+        own = {k: v[i] for k, v in series.items()}
+        alone = backplanes_kernel.pack_scenes(
+            series_xys[i:i + 1], discs[i:i + 1], radii, own)
+        np.testing.assert_array_equal(per_frame[i], alone[0])
+        other = backplanes_kernel.pack_scenes(
+            series_xys[i - 1:i] if i else series_xys[1:2],
+            discs[i - 1:i] if i else discs[1:2], radii, own)[0]
         np.testing.assert_array_equal(
-            per_frame[i], backplanes_kernel.pack_scene(
-                series_xys[i], discs[i], radii,
-                {k: v[i] for k, v in series.items()}))
+            backplanes_kernel.pack_scenes(series_xys[i:i + 1],
+                                          discs[i:i + 1], radii, own,
+                                          shared=other), alone)
     with pytest.raises(ValueError, match='rot0'):
         backplanes_kernel.pack_scenes(
             xys, discs, radii, dict(anchors, rot0=np.zeros((2, 3, 3))))
 
 
 def test_batch_wrapper_runs_plain_version_on_cpu(batch_bodies):
+    """On the CPU ``frames`` of N frames equals each frame alone word for
+    word, with shared anchors and with a time series' own; the kernel's
+    ``frames`` refuses the CPU."""
     _, t_body, xys, discs = batch_bodies
-    anchors = t_pipeline.anchors_from_numpy(
-        t_body._get_pipeline_anchors(), 'cpu')
-    radii = f64(np.asarray(t_body.radii))
+    _, _, radii, anchors = t_pipeline.pipeline_inputs(t_body)
     backplanes_kernel.reset_launch_count()
     backplanes_kernel.reset_batch_launch_count()
-    planes = ('EMISSION', 'RADIAL-VELOCITY', 'RA')
-    wrapper = backplanes_kernel.build_backplanes_kernel(
-        positive_west=True, prograde=True, have_sun=True,
-        optimize_speed=True, lst_quant=True, planes=planes,
-    )
-    got = wrapper.batch(BATCH_NX, BATCH_NY, f64(xys), f64(discs), radii,
-                        anchors)
-    assert tuple(got) == ('RA', 'EMISSION', 'RADIAL-VELOCITY')  # PLANE_ORDER
-    for i in range(3):
-        single = wrapper(BATCH_NX, BATCH_NY, f64(xys[i]), f64(discs[i]),
-                         radii, anchors)
-        for name in planes:
-            torch.testing.assert_close(got[name][i], single[name], rtol=0,
-                                       atol=0, equal_nan=True)
+    impl, use_pallas = t_pipeline.select_pipeline_impl(t_body, BATCH_NX,
+                                                       BATCH_NY)
+    assert not use_pallas
+    from planetmapper_tpu_torch.parallel import timeseries
+
+    series, series_xys = timeseries._batched_pipeline_inputs(
+        t_body, t_body.et + 3600.0 * np.arange(3))
+    for affines, values in ((xys, anchors), (series_xys, series)):
+        got = impl.frames(BATCH_NX, BATCH_NY, affines, discs, radii, values,
+                          device='cpu')
+        assert all(v.shape == (3, BATCH_NY, BATCH_NX) for v in got.values())
+        for i in range(3):
+            own = {k: v[i] if np.ndim(v) > np.ndim(anchors[k]) else v
+                   for k, v in values.items()}
+            single = impl.frames(BATCH_NX, BATCH_NY, affines[i:i + 1],
+                                 discs[i:i + 1], radii, own, device='cpu')
+            for name, plane in single.items():
+                torch.testing.assert_close(got[name][i], plane[0], rtol=0,
+                                           atol=0, equal_nan=True)
     assert backplanes_kernel.launch_count() == 0
     assert backplanes_kernel.batch_launch_count() == 0
+    wrapper = backplanes_kernel.build_backplanes_kernel(
+        positive_west=True, prograde=True, have_sun=True,
+        optimize_speed=True, lst_quant=True,
+        planes=('EMISSION', 'RADIAL-VELOCITY', 'RA'),
+    )
     with pytest.raises(ValueError, match='no backplane kernel'):
-        wrapper.run_batch(np.zeros((2, backplanes_kernel.SCENE_SIZE)),
-                          BATCH_NX, BATCH_NY, 'cpu')
+        wrapper.frames(BATCH_NX, BATCH_NY, xys, discs, radii, anchors,
+                       device='cpu')
+
+
+def test_shared_scene_is_packed_again_for_other_radii(batch_bodies,
+                                                      monkeypatch):
+    """The kernel keeps its last scene: a call on the same anchors and
+    radii packs only its frame parts (none for the lone frame packed last),
+    and one whose radii (a raised surface) or anchors differ packs them
+    whole; a time series' per-frame anchors are never kept."""
+    from planetmapper_tpu_torch.body import _AdjustedSurfaceAltitude
+    from planetmapper_tpu_torch.parallel import timeseries
+
+    _, t_body, xys, discs = batch_bodies
+    calls = []
+    pack = backplanes_kernel.pack_scenes
+
+    def spy(*args, shared=None):
+        calls.append('frame parts' if shared is not None else 'whole')
+        return pack(*args, shared=shared)
+
+    monkeypatch.setattr(backplanes_kernel, 'pack_scenes', spy)
+    monkeypatch.setattr(backplanes_kernel, '_last_packed', None)
+    scenes = backplanes_kernel._scenes
+    _, _, radii, anchors = t_pipeline.pipeline_inputs(t_body)
+    first = scenes(xys, discs, radii, anchors)
+    np.testing.assert_array_equal(
+        scenes(xys[1:], discs[1:], radii, anchors), first[1:])
+    lone = scenes(xys[:1], discs[:1], radii, anchors)
+    assert scenes(xys[:1], discs[:1], radii, anchors) is lone
+    np.testing.assert_array_equal(lone, first[:1])
+    assert calls == ['whole', 'frame parts', 'frame parts']
+    with _AdjustedSurfaceAltitude(t_body, alt=100.0):
+        raised_radii = t_pipeline.pipeline_inputs(t_body)[2]
+    np.testing.assert_array_equal(raised_radii, radii + 100.0)
+    raised = scenes(xys, discs, raised_radii, anchors)
+    np.testing.assert_array_equal(
+        raised, pack(xys, discs, raised_radii, anchors))
+    assert not np.array_equal(raised, first)
+    np.testing.assert_array_equal(scenes(xys, discs, radii, anchors), first)
+    np.testing.assert_array_equal(
+        scenes(xys, discs, radii, dict(anchors)), first)
+    assert calls[3:] == ['whole'] * 3
+    kept = backplanes_kernel._last_packed
+    series, series_xys = timeseries._batched_pipeline_inputs(
+        t_body, t_body.et + 3600.0 * np.arange(3))
+    np.testing.assert_array_equal(
+        scenes(series_xys, discs, radii, series),
+        pack(series_xys, discs, radii, series))
+    assert backplanes_kernel._last_packed is kept
 
 
 def _plan_pixels(n, nx, ny, plan):
@@ -723,7 +809,7 @@ def test_select_pipeline_impl_takes_the_jax_keywords(batch_bodies):
         t_pipeline.select_pipeline_impl(t_body, 16, 16, use_pallas=True)
     impl, use_pallas = t_pipeline.select_pipeline_impl(
         t_body, BATCH_NX, BATCH_NY, use_pallas=True, interpret=True)
-    assert not use_pallas and not hasattr(impl, 'run')
+    assert not use_pallas and callable(impl)  # the plain graph's own call
     t_body._pipeline_precision = 'double'
     try:
         _, use_pallas = t_pipeline.select_pipeline_impl(
