@@ -36,7 +36,7 @@ from typing import Any, Callable, Literal, NamedTuple, Protocol, TypedDict
 import numpy as np
 import torch
 
-from . import tracing
+from . import host_slots, tracing
 from ._device import f64, resolve_device, scene_device
 from .base import (
     _as_readonly_view,
@@ -1610,10 +1610,7 @@ class BodyXY(Body):
                 "unset the switch, or build the body with device='cpu'"
             )
         with tracing.span('pm.map.upload'):
-            if isinstance(img, torch.Tensor):
-                img = img.to(self.device)
-            else:
-                img = torch.as_tensor(np.asarray(img), device=self.device)
+            img = host_slots.upload(img, self.device)
         if img.shape[-2:] != (self._ny, self._nx):
             raise ValueError(
                 f'The input `img` shape {tuple(img.shape)!r} is inconsistent '

@@ -1,6 +1,10 @@
 """
-Two reused page-locked host buffers ("slots") for the planes that
-:func:`.pipeline.compute_backplanes` copies off the card.
+Page-locked host memory reused by the copies between the host and the card:
+two "slots" for the planes that :func:`.pipeline.compute_backplanes` copies
+off the card, and a ring of chunks through which :func:`upload` copies a
+host array onto it. The two share :func:`_pin`, not their sizes.
+
+Slots:
 
 A copy into page-locked memory runs at the link's DMA rate and touches no
 fresh host page; a ``.cpu()`` copy into pageable memory is staged by the
@@ -19,6 +23,22 @@ later calls of that size.
   frames needs: it holds the last frame's planes until the next frame's
   have come.
 - A lock guards the choice, as the GUI computes in threads.
+
+The upload ring (:class:`UploadRing`, used by :func:`upload`):
+
+- :data:`RING_CHUNKS` chunks of :data:`CHUNK_BYTES`, pinned together at
+  first use and kept for the process: the size of an input never decides
+  theirs, so no later upload pins memory.
+- An input's bytes go through the chunks in turn (:func:`chunk_plan`): wait
+  for the last copy that read the chunk to end, copy the bytes into it on
+  the host (PyTorch's copy, spread over its intra-op threads), then one
+  asynchronous copy from the chunk to the card on the current stream. The
+  host copy of a chunk overlaps the card's copy of the one before, and
+  later work on the stream is ordered after every chunk's copy.
+- :func:`upload` returns once every byte is in the chunks, so the caller
+  may change its array at once. An input under :data:`MIN_STAGED_BYTES`,
+  one not C-contiguous, one already on a card, or one bound for the CPU
+  takes the plain copy.
 """
 
 from __future__ import annotations
@@ -30,8 +50,16 @@ import weakref
 import numpy as np
 import torch
 
+from . import tracing
+
 #: The slots kept at most (of the newest size)
 MAX_SLOTS = 2
+#: The upload ring's chunks, and the bytes of each
+RING_CHUNKS = 4
+CHUNK_BYTES = 8 << 20
+#: The least input that goes through the ring; a smaller one takes the
+#: plain copy
+MIN_STAGED_BYTES = 2 << 20
 #: ``cudaHostRegisterPortable``
 _REGISTER_PORTABLE = 1
 
@@ -113,3 +141,99 @@ class HostSlots:
 
 #: The process's pool, used by :func:`.pipeline.compute_backplanes`
 SLOTS = HostSlots()
+
+
+def chunk_plan(n_bytes: int, chunk_bytes: int = CHUNK_BYTES
+               ) -> list[tuple[int, int]]:
+    """The ``[start, stop)`` byte ranges, in order, in which ``n_bytes`` go
+    through chunks of ``chunk_bytes``."""
+    return [(a, min(a + chunk_bytes, n_bytes))
+            for a in range(0, n_bytes, chunk_bytes)]
+
+
+class UploadRing:
+    """``n_chunks`` page-locked chunks of ``chunk_bytes``, each with the
+    event of the last copy to the card that read it."""
+
+    def __init__(self, n_chunks: int = RING_CHUNKS,
+                 chunk_bytes: int = CHUNK_BYTES):
+        self.n_chunks = n_chunks
+        self.chunk_bytes = chunk_bytes
+        self.chunks: list[torch.Tensor] = []
+        self._events: list = [None] * n_chunks
+        self._lock = threading.Lock()
+
+    def ready(self) -> bool:
+        """Whether the chunks are pinned, pinning them at the first call;
+        False where page-locked memory cannot be had."""
+        with self._lock:
+            if not self.chunks:
+                try:
+                    self.chunks = [_pin(self.chunk_bytes)
+                                   for _ in range(self.n_chunks)]
+                except (RuntimeError, OSError):
+                    return False
+            return True
+
+    def copy(self, src: torch.Tensor, dst: torch.Tensor) -> None:
+        """Copy the host bytes ``src`` into the card's bytes ``dst`` (flat
+        uint8 tensors of one length) through the chunks, on the current
+        stream; returns once every byte of ``src`` is in a chunk."""
+        stream = torch.cuda.current_stream(dst.device)
+        with self._lock:
+            for i, (a, b) in enumerate(chunk_plan(src.numel(),
+                                                  self.chunk_bytes)):
+                k = i % self.n_chunks
+                event = self._events[k]
+                if event is not None and not event.query():
+                    tracing.count('map.upload_waits')
+                    event.synchronize()
+                chunk = self.chunks[k][:b - a]
+                with tracing.span('pm.map.upload.stage'):
+                    chunk.copy_(src[a:b])
+                dst[a:b].copy_(chunk, non_blocking=True)
+                self._events[k] = stream.record_event()
+
+
+#: The process's upload ring, used by :func:`upload`
+UPLOADS = UploadRing()
+
+
+def _staged_source(img, device: torch.device) -> torch.Tensor | None:
+    """``img`` as a CPU tensor sharing its memory, where it goes to the card
+    through the ring; None where it takes the plain copy."""
+    if device.type != 'cuda' or img.nbytes < MIN_STAGED_BYTES:
+        return None
+    if not isinstance(img, torch.Tensor):
+        try:
+            img = torch.from_numpy(img)
+        except (TypeError, ValueError):  # negative strides; a dtype or a
+            return None                  # byte order torch lacks
+    if img.device.type != 'cpu' or not img.is_contiguous():
+        return None
+    return img.detach()
+
+
+def upload(img, device: torch.device) -> torch.Tensor:
+    """
+    ``img`` (an array or a tensor) as a tensor on ``device``, of its shape
+    and dtype: through the ring (:class:`UploadRing`) where it is a
+    C-contiguous host array of at least :data:`MIN_STAGED_BYTES` bound for a
+    card whose chunks could be pinned (``map.upload_staged``), else by
+    ``torch.as_tensor`` or ``Tensor.to`` (``map.upload_plain``). Counts the
+    bytes in ``map.upload_bytes``.
+    """
+    if not isinstance(img, torch.Tensor):
+        img = np.asarray(img)
+    src = _staged_source(img, device)
+    if src is not None and UPLOADS.ready():
+        out = torch.empty(src.shape, dtype=src.dtype, device=device)
+        UPLOADS.copy(src.reshape(-1).view(torch.uint8),
+                     out.view(-1).view(torch.uint8))
+        tracing.count('map.upload_staged')
+    else:
+        out = (img.to(device) if isinstance(img, torch.Tensor)
+               else torch.as_tensor(img, device=device))
+        tracing.count('map.upload_plain')
+    tracing.count('map.upload_bytes', out.nbytes)
+    return out

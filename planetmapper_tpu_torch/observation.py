@@ -30,7 +30,7 @@ from typing import Any, Callable, Collection, Literal
 import numpy as np
 import torch
 
-from . import common, utils
+from . import common, host_slots, utils
 from .base import _cache_stable_result
 from .body import (
     _adjust_surface_altitude_decorator,
@@ -479,7 +479,7 @@ class Observation(BodyXY):
         left (from inf - inf) becomes the image's minimum. The data is
         uploaded once.
         """
-        data = torch.as_tensor(self.data, device=self.device)
+        data = host_slots.upload(self.data, self.device)
         if not data.is_floating_point():
             data = data.to(torch.float64)
         frames = torch.where(torch.isnan(data), 0.0, data)

@@ -291,6 +291,129 @@ def test_a_loop_that_drops_its_results_reuses_the_slots(slot_body):
 
 
 # ---------------------------------------------------------------------------
+# map_img's upload through the page-locked ring, against the plain copy
+# ---------------------------------------------------------------------------
+
+UPLOAD_COUNTERS = ('map.upload_staged', 'map.upload_plain')
+
+
+@pytest.fixture
+def ring(monkeypatch):
+    """A fresh upload ring; yields the sizes of its page-locked
+    allocations."""
+    pins = []
+    pin = host_slots._pin
+    monkeypatch.setattr(host_slots, '_pin',
+                        lambda n: pins.append(n) or pin(n))
+    monkeypatch.setattr(host_slots, 'UPLOADS', host_slots.UploadRing())
+    return pins
+
+
+def _same_bits(got, ref):
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert torch.equal(got.reshape(-1).view(torch.uint8),
+                       ref.reshape(-1).view(torch.uint8))
+
+
+def _routes(run) -> tuple[int, int]:
+    """The staged and plain uploads of ``run()``."""
+    start = tracing.counts()
+    run()
+    now = tracing.counts()
+    return tuple(now.get(n, 0) - start.get(n, 0) for n in UPLOAD_COUNTERS)
+
+
+def _linear_frame(seed):
+    """The map_linear cell's frame: normal noise, 4 NaN blocks of 3 px on
+    the disc."""
+    rng = np.random.default_rng(seed)
+    img = rng.standard_normal((SLOT_SIZE, SLOT_SIZE), dtype=np.float32)
+    for i, j in rng.integers(600, 1400, (4, 2)):
+        img[i:i + 3, j:j + 3] = np.nan
+    return img
+
+
+@pytest.fixture(scope='module')
+def frame_body(kernel_path, device):
+    body, _ = _body(SLOT_SIZE, SLOT_SIZE, (1024.0, 1024.0, 601.0, 12.3),
+                    device)
+    return body
+
+
+def test_staged_frame_maps_as_the_plain_upload(frame_body, device, ring):
+    """The map_linear cell's frame: 'linear' onto the 0.25 degree map, the
+    same bits as from the frame uploaded by ``torch.as_tensor``; the map
+    is unchanged when the caller overwrites its array at once."""
+    kw = dict(degree_interval=0.25)
+    for seed in (0, 1):
+        img = _linear_frame(seed)
+        plain = torch.as_tensor(img, device=device)
+        assert _routes(lambda: frame_body.map_img(plain, **kw)) == (0, 1)
+        ref = frame_body.map_img(plain, **kw)
+        got = frame_body.map_img(img, **kw)
+        img[...] = np.nan
+        _same_bits(got, ref)
+    assert _routes(lambda: frame_body.map_img(img, **kw)) == (1, 0)
+    assert ring == [host_slots.CHUNK_BYTES] * host_slots.RING_CHUNKS
+
+
+@pytest.mark.parametrize('layout', ['fortran', 'strided', 'tensor'])
+def test_other_layouts_map_as_the_plain_upload(frame_body, device, ring,
+                                               layout):
+    """A Fortran-ordered frame and a strided view take the plain copy; a
+    CPU tensor takes the ring, as an array does."""
+    kw = dict(degree_interval=1)
+    img = _linear_frame(2)
+    src = {'fortran': np.asfortranarray(img),
+           'strided': np.stack([img, img], axis=-1)[..., 0],
+           'tensor': torch.from_numpy(img)}[layout]
+    ref = frame_body.map_img(torch.as_tensor(img, device=device), **kw)
+    routes = _routes(lambda: _same_bits(frame_body.map_img(src, **kw), ref))
+    assert routes == ((1, 0) if layout == 'tensor' else (0, 1))
+
+
+CHUNK = host_slots.CHUNK_BYTES
+RING = host_slots.RING_CHUNKS * CHUNK
+#: A body of 683 x 89 pixels, an odd number of bytes a uint8 plane
+ODD = (683, 89)
+
+
+@pytest.mark.parametrize('n_bytes', [CHUNK - 1, CHUNK, 2 * RING,
+                                     3 * CHUNK + 12345])
+def test_upload_moves_every_byte(device, ring, n_bytes):
+    """One byte under a chunk, a chunk, two whole rings and an odd
+    remainder: the bytes on the card are the source's."""
+    src = np.random.default_rng(n_bytes).integers(0, 256, n_bytes, np.uint8)
+    got = []
+    assert _routes(lambda: got.append(host_slots.upload(src, device))) == (
+        1, 0)
+    _same_bits(got[0].cpu(), torch.from_numpy(src))
+
+
+@pytest.mark.parametrize('nx, ny, planes, dtype', [
+    (256, 256, CHUNK // 2**18 - 1, np.float32),  # under a chunk
+    (256, 256, CHUNK // 2**18, np.float32),  # a chunk
+    (256, 256, 2 * RING // 2**18, np.float32),  # two whole rings
+    (*ODD, (CHUNK // (ODD[0] * ODD[1]) + 1) | 1, np.uint8),  # odd remainder
+])
+def test_cube_sizes_map_as_the_plain_upload(kernel_path, device, ring, nx,
+                                            ny, planes, dtype):
+    """Cubes under a chunk, of a chunk, of two whole rings and of a chunk and
+    an odd remainder: their 'nearest' maps the same bits as from the cube
+    uploaded by ``torch.as_tensor``."""
+    body, _ = _body(nx, ny, (nx / 2, ny / 2, ny / 3, 0.0), device)
+    rng = np.random.default_rng(planes)
+    cube = (rng.integers(0, 256, (planes, ny, nx)).astype(dtype)
+            if dtype == np.uint8 else
+            rng.standard_normal((planes, ny, nx), dtype=dtype))
+    kw = dict(interpolation='nearest', degree_interval=10)
+    ref = body.map_img(torch.as_tensor(cube, device=device), **kw)
+    assert _routes(lambda: _same_bits(body.map_img(cube, **kw), ref)) == (
+        1, 0)
+    assert ring == [CHUNK] * host_slots.RING_CHUNKS
+
+
+# ---------------------------------------------------------------------------
 # The batched backplane kernel and the meshes of parallel/
 # ---------------------------------------------------------------------------
 

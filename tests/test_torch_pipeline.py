@@ -20,6 +20,11 @@ synthetic SPICE kernels (Jupiter from the Earth on 2005-01-01):
   host tensors here): the same arrays as a ``.cpu()`` a plane, a slot lent
   again only once no array from it survives, the fallback and its counter,
   a new size, and the paths that keep the old copy.
+- the upload ring of ``map_img`` (its chunks ordinary host tensors and its
+  events stand-ins here): the chunk plan covers every byte once and in
+  order, the route an input takes, the bytes through a ring smaller than
+  the input, a wait counted only where a chunk's last copy has not ended,
+  the chunks pinned once whatever the sizes, and the plain route counted.
 
 The kernel itself against its plain version on the card is
 ``tests/test_torch_cuda.py``.
@@ -29,6 +34,7 @@ from __future__ import annotations
 
 import math
 import threading
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -987,6 +993,138 @@ def test_cpu_bodies_and_the_batch_keep_the_fresh_copy(bodies, batch_bodies,
         assert not any(isinstance(_lease_of(v), host_slots.Lease)
                        for v in out.values())
     assert host_slots.SLOTS.slots == [] and slots() == (0, 0)
+
+
+# ---------------------------------------------------------------------------
+# The upload ring of map_img (its chunks ordinary host tensors, its events
+# stand-ins that end when waited on)
+# ---------------------------------------------------------------------------
+
+CHUNK = host_slots.CHUNK_BYTES
+RING = host_slots.RING_CHUNKS * CHUNK
+
+
+@pytest.mark.parametrize('n_bytes', [
+    0, 1, CHUNK - 1, CHUNK, CHUNK + 1, RING, 2 * RING, 3 * CHUNK + 12345])
+def test_chunk_plan_covers_every_byte_once_in_order(n_bytes):
+    plan = host_slots.chunk_plan(n_bytes)
+    assert [a for a, _ in plan] == list(range(0, n_bytes, CHUNK))
+    assert all(b - a == CHUNK for a, b in plan[:-1])
+    assert all(0 < b - a <= CHUNK for a, b in plan)
+    covered = np.zeros(n_bytes, dtype=int)
+    for a, b in plan:
+        covered[a:b] += 1
+    assert np.all(covered == 1)
+
+
+_BIG = (1024, 1024)  # 4 MiB of float32
+
+
+@pytest.mark.parametrize('make, staged', [
+    (lambda: np.ones(_BIG, np.float32), True),
+    (lambda: torch.ones(_BIG), True),  # a CPU tensor takes the same route
+    (lambda: np.ones(host_slots.MIN_STAGED_BYTES, np.uint8), True),
+    (lambda: np.ones(host_slots.MIN_STAGED_BYTES - 1, np.uint8), False),
+    (lambda: np.ones(_BIG, np.float32)[:, ::2], False),  # not contiguous
+    (lambda: np.asfortranarray(np.ones(_BIG, np.float32)), False),
+    (lambda: np.ones(_BIG, np.float32)[::-1], False),  # negative strides
+    (lambda: np.ones(_BIG, '>f4'), False),  # a byte order torch lacks
+    (lambda: torch.ones(_BIG).t(), False),
+    (lambda: torch.ones(_BIG, device='meta'), False),  # not on the host
+])
+def test_upload_route_follows_the_input(make, staged):
+    img = make()
+    src = host_slots._staged_source(img, torch.device('cuda'))
+    assert (src is not None) == staged
+    if staged:
+        assert src.data_ptr() == (img.data_ptr() if torch.is_tensor(img)
+                                  else img.ctypes.data)
+    assert host_slots._staged_source(img, torch.device('cpu')) is None
+
+
+class _Event:
+    """A copy's stand-in event: it ends when waited on."""
+
+    def __init__(self, log):
+        self.done = False
+        log.append(self)
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.done = True
+
+
+@pytest.fixture
+def ring(monkeypatch):
+    """A ring of 3 chunks of 64 B, ordinary host tensors; yields the ring
+    and the events its copies recorded."""
+    events = []
+    stream = SimpleNamespace(record_event=lambda: _Event(events))
+    monkeypatch.setattr(torch.cuda, 'current_stream', lambda device: stream)
+    pins = []
+    monkeypatch.setattr(host_slots, '_pin', lambda n: pins.append(n) or
+                        torch.empty(n, dtype=torch.uint8))
+    ring = host_slots.UploadRing(3, 64)
+    ring.pins, ring.events = pins, events
+    tracing.reset('map.upload_waits')
+    return ring
+
+
+@pytest.mark.parametrize('n_bytes, waits', [
+    (63, 0), (64, 0), (192, 0), (5 * 64 + 7, 3)])
+def test_ring_copies_every_byte_and_waits_on_reuse(ring, n_bytes, waits):
+    """The bytes through a ring of 192 B; a chunk used again in one call
+    waits for its last copy. Events of another call have ended (a caller's
+    synchronise): no wait."""
+    assert ring.ready()
+    for seed in (0, 1):
+        src = torch.randint(0, 256, (n_bytes,), dtype=torch.uint8,
+                            generator=torch.Generator().manual_seed(seed))
+        dst = torch.zeros(n_bytes, dtype=torch.uint8)
+        ring.copy(src, dst)
+        assert torch.equal(dst, src)
+        assert len(ring.events) == len(host_slots.chunk_plan(n_bytes, 64))
+        for event in ring.events:
+            event.done = True
+        ring.events.clear()
+    assert tracing.counts().get('map.upload_waits', 0) == 2 * waits
+    assert ring.pins == [64] * 3
+
+
+def test_ring_waits_on_a_copy_still_running(ring):
+    ring.ready()
+    src = torch.arange(64, dtype=torch.uint8)
+    ring.copy(src, torch.zeros(64, dtype=torch.uint8))
+    (first,) = ring.events
+    assert not first.done
+    ring.copy(src, torch.zeros(64, dtype=torch.uint8))
+    assert first.done
+    assert tracing.counts()['map.upload_waits'] == 1
+
+
+def test_ring_is_pinned_once_and_a_failure_is_not_ready(ring, monkeypatch):
+    assert ring.ready() and ring.ready()
+    assert ring.pins == [64] * 3
+
+    def refuse(n):
+        raise RuntimeError('cudaHostRegister failed')
+
+    monkeypatch.setattr(host_slots, '_pin', refuse)
+    assert not host_slots.UploadRing(3, 64).ready()
+
+
+def test_upload_to_the_host_is_the_plain_copy_counted():
+    names = ('map.upload_staged', 'map.upload_plain', 'map.upload_bytes')
+    tracing.reset(*names)
+    img = np.ones(_BIG, np.float32)
+    out = host_slots.upload(img, torch.device('cpu'))
+    assert out.data_ptr() == img.ctypes.data
+    tensor = torch.ones(3, 5, dtype=torch.float64)
+    assert host_slots.upload(tensor, torch.device('cpu')) is tensor
+    counts = tracing.counts()
+    assert [counts.get(n, 0) for n in names] == [0, 2, img.nbytes + 120]
 
 
 @pytest.mark.parametrize('frames', [1, 3, 1000])

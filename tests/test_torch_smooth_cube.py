@@ -465,3 +465,29 @@ def test_smooth_spans_hold_the_kernels_on_the_card(card):
     assert map_smooth_kernel.launch_count() == samplers + 1
     names = {s[2] for s in _spans(prof)}
     assert {'pm.map.to_float64', 'pm.map.pchip', 'pm.map.smooth'} <= names
+
+
+@pytest.mark.cuda
+def test_band_cubes_staged_map_as_the_plain_upload(card, monkeypatch):
+    """The cell's three band cubes (1050, 1213, 1400 planes) in turn, twice:
+    each 'smooth' map the same bits as from the cube uploaded by
+    ``torch.as_tensor``, every cube through the upload ring, and the ring
+    pinned once, its chunk count, whatever the cube's size."""
+    from planetmapper_tpu_torch import host_slots
+
+    pins = []
+    pin = host_slots._pin
+    monkeypatch.setattr(host_slots, '_pin',
+                        lambda n: pins.append(n) or pin(n))
+    monkeypatch.setattr(host_slots, 'UPLOADS', host_slots.UploadRing())
+    kw = dict(interpolation='smooth', degree_interval=1)
+    staged = tracing.counts().get('map.upload_staged', 0)
+    for i, planes in enumerate((1050, 1213, 1400) * 2):
+        cube = _cube(20 + i, planes=planes)
+        ref = card.map_img(torch.as_tensor(cube, device='cuda'), **kw)
+        got = card.map_img(cube, **kw)
+        cube[...] = 0.0
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert tracing.counts()['map.upload_staged'] - staged == 6
+    assert pins == [host_slots.CHUNK_BYTES] * host_slots.RING_CHUNKS

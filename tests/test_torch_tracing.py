@@ -17,7 +17,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 import planetmapper_tpu_torch as tpm
-from planetmapper_tpu_torch import pipeline, tracing
+from planetmapper_tpu_torch import host_slots, pipeline, tracing
 from planetmapper_tpu_torch.ops import backplanes_kernel as bk
 from planetmapper_tpu_torch.ops import dsk_kernel
 from planetmapper_tpu_torch.ops import map_infill_kernel
@@ -244,6 +244,36 @@ def test_map_img_counts_the_solves_it_skips(body, frame):
     assert traced['map.solves'] == 2
 
 
+UPLOAD_COUNTERS = ('map.upload_staged', 'map.upload_plain',
+                   'map.upload_bytes', 'map.upload_waits')
+
+
+def _upload_counts(run) -> dict[str, int]:
+    """The upload counters' traced tallies over ``run()`` under a
+    profiler, and its program spans."""
+    tracing.reset(*UPLOAD_COUNTERS)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        run()
+    traced = tracing.traced_counts()
+    return {n: traced.get(n, 0) for n in UPLOAD_COUNTERS}, _spans(prof)
+
+
+def test_map_img_counts_its_upload(body, frame):
+    """A CPU body takes the plain copy: one upload, the frame's bytes, no
+    staging span; the untraced tally counts it too."""
+    body.map_img(frame, **MAP)
+    counted, spans = _upload_counts(lambda: body.map_img(frame, **MAP))
+    assert counted == {'map.upload_staged': 0, 'map.upload_plain': 1,
+                       'map.upload_bytes': frame.nbytes,
+                       'map.upload_waits': 0}
+    assert 'pm.map.upload.stage' not in {s[2] for s in spans}
+    body.map_img(torch.from_numpy(frame), **MAP)
+    assert tracing.counts()['map.upload_plain'] == 2
+
+
 def test_launch_counts_read_the_registry():
     """The wrappers' launch counts are the registry's counters, and a reset
     clears the one counter only."""
@@ -308,3 +338,27 @@ def test_map_spline_launch_counted_on_the_card(kernel_path, device, frame):
     assert tracing.counts()['launches.map_spline'] == before + 1
     assert {'pm.map.upload', 'pm.map.infill', 'pm.map.spline'} <= {
         s[2] for s in _spans(prof)}
+
+
+@pytest.mark.cuda
+def test_map_img_stages_its_upload_on_the_card(kernel_path, device):
+    """A card body stages a host frame of several chunks: one staged upload,
+    its bytes, a ``pm.map.upload.stage`` span a chunk inside
+    ``pm.map.upload``; a frame already on the card takes the plain copy."""
+    card = tpm.BodyXY('Jupiter', observer='EARTH', utc=UTC, nx=2048,
+                      ny=1536, device=device)
+    card.set_disc_params(1024.0, 768.0, 500.0, 12.3)
+    img = np.random.default_rng(6).standard_normal((1536, 2048)).astype(
+        np.float32)
+    card.map_img(img, **MAP)
+    counted, spans = _upload_counts(lambda: card.map_img(img, **MAP))
+    torch.cuda.synchronize()
+    assert counted['map.upload_staged'] == 1
+    assert counted['map.upload_plain'] == 0
+    assert counted['map.upload_bytes'] == img.nbytes
+    stages = _inside(spans, 'pm.map.upload.stage', 'pm.map.upload')
+    assert len(stages) == len(host_slots.chunk_plan(img.nbytes))
+    on_card = torch.as_tensor(img, device=device)
+    counted, _ = _upload_counts(lambda: card.map_img(on_card, **MAP))
+    assert counted['map.upload_plain'] == 1
+    assert counted['map.upload_staged'] == 0
