@@ -31,6 +31,7 @@ from __future__ import annotations
 import datetime
 import math
 import os
+import weakref
 from typing import Any, Callable, Literal, NamedTuple, Protocol, TypedDict
 
 import numpy as np
@@ -95,6 +96,31 @@ class Backplane(NamedTuple):
 
 class BackplaneNotFoundError(Exception):
     pass
+
+
+class _WeakMethod:
+    """
+    A body's own getter, held in its backplane registry through a weak
+    reference to the body. A bound method there would close a cycle (body,
+    registry, method, body), so a dropped body and its device tensors would
+    live until the cycle collector next ran; with this one they go with the
+    body's last reference.
+    """
+
+    __slots__ = ('_ref',)
+
+    def __init__(self, method: Callable) -> None:
+        self._ref = weakref.WeakMethod(method)
+
+    def bound(self) -> Callable:
+        """The bound method, which holds the body."""
+        method = self._ref()
+        if method is None:
+            raise ReferenceError('the body of this backplane has been freed')
+        return method
+
+    def __call__(self, *args, **kwargs):
+        return self.bound()(*args, **kwargs)
 
 
 class BodyXY(Body):
@@ -699,6 +725,10 @@ class BodyXY(Body):
         name = self.standardise_backplane_name(name)
         if name in self.backplanes:
             raise ValueError(f'Backplane named {name!r} is already registered')
+        get_img, get_map = (
+            _WeakMethod(f) if getattr(f, '__self__', None) is self else f
+            for f in (get_img, get_map)
+        )
         self.backplanes[name] = Backplane(
             name=name, description=description, get_img=get_img, get_map=get_map
         )
@@ -714,10 +744,13 @@ class BodyXY(Body):
         print(self.backplane_summary_string())
 
     def get_backplane(self, name: str) -> Backplane:
-        """Retrieve a registered backplane by (standardised) name."""
+        """
+        Retrieve a registered backplane by (standardised) name. Its getters
+        hold the body, as bound methods do.
+        """
         name = self.standardise_backplane_name(name)
         try:
-            return self.backplanes[name]
+            bp = self.backplanes[name]
         except KeyError as exc:
             raise BackplaneNotFoundError(
                 '{n!r} not found. Currently registered backplanes are: {r}.'.format(
@@ -725,6 +758,11 @@ class BodyXY(Body):
                     r=', '.join([repr(n) for n in self.backplanes.keys()]),
                 )
             ) from exc
+        return bp._replace(**{
+            key: f.bound()
+            for key, f in (('get_img', bp.get_img), ('get_map', bp.get_map))
+            if isinstance(f, _WeakMethod)
+        })
 
     def get_backplane_img(self, name: str, *, alt: float = 0.0) -> np.ndarray:
         """Generate (a copy of) a backplane image."""

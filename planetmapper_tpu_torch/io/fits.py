@@ -10,8 +10,11 @@ scaling. The API mirrors the astropy names the reference uses (``Header``,
 ``Card``, ``PrimaryHDU``, ``ImageHDU``, ``HDUList``, ``open``) so the
 observation layer reads the same files and writes files astropy can read.
 
-This is the port's own copy of ``planetmapper_tpu/io/fits.py`` (numpy
-only), so that the two packages write the same bytes for the same HDUs.
+This is the port's own copy of ``planetmapper_tpu/io/fits.py``, so that
+the two packages write the same bytes for the same HDUs. Its one addition:
+:meth:`HDUList.writeto` names each HDU's encoding and write as the spans
+``pm.fits.encode`` and ``pm.fits.write`` and counts ``fits.hdus_written``
+and ``fits.bytes_written`` (the bytes handed to the file; :mod:`..tracing`).
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from builtins import open as _builtins_open
 from typing import Any, Iterator
 
 import numpy as np
+
+from .. import tracing
 
 BLOCK = 2880
 CARD_LEN = 80
@@ -535,7 +540,12 @@ class HDUList(list):
         opener = gzip.open if str(path).endswith('.gz') else _builtins_open
         with opener(path, 'wb') as f:  # type: ignore[operator]
             for i, hdu in enumerate(self):
-                f.write(hdu._serialise(primary=(i == 0)))
+                with tracing.span('pm.fits.encode'):
+                    raw = hdu._serialise(primary=(i == 0))
+                with tracing.span('pm.fits.write'):
+                    f.write(raw)
+                tracing.count('fits.hdus_written')
+                tracing.count('fits.bytes_written', len(raw))
 
     def close(self) -> None:
         pass

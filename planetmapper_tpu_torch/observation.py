@@ -18,6 +18,12 @@ Both saves write the WIREFRAME overlay HDU by default
 (``include_wireframe=True``), which needs matplotlib to render: without it
 they raise the ``ImportError`` before any work and write no file.
 ``run_gui`` opens the GUI (:mod:`.gui`) on this observation.
+
+While a profiler records (:mod:`.tracing`) the open is the span
+``pm.obs.open`` (the file read, the header's keywords, the body, the disc),
+and a save's primary HDU ``pm.export.primary`` and each backplane's getter
+and array ``pm.export.plane`` (counter ``export.planes``); the file's
+encoding and write are :mod:`.io.fits`'s.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from typing import Any, Callable, Collection, Literal
 import numpy as np
 import torch
 
-from . import common, host_slots, utils
+from . import common, host_slots, tracing, utils
 from .base import _cache_stable_result
 from .body import (
     _adjust_surface_altitude_decorator,
@@ -74,33 +80,34 @@ class Observation(BodyXY):
                 raise TypeError(
                     f'Cannot set {forbidden} for Observation objects'
                 )
-        self._path_arg = path
-        self._data_arg = data
-        self._header_arg = header
-        self.path: str | None = (
-            None if path is None
-            else str(os.path.expandvars(os.path.expanduser(path)))
-        )
-        self.header: fits.Header = None  # type: ignore[assignment]
-        self._ingest_source(data, header)
-        if self.header is not None:
-            self._add_kw_from_header(kwargs, self.header)
-        ny, nx = self.data.shape[-2:]
-        if self.header is None:
-            # defer so self.target/utc exist for the card values
-            self.header = fits.Header()
-            super().__init__(nx=nx, ny=ny, **kwargs)
-            self.header = fits.Header(
-                {'OBJECT': self.target, 'DATE-OBS': self.utc}
+        with tracing.span('pm.obs.open'):
+            self._path_arg = path
+            self._data_arg = data
+            self._header_arg = header
+            self.path: str | None = (
+                None if path is None
+                else str(os.path.expandvars(os.path.expanduser(path)))
             )
-        else:
-            super().__init__(nx=nx, ny=ny, **kwargs)
-        # keep the saved constructor arguments consistent with the
-        # normalised attributes (repr/copy round-trips)
-        if self._data_arg is not None:
-            self._data_arg = self.data
-        if self._header_arg is not None:
-            self._header_arg = self.header
+            self.header: fits.Header = None  # type: ignore[assignment]
+            self._ingest_source(data, header)
+            if self.header is not None:
+                self._add_kw_from_header(kwargs, self.header)
+            ny, nx = self.data.shape[-2:]
+            if self.header is None:
+                # defer so self.target/utc exist for the card values
+                self.header = fits.Header()
+                super().__init__(nx=nx, ny=ny, **kwargs)
+                self.header = fits.Header(
+                    {'OBJECT': self.target, 'DATE-OBS': self.utc}
+                )
+            else:
+                super().__init__(nx=nx, ny=ny, **kwargs)
+            # keep the saved constructor arguments consistent with the
+            # normalised attributes (repr/copy round-trips)
+            if self._data_arg is not None:
+                self._data_arg = self.data
+            if self._header_arg is not None:
+                self._header_arg = self.header
 
     def _ingest_source(
         self, data: np.ndarray | None, header: fits.Header | None
@@ -894,8 +901,9 @@ class Observation(BodyXY):
         )
         if pre_primary_message:
             say(pre_primary_message)
-        data, header = primary(total)
-        hdus = [fits.PrimaryHDU(data=data, header=header)]
+        with tracing.span('pm.export.primary'):
+            data, header = primary(total)
+            hdus = [fits.PrimaryHDU(data=data, header=header)]
         if include_backplanes:
             for i, (name, backplane) in enumerate(self.backplanes.items()):
                 self._update_progress_hook((i + 1) / total)
@@ -905,12 +913,10 @@ class Observation(BodyXY):
                 h = self._about_header(backplane.description)
                 if decorate_hdu is not None:
                     decorate_hdu(h)
-                hdus.append(
-                    fits.ImageHDU(
-                        data=np.asarray(plane(backplane)), header=h,
-                        name=name,
-                    )
-                )
+                with tracing.span('pm.export.plane'):
+                    img = np.asarray(plane(backplane))
+                tracing.count('export.planes')
+                hdus.append(fits.ImageHDU(data=img, header=h, name=name))
         if wireframe is not None:
             say(' Creating wireframe...')
             wf_fn, wf_about = wireframe

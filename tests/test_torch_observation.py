@@ -32,11 +32,13 @@ Bars:
 
 from __future__ import annotations
 
+import gc
 import gzip
 import os
 import subprocess
 import sys
 import unittest.mock as mock
+import weakref
 
 import jax  # noqa: F401  (the JAX package under test runs on it)
 import numpy as np
@@ -623,6 +625,37 @@ def test_round_trip_through_both_packages(navigated, saved, kernels):
                                        t_nav.get_disc_params(), rtol=0,
                                        atol=DISC_BAR)
             np.testing.assert_array_equal(obs.data, t_nav.data)
+
+
+def test_a_dropped_observation_goes_with_its_last_reference(files, tmp_path):
+    """The backplane registry holds the body's own getters weakly, so an
+    Observation opened, saved and dropped is freed with its cached tensors
+    when its last reference goes, with the cycle collector off; a backplane
+    taken by ``get_backplane`` holds its body, as a bound method does."""
+    out = str(tmp_path / 'saved.fits')
+
+    def open_and_save():
+        obs = tpm.Observation(files['tan'], device='cpu')
+        obs.set_disc_params(*DISC)
+        obs.save_observation(out, include_wireframe=False, print_info=False)
+        tensors = [t for v in obs._cache.values()
+                   for t in (v if isinstance(v, tuple) else (v,))
+                   if isinstance(t, torch.Tensor)]
+        assert tensors
+        return weakref.ref(obs), [weakref.ref(t) for t in tensors]
+
+    open_and_save()  # the first call in a process may import lazily
+    gc.collect()
+    gc.disable()
+    try:
+        obs, tensors = open_and_save()
+        assert obs() is None
+        assert all(t() is None for t in tensors)
+        emission = tpm.Observation(files['tan'], device='cpu') \
+            .get_backplane('EMISSION')
+        assert emission.get_img().shape == (NY, NX)
+    finally:
+        gc.enable()
 
 
 def test_make_filename_and_wavelengths(observations, kernels):

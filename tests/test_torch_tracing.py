@@ -2,7 +2,8 @@
 The port's spans and counters (``planetmapper_tpu_torch.tracing``): with no
 profiler recording a span enters no ``record_function`` and the traced
 tally stays empty; under ``torch.profiler`` the stages of
-``compute_backplanes`` and of a 'linear' ``map_img`` land on the profiler's
+``compute_backplanes``, of a 'linear' ``map_img`` and of an
+``Observation``'s open and ``save_observation`` land on the profiler's
 timeline, each inside the span that encloses it; the kernels' launch counts
 read through their wrappers' functions are the registry's counters. The
 ``cuda``-marked cases run on a card (this file imports no JAX:
@@ -295,6 +296,84 @@ def test_launch_counts_read_the_registry():
     assert {lib.LIBRARY.counter for lib in (bk, msp, msk, pk)} == {
         'launches.backplanes26', 'launches.map_spline', 'launches.map_smooth',
         'launches.pchip'}
+
+
+EXPORT_COUNTERS = ('export.planes', 'fits.hdus_written',
+                   'fits.bytes_written')
+
+
+@pytest.fixture(scope='module')
+def observation_file(kernel_path, tmp_path_factory):
+    """A one-frame file whose header names the target, the date and the
+    disc (the ``PLANMAP DISC`` cards), as a navigated instrument file."""
+    from planetmapper_tpu_torch.io import fits
+
+    header = fits.Header([('OBJECT', 'JUPITER'),
+                          ('DATE-OBS', '2005-01-01T00:02:00'),
+                          ('TELESCOP', 'Keck II'), ('INSTRUME', 'NIRC2')])
+    for key, value in zip(('X0', 'Y0', 'R0', 'ROT'), DISC):
+        header[f'HIERARCH PLANMAP DISC {key}'] = value
+    data = np.random.default_rng(7).standard_normal((1, SIZE, SIZE))
+    path = tmp_path_factory.mktemp('observation') / 'frame.fits'
+    fits.HDUList([fits.PrimaryHDU(data=data.astype(np.float32),
+                                  header=header)]).writeto(path)
+    return path
+
+
+def _save(path, out):
+    obs = tpm.Observation(path, observer='EARTH', device='cpu')
+    obs.save_observation(out, include_wireframe=False, print_info=False)
+    return obs
+
+
+def test_save_observation_spans_and_counters_under_the_profiler(
+        observation_file, tmp_path):
+    """An open and a save under a profiler: one ``pm.obs.open``, the
+    primary HDU's parts, a ``pm.export.plane`` a backplane, and an encode
+    and a write a HDU, each write after its encode; the traced counters
+    count the 26 planes, the 27 HDUs and every byte of the file."""
+    tracing.reset(*EXPORT_COUNTERS)
+    out = tmp_path / 'saved.fits'
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function('outer'):
+            obs = _save(observation_file, out)
+    assert obs.get_disc_method() == 'header'
+    spans = _spans(prof)
+    assert len(_inside(spans, 'pm.obs.open', 'outer')) == 1
+    assert len(_inside(spans, 'pm.export.primary', 'outer')) == 1
+    planes = _inside(spans, 'pm.export.plane', 'outer')
+    assert len(planes) == len(obs.backplanes) == 26
+    encodes = sorted(_inside(spans, 'pm.fits.encode', 'outer'))
+    writes = sorted(_inside(spans, 'pm.fits.write', 'outer'))
+    assert len(encodes) == len(writes) == 27
+    for (_, encoded, _), (written, _, _) in zip(encodes, writes):
+        assert encoded <= written
+    assert max(s[1] for s in planes) <= encodes[0][0]
+    traced = tracing.traced_counts()
+    assert traced['export.planes'] == 26
+    assert traced['fits.hdus_written'] == 27
+    assert traced['fits.bytes_written'] == out.stat().st_size
+    assert out.stat().st_size % 2880 == 0
+
+
+def test_save_observation_records_nothing_without_a_profiler(
+        monkeypatch, observation_file, tmp_path):
+    """Untraced, the open and the save enter no ``record_function`` and
+    leave the traced tallies as they were; the counters still count."""
+    assert not tracing.recording()
+    monkeypatch.setattr(torch.profiler, 'record_function',
+                        _RaisingRecordFunction)
+    monkeypatch.setattr(torch.autograd.profiler, 'record_function',
+                        _RaisingRecordFunction)
+    tracing.reset(*EXPORT_COUNTERS)
+    out = tmp_path / 'untraced.fits'
+    _save(observation_file, out)
+    traced = tracing.traced_counts()
+    assert not set(EXPORT_COUNTERS) & set(traced)
+    counts = tracing.counts()
+    assert counts['export.planes'] == 26
+    assert counts['fits.hdus_written'] == 27
+    assert counts['fits.bytes_written'] == out.stat().st_size
 
 
 @pytest.fixture(scope='module')
